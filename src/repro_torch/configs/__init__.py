@@ -1,0 +1,32 @@
+"""Architecture registry of the port: the configs whose dense path is
+ported (a subset of ``repro.configs``), copied so the port imports nothing
+from the reference."""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Dict, List
+
+from repro_torch.models.transformer import ModelConfig
+
+ARCH_IDS: List[str] = ["llama31-8b"]
+
+_MODULES: Dict[str, str] = {"llama31-8b": "llama31_8b"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    config: ModelConfig
+    smoke: ModelConfig
+    notes: str = ""
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    if arch_id not in _MODULES:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet; ported: {', '.join(ARCH_IDS)}"
+        )
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+    return mod.SPEC

@@ -1,0 +1,94 @@
+"""Serving entry point: tiered co-located instances with MIKU request control
+(port of ``repro/launch/serve.py``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --requests 24 --mode miku
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --requests 4
+
+Modes: ``opt`` (each instance alone), ``racing`` (no control), ``miku``
+(dynamic control).  Runs on the card unless ``--device cpu``.  The tok/s
+printed is the simulated queue clock's (the reference's tier constants),
+not a measurement of the device.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.core.controller import MikuConfig, MikuController
+from repro_torch.core.littles_law import EstimatorConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import TransformerLM
+from repro_torch.serving.engine import (
+    EngineConfig,
+    Request,
+    ServingEngine,
+    TieredServingCluster,
+    param_bytes,
+)
+
+
+def build_cluster(arch_id: str = "llama31-8b", *, full: bool = False,
+                  n_requests: int = 24, mode: str = "miku", max_new: int = 24,
+                  stream_chunks: int = 64, seed: int = 0,
+                  device=None) -> TieredServingCluster:
+    """A device-placed and a host-placed engine sharing random weights drawn
+    from ``seed``."""
+    dev = resolve_device(device)
+    spec = get_arch(arch_id)
+    cfg = spec.config if full else spec.smoke
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
+
+    def mk(name, placement, n):
+        e = ServingEngine(
+            EngineConfig(name=name, model=cfg, max_slots=4, max_len=96,
+                         placement=placement, stream_chunks=stream_chunks),
+            params,
+        )
+        for i in range(n):
+            e.submit(Request(rid=i, prompt=list(range(1, 9)), max_new_tokens=max_new))
+        return e
+
+    controller = None
+    if mode == "miku":
+        chunk_service = param_bytes(params) / stream_chunks / 16.0  # host link B/ns
+        controller = MikuController(
+            MikuConfig(levels=(1, 2, 4, 8)),
+            EstimatorConfig(t_fast=1.2e3, slow_read_threshold=8 * chunk_service,
+                            min_window_inserts=4, min_slow_inserts=1),
+        )
+    engines = [mk("hbm", "device", n_requests),
+               mk("host", "host", max(n_requests // 3, 1))]
+    return TieredServingCluster(engines, controller=controller, window_ns=3e4)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama31-8b")
+    ap.add_argument("--full", action="store_true",
+                    help="the published widths instead of the smoke config")
+    ap.add_argument("--requests", type=int, default=24)
+    ap.add_argument("--mode", choices=("opt", "racing", "miku"), default="miku")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--max-ticks", type=int, default=10_000)
+    args = ap.parse_args(argv)
+    kw = dict(full=args.full, n_requests=args.requests, device=args.device)
+    if args.mode == "opt":
+        for placement in ("device", "host"):
+            cl = build_cluster(args.arch, mode="racing", **kw)
+            cl.engines = [e for e in cl.engines if e.cfg.placement == placement]
+            for k, v in cl.run(args.max_ticks).items():
+                print(f"[serve/opt] {k}: {v['tokens_per_s']:.0f} simulated tok/s "
+                      f"({v['requests']:.0f} requests)")
+        return
+    cl = build_cluster(args.arch, mode=args.mode, **kw)
+    for k, v in cl.run(args.max_ticks).items():
+        print(f"[serve/{args.mode}] {k}: {v['tokens_per_s']:.0f} simulated tok/s "
+              f"({v['requests']:.0f} requests)")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,169 @@
+"""Grouped-query attention with KV caches (port of ``repro/models/attention.py``,
+the dense path).
+
+* ``attend_full`` — training/prefill attention over the whole sequence:
+  grouped score and value products with a causal window mask and f32
+  softmax, on plain tensors.
+* ``attend_cached`` — one-token decode: writes the new K/V into the cache
+  in place (the port's caches are mutable) and runs the flash-decode kernel
+  through :func:`repro_torch.kernels.ops.decode_attention`, where the
+  reference computed the same attention with einsums.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import Params, apply_rope, dense_init
+
+NEG_INF = -2.3819763e38  # large negative for masking (bf16-safe)
+
+
+def attention_init(
+    d_model: int,
+    n_q: int,
+    n_kv: int,
+    head_dim: int,
+    dtype: torch.dtype,
+    generator: torch.Generator,
+    device: torch.device,
+    *,
+    stacked: Optional[int] = None,
+    qkv_bias: bool = False,
+) -> Params:
+    lead = (stacked,) if stacked else ()
+    params: Params = {
+        "wq": dense_init(d_model, lead + (d_model, n_q, head_dim), dtype, generator, device),
+        "wk": dense_init(d_model, lead + (d_model, n_kv, head_dim), dtype, generator, device),
+        "wv": dense_init(d_model, lead + (d_model, n_kv, head_dim), dtype, generator, device),
+        "wo": dense_init(n_q * head_dim, lead + (n_q, head_dim, d_model), dtype,
+                         generator, device),
+    }
+    if qkv_bias:
+        for name, heads in (("bq", n_q), ("bk", n_kv), ("bv", n_kv)):
+            params[name] = torch.zeros(lead + (heads, head_dim), dtype=dtype, device=device)
+    return params
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[B, S, D] x [D, H, K] -> [B, S, H, K]."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def project_qkv(
+    params: Params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    rope_theta: Optional[float],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: [B, S, D] -> q [B,S,Hq,Dh], k/v [B,S,Hkv,Dh] (RoPE applied)."""
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    if rope_theta is not None:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q [B,S,Hq,Dh] x k [B,T,Hkv,Dh] -> scores [B,Hq,S,T] with GQA groups."""
+    b, s, hq, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, dh).permute(0, 2, 3, 1, 4)  # [B,Hkv,G,S,Dh]
+    kt = k.permute(0, 2, 3, 1)[:, :, None]  # [B,Hkv,1,Dh,T]
+    return (qg @ kt).reshape(b, hq, s, k.shape[1])
+
+
+def _grouped_values(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs [B,Hq,S,T] x v [B,T,Hkv,Dh] -> [B,S,Hq,Dh]."""
+    b, hq, s, t = probs.shape
+    hkv = v.shape[2]
+    pg = probs.reshape(b, hkv, hq // hkv, s, t)
+    vv = v.permute(0, 2, 1, 3)[:, :, None]  # [B,Hkv,1,T,Dh]
+    out = pg @ vv  # [B,Hkv,G,S,Dh]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, v.shape[3])
+
+
+def _out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """[B, S, Hq, Dh] x [Hq, Dh, D] -> [B, S, D]."""
+    return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def attend_full(
+    params: Params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    rope_theta: Optional[float],
+    window: int,
+    softcap_value: Optional[float] = None,
+    query_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Causal full-sequence attention (training / prefill): key t attends
+    to query s iff 0 <= s - t < window.  The whole [B, H, S, S] score
+    tensor is materialized (prompts on this path are short)."""
+    dh = params["wq"].shape[-1]
+    q, k, v = project_qkv(params, x, positions, rope_theta=rope_theta)
+    scale = query_scale if query_scale is not None else dh**-0.5
+    scores = _grouped_scores(q * scale, k)  # [B,Hq,S,T]
+    if softcap_value is not None:
+        scores = softcap_value * torch.tanh(scores / softcap_value)
+    sp = positions[:, :, None]
+    tp = positions[:, None, :]
+    mask = (tp <= sp) & (sp - tp < window)
+    scores = torch.where(mask[:, None], scores, torch.tensor(NEG_INF, dtype=scores.dtype,
+                                                             device=scores.device))
+    probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+    return _out_project(_grouped_values(probs, v), params["wo"])
+
+
+def init_kv_cache(
+    batch: int, max_len: int, n_kv: int, head_dim: int, dtype: torch.dtype,
+    device: torch.device,
+) -> Dict[str, torch.Tensor]:
+    shape = (batch, max_len, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attend_cached(
+    params: Params,
+    x: torch.Tensor,
+    cache: Dict[str, torch.Tensor],
+    length: torch.Tensor,
+    *,
+    rope_theta: Optional[float],
+    window: int,
+    softcap_value: Optional[float] = None,
+    query_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One-token decode.  x: [B, 1, D]; cache k/v: [B, S_max, Hkv, Dh],
+    updated in place; ``length`` [B] = tokens already in the cache (the new
+    token lands at index ``length``).  Returns [B, 1, D]."""
+    b = x.shape[0]
+    s_max = cache["k"].shape[1]
+    positions = length[:, None]  # [B,1]
+    q, k_new, v_new = project_qkv(params, x, positions, rope_theta=rope_theta)
+    # The reference's dynamic_update_slice clamps the start index so the
+    # write stays inside the cache: a slot that idles past max_len keeps
+    # overwriting the last row.
+    idx = length.clamp(max=s_max - 1).long()
+    rows = torch.arange(b, device=x.device)
+    cache["k"][rows, idx] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, idx] = v_new[:, 0].to(cache["v"].dtype)
+    dh = q.shape[-1]
+    scale = query_scale if query_scale is not None else dh**-0.5
+    # The kernel counts valid tokens (mask pos < lengths); the new token
+    # sits at index ``length``, so it sees length + 1 of them.
+    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], length + 1,
+                               window=window, softcap=softcap_value, scale=scale)
+    return _out_project(out[:, None].to(x.dtype), params["wo"])

@@ -1,0 +1,117 @@
+"""Shared layer primitives: norms, RoPE, the gated MLP, embeddings.
+
+Port of ``repro/models/layers.py``.  Parameters are plain nested dicts of
+tensors with the reference's leaf names, so the weights bridge
+(:mod:`repro_torch.models.weights`) maps one tree onto the other.
+``layernorm`` is not ported yet (no model of this slice uses it).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+# ---------------------------------------------------------------------------
+# Initializers (explicit torch.Generator; variance-scaled truncated normal)
+# ---------------------------------------------------------------------------
+
+#: f32 elements drawn per chunk, so initialising a stacked full-width leaf
+#: needs a bounded temporary beside the low-precision result.
+_INIT_CHUNK = 1 << 26
+
+
+def _normal(shape: Sequence[int], dtype: torch.dtype, scale: float,
+            generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    """``scale`` x a standard normal truncated to [-2, 2] (the reference's
+    ``jax.random.truncated_normal(key, -2, 2)``), drawn in f32."""
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    flat = out.view(-1)
+    for start in range(0, flat.numel(), _INIT_CHUNK):
+        n = min(_INIT_CHUNK, flat.numel() - start)
+        tmp = torch.empty(n, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        flat[start:start + n] = tmp.mul_(scale)
+    return out
+
+
+def dense_init(in_dim: int, shape: Sequence[int], dtype: torch.dtype,
+               generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    return _normal(shape, dtype, in_dim**-0.5, generator, device)
+
+
+def embed_init(shape: Sequence[int], dtype: torch.dtype,
+               generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    return _normal(shape, dtype, 1.0, generator, device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with the zero-centred ``1 + scale`` weight (init 0 = identity)."""
+    dtype = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + eps)
+    return (xf * (1.0 + scale.float())).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device: torch.device = torch.device("cpu")) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exponent)  # [head_dim/2]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., S, H, Dh]; positions: broadcastable to [..., S]."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions[..., None].float() * freqs  # [..., S, Dh/2]
+    sin = torch.sin(angles)[..., None, :]  # [..., S, 1, Dh/2]
+    cos = torch.cos(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+def mlp_apply(params: Params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+    if activation != "silu":
+        raise NotImplementedError(f"activation {activation!r} is not ported yet")
+    gate = x @ params["w_gate"]
+    up = x @ params["w_up"]
+    return (F.silu(gate) * up) @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, table)
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Logits via the (possibly tied) embedding table: [..., D] -> [..., V]."""
+    return x @ table.t()
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """gemma2 logit soft-capping: cap * tanh(x / cap)."""
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+

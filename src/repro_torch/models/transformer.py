@@ -1,0 +1,263 @@
+"""The dense decoder of the port (``TransformerLM``'s dense path from
+``repro/models/transformer.py``).
+
+Parameters keep the reference's stacked ``[L, ...]`` leaves and names, so
+``repro_torch.models.weights.params_from_numpy`` maps the reference's tree
+onto the port's.  ``lax.scan`` over layers becomes a Python loop over the
+leading index.  Decode state is mutable: ``prefill`` and ``decode_step``
+write the KV caches in place and return a state that shares them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    Params,
+    embed_init,
+    embed_lookup,
+    dense_init,
+    mlp_apply,
+    rmsnorm,
+    softcap,
+    unembed,
+)
+
+FULL_WINDOW = 1 << 30  # "window" larger than any sequence = dense attention
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Copy of the reference's ``ModelConfig`` for the dense path; ``dtype``
+    is a torch dtype.  Flags of families the port has not reached yet raise
+    ``NotImplementedError`` instead of being ignored."""
+
+    name: str
+    n_layers: int
+    d_model: int
+    n_q_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    block: str = "dense"
+    rope_theta: Optional[float] = 10_000.0
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    query_scale: Optional[float] = None
+    sliding_window: Optional[int] = None
+    window_pattern: str = "full"
+    norm: str = "rms"
+    activation: str = "silu"
+    tied_embeddings: bool = False
+    embed_scale: bool = False
+    use_post_norms: bool = False
+    n_experts: int = 0
+    ssm_state: int = 0
+    n_encoder_layers: int = 0
+    frontend: Optional[str] = None
+    dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self) -> None:
+        unported = {
+            "block": self.block != "dense",
+            "n_experts (MoE)": self.n_experts != 0,
+            "ssm_state (SSM)": self.ssm_state != 0,
+            "n_encoder_layers (encoder)": self.n_encoder_layers != 0,
+            "frontend": self.frontend is not None,
+            "window_pattern": self.window_pattern != "full",
+            "use_post_norms": self.use_post_norms,
+            "qk_norm": self.qk_norm,
+            "norm": self.norm != "rms",
+            "activation": self.activation != "silu",
+        }
+        bad = [k for k, v in unported.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"{self.name}: {', '.join(bad)} not ported yet (dense path only)"
+            )
+        if self.n_q_heads % self.n_kv_heads:
+            raise ValueError("n_q_heads must be a multiple of n_kv_heads")
+
+    def window_sizes(self) -> List[int]:
+        """Per-layer attention windows (all full on the dense path)."""
+        return [FULL_WINDOW] * self.n_layers
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """Per-slot decoding state: k/v [L, B, S_max, Hkv, Dh] and per-slot
+    ``length`` [B] int32 (tokens already in the cache)."""
+
+    kv: Dict[str, torch.Tensor]
+    length: torch.Tensor
+
+
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """The parameter tree's shapes, leaf names as in the reference."""
+    L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+    hq, hkv, dh = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
+    attn_shapes = {"wq": (L, d, hq, dh), "wk": (L, d, hkv, dh),
+                   "wv": (L, d, hkv, dh), "wo": (L, hq, dh, d)}
+    if cfg.qkv_bias:
+        attn_shapes.update(bq=(L, hq, dh), bk=(L, hkv, dh), bv=(L, hkv, dh))
+    shapes = {
+        "embed": (cfg.vocab, d),
+        "layers": {
+            "attn": attn_shapes,
+            "pre_attn_norm": (L, d),
+            "mlp": {"w_gate": (L, d, f), "w_up": (L, d, f), "w_down": (L, f, d)},
+            "pre_mlp_norm": (L, d),
+        },
+        "final_norm": (d,),
+    }
+    if not cfg.tied_embeddings:
+        shapes["lm_head"] = (cfg.vocab, d)
+    return shapes
+
+
+def _layer(layers: Params, i: int) -> Params:
+    """Layer ``i``'s view of the stacked ``[L, ...]`` tree."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
+
+
+class TransformerLM:
+    """Dense decoder LM: ``init``, ``forward``, ``logits``, ``prefill`` and
+    one-token ``decode_step`` with an explicit :class:`DecodeState`."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    # ------------------------------------------------------------------ init
+    def init(self, generator: torch.Generator, device=None) -> Params:
+        """Random weights from ``generator`` (which must live on ``device``):
+        truncated-normal dense and embedding leaves, zero norms and biases."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        dt = cfg.dtype
+        d, f, hq, dh = cfg.d_model, cfg.d_ff, cfg.n_q_heads, cfg.head_dim
+        L = cfg.n_layers
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        params: Params = {"embed": embed_init((cfg.vocab, d), dt, generator, dev)}
+        params["layers"] = {
+            "attn": attn.attention_init(d, hq, cfg.n_kv_heads, dh, dt, generator, dev,
+                                        stacked=L, qkv_bias=cfg.qkv_bias),
+            "pre_attn_norm": zeros(L, d),
+            "mlp": {
+                "w_gate": dense_init(d, (L, d, f), dt, generator, dev),
+                "w_up": dense_init(d, (L, d, f), dt, generator, dev),
+                "w_down": dense_init(f, (L, f, d), dt, generator, dev),
+            },
+            "pre_mlp_norm": zeros(L, d),
+        }
+        params["final_norm"] = zeros(d)
+        if not cfg.tied_embeddings:
+            params["lm_head"] = embed_init((cfg.vocab, d), dt, generator, dev)
+        return params
+
+    # ------------------------------------------------------------- embedding
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        x = embed_lookup(params["embed"], tokens)
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(self.cfg.d_model**0.5, dtype=x.dtype)
+        return x
+
+    def _ffn(self, layer: Params, x: torch.Tensor) -> torch.Tensor:
+        h = rmsnorm(x, layer["pre_mlp_norm"])
+        return x + mlp_apply(layer["mlp"], h, activation=self.cfg.activation)
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        table = params["embed"] if cfg.tied_embeddings else params["lm_head"]
+        logits = unembed(x, table)
+        if cfg.final_softcap:
+            logits = softcap(logits, cfg.final_softcap)
+        return logits
+
+    def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
+        return self._logits(params, hidden)
+
+    # ------------------------------------------------------- train / prefill
+    def _run(self, params: Params, tokens: torch.Tensor,
+             kv: Optional[Dict[str, torch.Tensor]]) -> torch.Tensor:
+        """Full-sequence stack; writes each layer's K/V prefix into ``kv``."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+        x = self._embed(params, tokens)
+        for i, window in enumerate(cfg.window_sizes()):
+            layer = _layer(params["layers"], i)
+            h = rmsnorm(x, layer["pre_attn_norm"])
+            if kv is not None:
+                _, k, v = attn.project_qkv(layer["attn"], h, positions,
+                                           rope_theta=cfg.rope_theta)
+                kv["k"][i, :, :s] = k.to(kv["k"].dtype)
+                kv["v"][i, :, :s] = v.to(kv["v"].dtype)
+            x = x + attn.attend_full(
+                layer["attn"], h, positions, rope_theta=cfg.rope_theta,
+                window=window, softcap_value=cfg.attn_softcap,
+                query_scale=cfg.query_scale,
+            )
+            x = self._ffn(layer, x)
+        return rmsnorm(x, params["final_norm"])
+
+    def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence forward: hidden states [B, S, D] after the final norm."""
+        return self._run(params, tokens, None)
+
+    # ---------------------------------------------------------------- serving
+    def init_decode_state(self, batch: int, max_len: int, device=None) -> DecodeState:
+        cfg = self.cfg
+        dev = resolve_device(device)
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        kv = {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+              "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+        return DecodeState(kv=kv, length=torch.zeros(batch, dtype=torch.int32, device=dev))
+
+    def decode_step(
+        self,
+        params: Params,
+        state: DecodeState,
+        token: torch.Tensor,  # [B] int
+    ) -> Tuple[torch.Tensor, DecodeState]:
+        """One decode step for every slot, inactive ones included:
+        (logits [B, V], state with length + 1)."""
+        cfg = self.cfg
+        x = self._embed(params, token[:, None])  # [B,1,D]
+        length = state.length
+        for i, window in enumerate(cfg.window_sizes()):
+            layer = _layer(params["layers"], i)
+            h = rmsnorm(x, layer["pre_attn_norm"])
+            cache = {"k": state.kv["k"][i], "v": state.kv["v"][i]}
+            x = x + attn.attend_cached(
+                layer["attn"], h, cache, length, rope_theta=cfg.rope_theta,
+                window=window, softcap_value=cfg.attn_softcap,
+                query_scale=cfg.query_scale,
+            )
+            x = self._ffn(layer, x)
+        x = rmsnorm(x, params["final_norm"])
+        logits = self._logits(params, x)[:, 0, :]
+        return logits, DecodeState(kv=state.kv, length=length + 1)
+
+    def prefill(
+        self,
+        params: Params,
+        tokens: torch.Tensor,  # [B, S]
+        state: DecodeState,
+    ) -> Tuple[torch.Tensor, DecodeState]:
+        """Prefill the caches with a prompt; returns (last logits [B,V], state)."""
+        b, s = tokens.shape
+        x = self._run(params, tokens, state.kv)
+        logits = self._logits(params, x[:, -1:, :])[:, 0, :]
+        length = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+        return logits, DecodeState(kv=state.kv, length=length)

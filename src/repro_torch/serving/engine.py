@@ -1,0 +1,301 @@
+"""Batched LLM serving engine with tiered placement and MIKU admission
+control — port of ``repro/serving/engine.py`` (the paper's §6 case study).
+
+* :class:`ServingEngine` — one model instance: continuous batching over a
+  fixed slot array, real prefill/decode steps, per-slot lengths.  Its
+  *placement* decides where weights live: ``device`` (device memory, the
+  DDR analogue) or ``host`` (pinned host memory over the host link, the
+  CXL analogue).  A host-placed instance on a CUDA device copies its
+  weights into one persistent device staging set before every step.
+* :class:`TieredServingCluster` — engines sharing one transfer path
+  (:class:`~repro_torch.core.offload.TransferQueue`).  Device steps charge
+  fast-tier bytes; host steps submit their weight/KV stream as slow-link
+  transfers, which a MIKU controller throttles.
+
+The cluster's clock is the simulated queue clock with the reference's tier
+constants (so its ``tokens_per_s`` is simulated, not measured on the card);
+the tokens are real.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.controller import MikuController
+from repro_torch.core.littles_law import OpClass
+from repro_torch.core.offload import HostOffloader, TransferQueue
+from repro_torch.core.tiers import HBM_TIER, host_offload_supported
+from repro_torch.models.transformer import DecodeState, ModelConfig, TransformerLM
+from repro_torch.obs.metrics import default_registry
+from repro_torch.serving import sampler as sampler_lib
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new_tokens: int
+    arrival_ns: float = 0.0
+    # filled by the engine:
+    output: List[int] = dataclasses.field(default_factory=list)
+    t_first_token: Optional[float] = None
+    t_done: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    name: str
+    model: ModelConfig
+    max_slots: int = 8
+    max_len: int = 1024
+    placement: str = "device"  # "device" | "host" (weights+KV tier)
+    sampler: str = "greedy"
+    #: fraction of weight bytes streamed per decode step (1.0 = memory-bound)
+    weight_stream_fraction: float = 1.0
+    #: host-tier transfer chunks per decode step (None => 2 x n_layers)
+    stream_chunks: Optional[int] = None
+
+
+def param_bytes(params: Any) -> int:
+    """Bytes of a parameter tree (drives the simulated clock)."""
+    if isinstance(params, dict):
+        return sum(param_bytes(v) for v in params.values())
+    return params.numel() * params.element_size()
+
+
+class ServingEngine:
+    """One model instance with continuous batching.  The device is that of
+    ``params``."""
+
+    def __init__(self, cfg: EngineConfig, params: Any, *,
+                 generator: Optional[torch.Generator] = None,
+                 kv_pagemap: Any = None):
+        if kv_pagemap is not None:
+            raise NotImplementedError("kv_pagemap needs the tiering subsystem, "
+                                      "which is not ported yet")
+        self.cfg = cfg
+        self.model = TransformerLM(cfg.model)
+        self.device = params["embed"].device
+        self.generator = generator
+        if generator is None:
+            self.generator = torch.Generator(device=self.device).manual_seed(0)
+        self.param_bytes = param_bytes(params)
+        cfgm = cfg.model
+        # K and V, 2 bytes each, per layer (the reference's constant).
+        self.kv_bytes_per_token = 2 * cfgm.n_kv_heads * cfgm.head_dim * cfgm.n_layers * 2
+        self._place_state(params)
+        self.state = self.model.init_decode_state(cfg.max_slots, cfg.max_len, self.device)
+        self.slot_req: List[Optional[Request]] = [None] * cfg.max_slots
+        self.queue: List[Request] = []
+        self.done: List[Request] = []
+        self._tokens = torch.zeros(cfg.max_slots, dtype=torch.int32, device=self.device)
+        self._active = np.zeros((cfg.max_slots,), bool)
+        #: decode steps taken (each runs every layer's decode attention once)
+        self.decode_steps = 0
+
+    def _place_state(self, params: Any) -> None:
+        self.offloader: Optional[HostOffloader] = None
+        self.params = params
+        if self.cfg.placement == "host" and host_offload_supported(self.device):
+            self.offloader = HostOffloader(self.device)
+            self.params = self.offloader.to_host(params)
+            # One device staging set, allocated once and refilled every step.
+            self._staging = self.offloader.to_device(self.params)
+
+    def step_params(self) -> Any:
+        """Working copy of the weights for one step.  Host-resident
+        instances fetch them device-ward: the host-link stream the transfer
+        queue charges."""
+        if self.offloader is None:
+            return self.params
+        self.offloader.to_device(self.params, out=self._staging)
+        self.offloader.block()
+        return self._staging
+
+    # -- request lifecycle ---------------------------------------------------
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def _insert_state(self, slot: int, state1: DecodeState, plen: int) -> None:
+        for name in ("k", "v"):
+            self.state.kv[name][:, slot] = state1.kv[name][:, 0]
+        self.state.length[slot] = plen
+
+    def admit(self, now_ns: float) -> List[Tuple[Request, int]]:
+        """Prefill queued requests into free slots.  Returns admissions
+        (request, prompt_bytes_touched)."""
+        admitted = []
+        for slot in self._free_slots():
+            if not self.queue:
+                break
+            req = self.queue.pop(0)
+            plen = len(req.prompt)
+            tokens = torch.tensor([req.prompt], dtype=torch.int64, device=self.device)
+            state1 = self.model.init_decode_state(1, self.cfg.max_len, self.device)
+            logits, state1 = self.model.prefill(self.step_params(), tokens, state1)
+            first = int(self._sample(logits)[0])
+            req.output.append(first)
+            req.t_first_token = now_ns
+            self._insert_state(slot, state1, plen)
+            self._tokens[slot] = first
+            self.slot_req[slot] = req
+            self._active[slot] = True
+            admitted.append((req, plen * self.kv_bytes_per_token))
+        return admitted
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.cfg.sampler == "greedy":
+            return sampler_lib.greedy(logits)
+        return sampler_lib.temperature(logits, self.generator)
+
+    @property
+    def n_active(self) -> int:
+        return int(self._active.sum())
+
+    def step_bytes(self) -> Tuple[int, int]:
+        """(weight_bytes, kv_bytes) one decode step streams."""
+        wb = int(self.param_bytes * self.cfg.weight_stream_fraction)
+        lengths = self.state.length.tolist()
+        kvb = sum(lengths[i] * self.kv_bytes_per_token
+                  for i in range(self.cfg.max_slots) if self._active[i])
+        return wb, kvb
+
+    def decode_once(self, now_ns: float) -> int:
+        """One real decode step for all active slots.  Returns #tokens."""
+        if self.n_active == 0:
+            return 0
+        logits, self.state = self.model.decode_step(self.step_params(), self.state,
+                                                    self._tokens)
+        self.decode_steps += 1
+        self._tokens = self._sample(logits)
+        nxt = self._tokens.tolist()
+        lengths = self.state.length.tolist()
+        produced = 0
+        for slot, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            req.output.append(nxt[slot])
+            produced += 1
+            done = len(req.output) >= req.max_new_tokens
+            overflow = lengths[slot] >= self.cfg.max_len - 1
+            if done or overflow:
+                req.t_done = now_ns
+                self.done.append(req)
+                self.slot_req[slot] = None
+                self._active[slot] = False
+        return produced
+
+    @property
+    def finished(self) -> bool:
+        return not self.queue and self.n_active == 0
+
+
+class TieredServingCluster:
+    """Co-located engines sharing one chip's transfer path + MIKU control.
+
+    ``run`` drives all engines until completion: each simulated tick every
+    admissible engine takes one decode step; host-placed engines first get
+    their weight/KV stream admitted by the transfer queue, whose in-flight
+    cap and rate are MIKU's decision.  Step durations come from the tier
+    bandwidth model (decode is bandwidth-bound, paper §6).
+    """
+
+    def __init__(
+        self,
+        engines: List[ServingEngine],
+        *,
+        controller: Optional[MikuController] = None,
+        window_ns: float = 2e6,
+        hbm_bw: float = HBM_TIER.bandwidth_gbps,  # B/ns per chip
+    ):
+        self.engines = engines
+        self.queue = TransferQueue(controller=controller, window_ns=window_ns)
+        self.control = self.queue.control
+        self.hbm_bw = hbm_bw
+        self._host_busy_until: Dict[str, float] = {e.cfg.name: 0.0 for e in engines}
+
+    def _idle_until(self) -> float:
+        """While the clock is below the returned time, a tick does nothing
+        but advance it: no engine can admit, every active engine is a
+        host engine waiting for its stream.  ``-inf`` when a tick has work."""
+        until = math.inf
+        for eng in self.engines:
+            if eng.queue and eng._free_slots():
+                return -math.inf
+            if eng.n_active == 0:
+                continue
+            if eng.cfg.placement != "host":
+                return -math.inf
+            until = min(until, self._host_busy_until[eng.cfg.name])
+        return until
+
+    def run(self, max_ticks: int = 10_000) -> Dict[str, Dict[str, float]]:
+        q = self.queue
+        tick = 0
+        produced: Dict[str, int] = {e.cfg.name: 0 for e in self.engines}
+        started: Dict[str, Optional[float]] = {e.cfg.name: None for e in self.engines}
+        finished_at: Dict[str, float] = {e.cfg.name: 0.0 for e in self.engines}
+        while tick < max_ticks and not all(e.finished for e in self.engines):
+            until = self._idle_until()
+            if q.now < until:
+                # Host engines wait on their streams: run the no-op ticks
+                # in one call, with the same clock arithmetic.
+                tick += q.idle_advance(1e3, until, max_ticks - tick)
+                continue
+            tick += 1
+            fast_time = 0.0
+            for eng in self.engines:
+                eng.admit(q.now)
+                if eng.n_active == 0:
+                    continue
+                name = eng.cfg.name
+                if started[name] is None:
+                    started[name] = q.now
+                if eng.cfg.placement == "host":
+                    # One decode step = one weight/KV stream over the slow
+                    # link, submitted as per-layer chunks; a MIKU cap bounds
+                    # the descriptors it holds at no throughput cost.
+                    if q.now < self._host_busy_until[name]:
+                        continue
+                    wb, kvb = eng.step_bytes()
+                    n_chunks = eng.cfg.stream_chunks or 2 * eng.cfg.model.n_layers
+                    done_t = q.submit_slow_stream(wb + kvb, n_chunks, OpClass.LOAD,
+                                                  tier="slow")
+                    self._host_busy_until[name] = done_t
+                    n = eng.decode_once(done_t)
+                    finished_at[name] = done_t
+                else:
+                    wb, kvb = eng.step_bytes()
+                    dur = (wb + kvb) / self.hbm_bw * q.fast_penalty()
+                    q.account_fast(wb + kvb, dur, OpClass.LOAD)
+                    fast_time += dur
+                    n = eng.decode_once(q.now + dur)
+                    finished_at[name] = q.now + dur
+                produced[name] += n
+            # Engines on device memory run back to back; host engines
+            # progress via queue completions.
+            q.advance(max(fast_time, 1e3))
+        out: Dict[str, Dict[str, float]] = {}
+        reg = default_registry()
+        for eng in self.engines:
+            name = eng.cfg.name
+            toks = sum(len(r.output) for r in eng.done)
+            t0 = started[name] or 0.0
+            span = max(finished_at[name] - t0, 1.0)
+            out[name] = {
+                "tokens": float(toks),
+                "wall_ns": span,
+                "tokens_per_s": toks / span * 1e9,
+                "requests": float(len(eng.done)),
+            }
+            reg.counter("serving.tokens").inc(float(toks))
+            reg.counter("serving.requests").inc(float(len(eng.done)))
+        return out

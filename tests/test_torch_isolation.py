@@ -1,0 +1,60 @@
+"""The port stands alone: no file of src/repro_torch (nor chip_smoke.py)
+imports jax or the reference package, importing it leaves jax unloaded, and
+its entry points refuse to run on a machine without CUDA unless asked for
+the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_imports_neither_jax_nor_reference(path):
+    bad = {"jax", "jaxlib", "repro"} & set(_imported_roots(path))
+    assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch, repro_torch.launch.serve, "
+            "repro_torch.kernels.ops, repro_torch.models.weights; "
+            "assert 'jax' not in sys.modules and 'repro' not in sys.modules, "
+            "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_entry_points_without_device_raise_on_cpu_only_machine():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: entry points run on it")
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import build_cluster
+    from repro_torch.models.transformer import TransformerLM
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_cluster(n_requests=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TransformerLM(get_arch("llama31-8b").smoke).init(torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu").type == "cpu"
