@@ -17,7 +17,18 @@ Phases, each printed as one JSON line:
      through the plain attention, logits compared;
   5. serve: build_cluster(full=True, mode="miku") — a device engine and a
      host engine streaming its weights from pinned host memory — with the
-     kernel's launch count read around the run.
+     kernel's launch count read around the run;
+  6. k2_check: the global-lambda bisection kernel against its float64 plain
+     version on the card (the reference's test inputs and a seeded sweep of
+     shapes), timed at the corun_sweep_1k shape;
+  7. k3_check: the fused window solver against its float64 plain version on
+     corun_sweep_1k's first window and on seeded random windows, timed at
+     the corun_sweep_1k shape;
+  8. sweep: run_scenario("corun_sweep_1k") and run_scenario("corun_sweep")
+     through K3 on the card, with the launch counts read around each run,
+     the first held against the plain lane on the card by the reference's
+     kilo-grid gates (benchmarks/bench_des.py), and a torch.profiler run of
+     it for the device busy share.
 The line before the last lists every kernel's numbers; the last line is the
 device summary.  Any failed check exits non-zero; without CUDA (or without
 the rest of the repository beside this file) it exits non-zero at once.
@@ -32,10 +43,33 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
+H100_F64_FLOPS = 34e12  # f64 outside the tensor cores
+
+#: The reference's kilo-grid lane gates (benchmarks/bench_des.py:152-153):
+#: at most this many cells may take different MIKU decisions than the plain
+#: lane, and the decision-aligned cells' p95 bandwidth error stays below the
+#: bound.
+SWEEP1K_MAX_FLIPS = 12
+SWEEP1K_P95_BOUND = 0.08
+#: K3 on seeded random windows: the f32 relaxation of a discontinuous fixed
+#: point (saturation at 98% utilisation, queue-forming flags) lands on the
+#: other side of a threshold in a few cells, whatever the implementation:
+#: the reference's own f32 solver (Pallas, interpreted) leaves 0-5.5% of the
+#: cells of these windows beyond 2e-3 of the float64 loop
+#: (tests/test_torch_batched.py holds it to this share).  So the random
+#: windows require the same isfinite(lam) mask on every cell and at most
+#: this share of cells beyond 2e-3; the real first window requires 2e-3 on
+#: every cell.
+K3_RANDOM_MAX_SHARE_BEYOND = 0.05
+#: (C, W, S, padded workloads, padded stations) of the random K3 windows.
+K3_RANDOM_CASES = ((1024, 2, 3, 0, 0), (256, 3, 4, 1, 0), (128, 8, 5, 2, 1),
+                   (512, 5, 3, 0, 0))
 
 
 def fail(msg: str) -> None:
@@ -94,7 +128,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, os.path.join(HERE, "src"))
     try:
+        from repro_torch.kernels import _nvcc
         from repro_torch.kernels import decode_attention as k1
+        from repro_torch.kernels import fluid_solver as fs
         from repro_torch.kernels.ref import decode_attention_ref
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
@@ -117,15 +153,16 @@ def main() -> None:
 
     # -- 1. environment and build --------------------------------------------
     t0 = time.perf_counter()
-    lib_path = k1.build()
+    libs = _nvcc.build(k1.SOURCE, fs.SOURCE)  # one nvcc per source, together
     build_s = time.perf_counter() - t0
-    ptxas = [line.split("ptxas info    : ")[-1] for line in
-             lib_path.with_suffix(".ptxas.txt").read_text().splitlines()
-             if "registers" in line or "spill" in line]
+    ptxas = {lib.name: [line.split("ptxas info    : ")[-1] for line in
+                        lib.with_suffix(".ptxas.txt").read_text().splitlines()
+                        if "registers" in line or "spill" in line] for lib in libs}
     emit("environment", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
-         kernel_build_s=build_s, kernel_library=lib_path.name, ptxas=ptxas)
+         kernel_build_s=build_s, kernel_libraries=[lib.name for lib in libs],
+         ptxas=ptxas)
 
     # -- 2. kernel sweep -------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -282,6 +319,10 @@ def main() -> None:
     check(launches == cfg.n_layers * steps and launches > 0,
           f"kernel launches {launches} != layers x decode steps {cfg.n_layers * steps}")
 
+    k2_row = k2_check(dev)
+    k3_row = k3_check(dev)
+    lane = sweep_phase(dev)
+
     row = sweep["serve"]
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
@@ -295,11 +336,371 @@ def main() -> None:
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
+    }, {
+        "name": "global_lambda",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fluid_solver.cu",
+        "replaces": "src/repro/memsim/batched/kernel.py:119",
+        # No launch of its own on the sweep path: its bisection is a device
+        # function that every step of fused_window_solve calls.
+        "launches": lane["k2_standalone_launches"],
+        "runs_inside": "fused_window_solve",
+        **k2_row,
+    }, {
+        "name": "fused_window_solve",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fluid_solver.cu",
+        "replaces": "src/repro/memsim/batched/kernel.py:239",
+        "launches": lane["k3_launches"],
+        **k3_row,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 
+
+
+# -- the batched sweep lane: K2, K3 -------------------------------------------
+
+
+def glam_inputs(rng, C, W, pad=0, tor_hi=512.0):
+    """tests/test_batched.py::test_pallas_backend_matches_numpy's input
+    distribution (numpy, float64); the last ``pad`` workload slots are
+    padding (A = 0, cap = 0), ``tor_hi`` widens the ToR so that some cells
+    are feasible at their cap."""
+    A = rng.uniform(1, 16, (C, W))
+    cap = rng.uniform(0.05, 3.0, (C, W))
+    y_sta = rng.uniform(0.05, 2.0, (C, W))
+    o_eff = rng.uniform(20, 640, (C, W))
+    R_tor = rng.uniform(150, 2500, (C, W))
+    tor = rng.uniform(64, tor_hi, C)
+    irq = rng.choice([64.0, 80.0], C)
+    if pad:
+        A[:, -pad:] = cap[:, -pad:] = y_sta[:, -pad:] = o_eff[:, -pad:] = 0.0
+    return A, cap, y_sta, o_eff, R_tor, tor, irq
+
+
+def random_window_inputs(rng, C, W, S, pad_w=0, pad_s=0):
+    """One seeded window of the fluid solver's inputs (numpy, float64):
+    up to 16 cores and MLP 8-64 per workload, token-bucket rates on about a
+    third of them, tier fractions and LLC hit shares drawn per workload,
+    device service 16-300 ns, pipelines 50-450 ns, 28-192 slots per
+    station, the ToR and IRQ of the two platforms; the last ``pad_w``
+    workloads and ``pad_s`` stations are padding."""
+    T = S - 1
+    A = rng.integers(1, 17, (C, W)).astype(float)
+    o_eff = A * rng.choice([8, 10, 16, 24, 40, 64], (C, W)).astype(float)
+    y_rate = np.where(rng.random((C, W)) < 0.7, np.inf, rng.uniform(0.005, 0.2, (C, W)))
+    frac = rng.dirichlet(np.ones(T), (C, W)) if T > 1 else np.ones((C, W, 1))
+    p_llc = np.where(rng.random((C, W)) < 0.5, 0.0, rng.uniform(0, 1, (C, W)))
+    route = np.concatenate([frac * (1 - p_llc)[:, :, None], p_llc[:, :, None]], axis=2)
+    svc = rng.uniform(16, 300, (C, W, S))
+    pipe = np.concatenate([rng.uniform(50, 450, (C, 1, T)).repeat(W, 1),
+                           np.zeros((C, W, 1))], axis=2)
+    route_svc = route * svc
+    slots = rng.choice([28.0, 56.0, 96.0, 128.0, 192.0], (C, S))
+    tor = rng.choice([512.0, 576.0], C)
+    irq = rng.choice([64.0, 80.0], C)
+    if pad_w:
+        A[:, -pad_w:] = o_eff[:, -pad_w:] = 0.0
+        route[:, -pad_w:] = route_svc[:, -pad_w:] = 0.0
+    if pad_s:
+        slots[:, -pad_s:] = 0.0
+        route[:, :, -pad_s:] = route_svc[:, :, -pad_s:] = 0.0
+    return [A, y_rate, o_eff, route, route_svc, svc + pipe, slots, tor, irq,
+            np.zeros((C, S))]
+
+
+def f32_rounded(arrays):
+    """The values the f32 kernels see (clamped to 1e30, rounded to f32), in
+    float64: the plain version gets the same inputs as the kernel."""
+    return [np.minimum(a, 1e30).astype(np.float32).astype(np.float64) for a in arrays]
+
+
+def glam_ops(C, W):
+    """f32 operations of K2 on C cells: 49 feasibility tests (8 per workload
+    for the holdings, 6 per workload for the queue-forming share, 3 more)
+    and 48 bisection updates of 4."""
+    return C * (49 * (14 * W + 3) + 48 * 4)
+
+
+def window_solve_ops(C, W, S, n_outer):
+    """f32 operations of K3 on C cells, counted from the loop nest of
+    csrc/fluid_solver.cu::window_solve_cell (fixed trip counts, so the same
+    for any data)."""
+    station = 3 * W + 1 + S * (49 * (4 * W + 1) + 48 * 4 + 2)
+    glam = 49 * (14 * W + 3) + 48 * 4
+    rest = (W * (3 * S + 4) + W * (3 * S + 7) + 20 * W + S * (4 * W + 5)
+            + W * (5 + 2 * S) + 7 + W + S * (7 * W + 10))
+    return C * (2 * W * S + n_outer * (station + glam + rest))
+
+
+def kernel_device_ms(fn, name: str, iters: int = 20) -> float:
+    """Device time of one launch of the kernel whose name contains
+    ``name``, from torch.profiler over ``iters`` calls of ``fn`` (the
+    wrapper's own casts and copies excluded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if name in e.key]
+    check(sum(e.count for e in hits) == iters, f"profiler saw {hits} for {name}")
+    return sum(e.self_device_time_total for e in hits) / iters / 1e3
+
+
+def bound(nbytes, ops, peak):
+    t_bytes, t_ops = nbytes / H100_HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k2_check(dev):
+    """Phase 6: the global-lambda kernel (through the port's dispatcher)
+    against global_lambda_ref in float64 on the card: the same +inf mask
+    and rel 2e-3 on finite values (tests/test_batched.py's bounds)."""
+    import torch
+
+    from repro_torch.kernels.ref import global_lambda_ref
+    from repro_torch.memsim.batched import kernel as bk
+
+    cases = [("reference_test", np.random.default_rng(3), 6, 3, 0, 512.0)]
+    rng = np.random.default_rng(2)
+    for C in (1, 7, 128, 1024):
+        for W in (1, 2, 3, 5, 8):
+            cases.append((f"C{C}_W{W}", rng, C, W, (C + W) % 3 % W, 4096.0))
+    worst, n_inf, n_cells = 0.0, 0, 0
+    for name, r, C, W, pad, tor_hi in cases:
+        args = [torch.as_tensor(a, device=dev)
+                for a in f32_rounded(glam_inputs(r, C, W, pad, tor_hi))]
+        out = bk.global_lambda(*args)
+        torch.cuda.synchronize()
+        ref = global_lambda_ref(*args)
+        fin = torch.isfinite(ref)
+        same = bool((torch.isfinite(out) == fin).all())
+        rel = ((out[fin] - ref[fin]).abs() / ref[fin].abs()).max().item() if fin.any() else 0.0
+        worst = max(worst, rel)
+        n_inf += int((~fin).sum())
+        n_cells += C
+        check(same and rel <= 2e-3,
+              f"global_lambda {name}: same inf mask {same}, max rel err {rel}")
+    # The corun_sweep_1k shape: one window of both groups, C=1024, W=2.
+    args = [torch.as_tensor(a, device=dev) for a in
+            f32_rounded(glam_inputs(np.random.default_rng(4), 1024, 2, 0, 4096.0))]
+    out, ref = bk.global_lambda(*args), global_lambda_ref(*args)
+    fin = torch.isfinite(ref)
+    row = dict(
+        max_abs_err=(out[fin] - ref[fin]).abs().max().item(),
+        ms=time_ms(lambda: bk.global_lambda(*args), 100),
+        plain_ms=time_ms(lambda: global_lambda_ref(*args), 10),
+        library_ms=None,
+    )
+    nbytes = (5 * 1024 * 2 + 3 * 1024) * 4 + 1024 * 4
+    row["bound_ms"], row["bound_by"] = bound(nbytes, glam_ops(1024, 2), H100_F32_FLOPS)
+    emit("k2_check", cases=len(cases), cells=n_cells, inf_cells=n_inf, tol_rel=2e-3,
+         max_rel_err=worst, shape=dict(C=1024, W=2), **row,
+         kernel_device_ms=kernel_device_ms(lambda: bk.global_lambda(*args),
+                                           "global_lambda_kernel"))
+    return row
+
+
+def k3_check(dev):
+    """Phase 7: the fused window solver against fused_window_solve_ref in
+    float64 on the card, on corun_sweep_1k's first window (both groups,
+    C=1024) and on seeded random windows."""
+    import torch
+
+    from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.kernels.ref import fused_window_solve_ref
+    from repro_torch.memsim.batched import fluid
+    from repro_torch.memsim.batched import kernel as bk
+    from repro_torch.scenarios import run_scenario
+
+    n_outer, damp = fluid._N_OUTER, fluid._DAMP
+
+    def compare(args):
+        """Kernel against plain version: whether isfinite(lam) agrees and y
+        and Wq are finite everywhere, each cell's max rel error over y and
+        Wq (NaN stays NaN), the max abs error of y, and the coupled cells."""
+        y, wq, lam = fs.fused_window_solve_cuda(*args, n_outer, damp)
+        torch.cuda.synchronize()
+        yr, wr, lr = fused_window_solve_ref(*args, n_outer, damp)
+        same = bool((torch.isfinite(lam) == torch.isfinite(lr)).all()
+                    and torch.isfinite(y).all() and torch.isfinite(wq).all())
+        err = torch.maximum(
+            ((y - yr).abs() / yr.abs().clamp(min=1e-12)).amax(dim=1),
+            ((wq - wr).abs() / wr.abs().clamp(min=1e-12)).amax(dim=1))
+        return same, err, (y - yr).abs().max().item(), int(torch.isfinite(lr).sum()), y, wq
+
+    # corun_sweep_1k's first window, as the lane hands it to the solver.
+    first = []
+    record = bk.fused_window_solve
+
+    def capture(*args):
+        first.append(args[:10])
+        return record(*args)
+
+    fluid.kernel.fused_window_solve = capture
+    try:
+        run_scenario("corun_sweep_1k", {"sim_ns": 10_000.0})
+    finally:
+        fluid.kernel.fused_window_solve = record
+    check(len(first) == 2 and sum(a[0].shape[0] for a in first) == 1024,
+          f"corun_sweep_1k's first window is not two groups of 1024 cells: {len(first)}")
+    a, b = first
+    args = [torch.as_tensor(x, device=dev) for x in
+            f32_rounded([torch.cat([a[i], b[i]]).cpu().numpy() for i in range(10)])]
+    same, err, max_abs, coupled, _, _ = compare(args)
+    emit("k3_check", window="corun_sweep_1k first window", C=1024, W=2, S=3,
+         coupled_cells=coupled, same_isfinite_lam_finite_y_wq=same, tol_rel=2e-3,
+         max_rel_err_y_wq=err.max().item(), max_abs_err_y=max_abs)
+    check(same and bool((err <= 2e-3).all()),
+          f"fused_window_solve on corun_sweep_1k's first window: mask {same}, "
+          f"max rel err {err.max().item()}")
+    row = dict(
+        max_abs_err=max_abs,
+        ms=time_ms(lambda: fs.fused_window_solve_cuda(*args, n_outer, damp), 20),
+        plain_ms=time_ms(lambda: fused_window_solve_ref(*args, n_outer, damp), 1),
+        library_ms=None,
+    )
+    C, W, S = shape = args[3].shape
+    nbytes = (3 * C * W + 3 * C * W * S + 2 * C * S + 2 * C + C * W + C * S + C) * 4
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes, window_solve_ops(C, W, S, n_outer), H100_F32_FLOPS)
+    row["serial_steps_per_cell"] = n_outer * (S * 49 + 49)
+
+    rng = np.random.default_rng(5)
+    beyond = cells = 0
+    for C, W, S, pad_w, pad_s in K3_RANDOM_CASES:
+        rargs = [torch.as_tensor(a, device=dev)
+                 for a in f32_rounded(random_window_inputs(rng, C, W, S, pad_w, pad_s))]
+        same, err, max_abs, coupled, y, wq = compare(rargs)
+        n_beyond = int((~(err <= 2e-3)).sum())  # a NaN error counts as beyond
+        beyond += n_beyond
+        cells += C
+        # Padded workloads and stations carry nothing: exactly 0, not NaN.
+        pads_zero = bool((y[:, W - pad_w:] == 0).all() if pad_w else True) and bool(
+            (wq[:, S - pad_s:] == 0).all() if pad_s else True)
+        emit("k3_check", window="random", C=C, W=W, S=S, padded_workloads=pad_w,
+             padded_stations=pad_s, coupled_cells=coupled,
+             same_isfinite_lam_finite_y_wq=same, padding_exactly_zero=pads_zero,
+             max_rel_err_y_wq=err.max().item(), p99_rel_err_y_wq=err.quantile(0.99).item(),
+             cells_beyond_2e_3=n_beyond)
+        check(same, f"fused_window_solve random C={C} W={W} S={S}: isfinite(lam) "
+              "differs or y/Wq not finite")
+        check(pads_zero, f"fused_window_solve random C={C} W={W} S={S}: padded "
+              "workloads' y or padded stations' Wq not exactly 0")
+    check(beyond <= K3_RANDOM_MAX_SHARE_BEYOND * cells,
+          f"fused_window_solve random windows: {beyond} of {cells} cells beyond 2e-3")
+    emit("k3_timing", shape=dict(zip("CWS", shape)), **row,
+         kernel_device_ms=kernel_device_ms(
+             lambda: fs.fused_window_solve_cuda(*args, n_outer, damp),
+             "fused_window_solve_kernel", 10))
+    return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}
+
+
+def sweep_phase(dev):
+    """Phase 8, the main path of K2 and K3: the kilo-cell co-run grid and
+    the 96-cell grid on the batched lane, through K3, with the launch counts
+    set to 0 just before each run and read just after."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.kernels.ref import fused_window_solve_ref
+    from repro_torch.memsim.batched import fluid
+    from repro_torch.memsim.batched.lane import partition_jobs
+    from repro_torch.scenarios import plan, run_scenario
+
+    def host_stages(name):
+        """Host seconds of the run's first two stages, alone: expanding the
+        grid into jobs, and planning the cells (exported state and the
+        calibrated MIKU units)."""
+        t0 = time.perf_counter()
+        jobs = [j for _, _, js in plan(name) for j in js]
+        t1 = time.perf_counter()
+        partition_jobs(jobs)
+        return dict(host_expand_s=t1 - t0, host_plan_cells_s=time.perf_counter() - t1)
+
+    def run(name):
+        fs.GLOBAL_LAMBDA_LAUNCHES.reset()
+        fs.WINDOW_SOLVE_LAUNCHES.reset()
+        fluid.COUNTS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = run_scenario(name)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out = dict(scenario=name, cells=len(rows), wall_s=wall,
+                   windows=fluid.COUNTS.windows,
+                   k3_launches=fs.WINDOW_SOLVE_LAUNCHES.count,
+                   k2_standalone_launches=fs.GLOBAL_LAMBDA_LAUNCHES.count,
+                   host_copies=fluid.COUNTS.host_copies,
+                   host_copies_per_window=fluid.COUNTS.host_copies / max(1, fluid.COUNTS.windows))
+        check(out["k3_launches"] == out["windows"] > 0,
+              f"{name}: {out['k3_launches']} K3 launches for {out['windows']} windows")
+        check(all(all(map(_finite, (r["ddr_gbps"], r["cxl_gbps"]))) and r["ddr_gbps"] > 0
+                  for r in rows), f"{name}: non-finite or zero bandwidth")
+        return rows, out
+
+    rows, main = run("corun_sweep_1k")  # the main path
+    check(main["windows"] == 20, f"corun_sweep_1k ran {main['windows']} windows, not 20")
+    # The plain lane on the card: the same run with the float64 solver.
+    solve = fluid.kernel.fused_window_solve
+    fluid.kernel.fused_window_solve = fused_window_solve_ref
+    try:
+        t0 = time.perf_counter()
+        plain = run_scenario("corun_sweep_1k")
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+    finally:
+        fluid.kernel.fused_window_solve = solve
+    errs, flips = [], 0
+    for k, p in zip(rows, plain):
+        if (k["restricted_windows"] > 0) != (p["restricted_windows"] > 0):
+            flips += 1
+            continue
+        errs.append(max(abs(k[w] - p[w]) / max(p[w], 1e-9) for w in ("ddr_gbps", "cxl_gbps")))
+    errs.sort()
+    p95 = errs[int(0.95 * (len(errs) - 1))] if errs else 0.0
+    restricted = sum(r["restricted_windows"] > 0 for r in rows)
+    emit("sweep", **main, **host_stages("corun_sweep_1k"), plain_lane_wall_s=plain_wall,
+         restricted_cells=restricted,
+         decision_flip_cells=flips, max_flips=SWEEP1K_MAX_FLIPS,
+         aligned_p95_rel_err=p95, aligned_worst_rel_err=errs[-1] if errs else 0.0,
+         p95_bound=SWEEP1K_P95_BOUND)
+    check(flips <= SWEEP1K_MAX_FLIPS and p95 <= SWEEP1K_P95_BOUND,
+          f"corun_sweep_1k: {flips} decision flips, aligned p95 {p95}")
+    check(restricted > 0, "corun_sweep_1k: MIKU restricted no cell")
+
+    _, small = run("corun_sweep")
+    emit("sweep", **small)
+
+    # Where the sweep's time goes: one profiled run of the main path.
+    run_scenario("corun_sweep_1k")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_scenario("corun_sweep_1k")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+    emit("sweep_profile", scenario="corun_sweep_1k", wall_s_profiled=wall,
+         device_s=dev_us / 1e6, device_busy_share=dev_us / 1e6 / wall,
+         device_kernels=sum(e.count for e in events),
+         top_kernels=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3,
+                           calls=e.count) for e in top])
+    return main
+
+
+def _finite(x) -> bool:
+    return x == x and abs(x) != float("inf")
 
 
 def decode_check(model, params, gen, dev, steps):

@@ -5,6 +5,8 @@ estimator, throttle ladder and work-conserving promotion state per slow
 tier (:class:`SlowTierMiku`), run as an ensemble by :class:`MikuController`
 over per-tier windows (:class:`~repro_torch.core.littles_law.TierWindow`,
 fast tier first) and answering with tier-addressed :class:`TierDecisions`.
+:class:`VectorMikuLadder` is the same state machine over ``(cells, units)``
+tensors, for the batched sweep lane.
 
 Per slow tier: a backlog (smoothed ``T_slow`` above its mix-adjusted
 threshold) demotes the tier's traffic to the most restrictive concurrency
@@ -20,7 +22,10 @@ import dataclasses
 import enum
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import torch
+
 from repro_torch.core.littles_law import (
+    ACCESS_MIX,
     EstimatorConfig,
     LittlesLawEstimator,
     OpClass,
@@ -320,3 +325,231 @@ class MikuController:
         for unit in self.units:
             unit.reset()
         self.decisions.clear()
+
+
+class VectorMikuLadder:
+    """The MIKU decision law over ``(cells, units)`` float64 tensors.
+
+    A copy of ``repro.core.controller.VectorMikuLadder`` in torch, so the
+    batched sweep lane can keep its ladder state on the card: every (cell,
+    slow tier) pair carries its own estimator EWMA, ladder level, rate and
+    promotion state, and :meth:`window` advances all of them with masks.
+    The state machine is :class:`SlowTierMiku`'s, and it stays float64 so
+    that its decision sequences equal the reference's on the same counters.
+    Built from per-(cell, unit) :class:`SlowTierMiku` instances by
+    :meth:`from_units`; all ladders share one rung sequence.
+    """
+
+    def __init__(self, cells: int, units: int, levels: Sequence[int],
+                 device: torch.device):
+        self.device = device
+        self.cells = cells
+        self.units = units
+        f64 = dict(dtype=torch.float64, device=device)
+        self.levels_arr = torch.tensor([float(v) for v in levels], **f64)
+        self.n_levels = len(levels)
+        shape = (cells, units)
+        n_ops = len(OpClass)
+        self.t_fast = torch.zeros(shape, **f64)
+        self.slow_read_threshold = torch.zeros(shape, **f64)
+        self.write_scale = torch.full(shape, 2.0, **f64)
+        self.ewma_a = torch.full(shape, 0.5, **f64)
+        self.alpha_calm = torch.full(shape, 0.97, **f64)
+        self.min_window_inserts = torch.full(shape, 16.0, **f64)
+        self.min_slow_inserts = torch.full(shape, 4.0, **f64)
+        self.t_fast_scale = torch.ones(shape + (n_ops,), **f64)
+        self.class_caps = torch.ones(shape + (n_ops,), **f64)
+        self.min_rate = torch.full(shape, 0.1, **f64)
+        self.rate_backoff = torch.full(shape, 0.5, **f64)
+        self.rate_recover = torch.full(shape, 2.0, **f64)
+        self.patience = torch.full(shape, 1.0, **f64)
+        self.target_margin = torch.full(shape, 0.85, **f64)
+        self.drain_factor = torch.full(shape, 0.9, **f64)
+        self.fast_idle_alpha = torch.full(shape, 0.02, **f64)
+        ops = tuple(OpClass)
+        self.mix_reads = torch.tensor([float(ACCESS_MIX[c][0]) for c in ops], **f64)
+        self.mix_writes = torch.tensor([float(ACCESS_MIX[c][1]) for c in ops], **f64)
+        self.reset()
+
+    def reset(self) -> None:
+        """Reset every (cell, unit) ladder and estimator to the initial state."""
+        shape = (self.cells, self.units)
+        f64 = dict(dtype=torch.float64, device=self.device)
+        i64 = dict(dtype=torch.int64, device=self.device)
+        self.level = torch.full(shape, self.n_levels - 1, **i64)
+        self.rate = torch.ones(shape, **f64)
+        self.calm = torch.zeros(shape, **i64)
+        self.restricted = torch.zeros(shape, dtype=torch.bool, device=self.device)
+        self.prev_raw = torch.zeros(shape, **f64)
+        self.has_prev = torch.zeros_like(self.restricted)
+        self.t_slow = torch.zeros(shape, **f64)
+        self.has_ewma = torch.zeros_like(self.restricted)
+
+    @classmethod
+    def from_units(
+        cls,
+        unit_grid: Sequence[Sequence[Optional[SlowTierMiku]]],
+        device: Union[str, torch.device] = "cpu",
+    ) -> "VectorMikuLadder":
+        """Stack per-cell lists of :class:`SlowTierMiku` (None pads inactive
+        slots) into one vector ladder on ``device``; every real unit must
+        share the rung sequence (``ValueError`` otherwise)."""
+        cells = len(unit_grid)
+        units = max((len(row) for row in unit_grid), default=0) or 1
+        levels: Optional[Tuple[int, ...]] = None
+        for row in unit_grid:
+            for u in row:
+                if u is None:
+                    continue
+                lv = tuple(u.config.levels)
+                if levels is None:
+                    levels = lv
+                elif lv != levels:
+                    raise ValueError(
+                        "VectorMikuLadder requires one shared ladder rung "
+                        f"sequence; got {levels} and {lv}"
+                    )
+        self = cls(cells, units, levels or MikuConfig().levels, torch.device(device))
+        ops = tuple(OpClass)
+        # Fill host copies, then move each table to the device once.
+        host = {name: getattr(self, name).cpu() for name in (
+            "t_fast", "slow_read_threshold", "write_scale", "ewma_a",
+            "alpha_calm", "min_window_inserts", "min_slow_inserts",
+            "t_fast_scale", "class_caps", "min_rate", "rate_backoff",
+            "rate_recover", "patience", "target_margin", "drain_factor",
+            "fast_idle_alpha")}
+        for ci, row in enumerate(unit_grid):
+            for ui, u in enumerate(row):
+                if u is None:
+                    continue
+                cfg, est = u.config, u.estimator.config
+                scales = est.t_fast_class_scale or {}
+                host["t_fast"][ci, ui] = est.t_fast
+                host["slow_read_threshold"][ci, ui] = est.slow_read_threshold
+                host["write_scale"][ci, ui] = est.write_threshold_scale
+                host["ewma_a"][ci, ui] = est.ewma
+                host["alpha_calm"][ci, ui] = est.alpha_calm
+                host["min_window_inserts"][ci, ui] = est.min_window_inserts
+                host["min_slow_inserts"][ci, ui] = est.min_slow_inserts
+                host["t_fast_scale"][ci, ui] = torch.tensor(
+                    [float(scales.get(c, 1.0)) for c in ops], dtype=torch.float64)
+                host["class_caps"][ci, ui] = torch.tensor(
+                    [float(cfg.class_caps.get(c, 1)) for c in ops], dtype=torch.float64)
+                host["min_rate"][ci, ui] = cfg.min_rate
+                host["rate_backoff"][ci, ui] = cfg.rate_backoff
+                host["rate_recover"][ci, ui] = cfg.rate_recover
+                host["patience"][ci, ui] = cfg.promote_patience
+                host["target_margin"][ci, ui] = cfg.target_margin
+                host["drain_factor"][ci, ui] = cfg.drain_factor
+                host["fast_idle_alpha"][ci, ui] = cfg.fast_idle_alpha
+        for name, t in host.items():
+            setattr(self, name, t.to(self.device))
+        return self
+
+    def window(self, fast_ins, fast_occ, fast_cls, slow_ins, slow_occ,
+               slow_cls) -> Dict[str, torch.Tensor]:
+        """Advance every (cell, unit) ladder by one estimation window.
+
+        ``fast_*`` are per-cell fast-tier window deltas (``fast_cls``
+        shaped ``(cells, n_ops)``); ``slow_*`` are per-(cell, unit) deltas
+        (``slow_cls`` shaped ``(cells, units, n_ops)``), float64 on the
+        ladder's device.  Returns the decision tensors plus the estimate
+        fields of :class:`~repro_torch.core.littles_law.TierEstimate`;
+        ``cap`` is +inf for unrestricted pairs.
+        """
+        f_ins = fast_ins[:, None]
+        f_occ = fast_occ[:, None]
+        f_cls = fast_cls[:, None, :]
+        tiny = 1e-300
+
+        # -- estimator (LittlesLawEstimator.update, vectorized) ------------
+        total_ins = f_ins + slow_ins
+        total_occ = f_occ + slow_occ
+        reads = (slow_cls * self.mix_reads).sum(-1)
+        writes = (slow_cls * self.mix_writes).sum(-1)
+        tot_rw = reads + writes
+        rf = torch.where(tot_rw > 0, reads / tot_rw.clamp(min=tiny), 1.0)
+        wf = torch.where(tot_rw > 0, writes / tot_rw.clamp(min=tiny), 0.0)
+        threshold = self.slow_read_threshold * (rf + wf * self.write_scale)
+        num = (f_cls * self.t_fast_scale).sum(-1)
+        den = f_cls.sum(-1).clamp(min=1.0)
+        t_fast = torch.where(f_ins > 0, self.t_fast * num / den, self.t_fast)
+        valid = (total_ins >= self.min_window_inserts) & (
+            slow_ins >= self.min_slow_inserts
+        )
+        t_avg = torch.where(total_ins > 0, total_occ / total_ins.clamp(min=tiny), 0.0)
+        alpha_v = f_ins / total_ins.clamp(min=tiny)
+        alpha = torch.where(valid, alpha_v,
+                            torch.where(slow_ins == 0, 1.0, 0.0))
+        slow_mean = torch.where(slow_ins > 0, slow_occ / slow_ins.clamp(min=tiny), 0.0)
+        raw_eq1 = (t_avg - alpha * t_fast) / (1.0 - alpha).clamp(min=1e-12)
+        raw = torch.where(alpha > self.alpha_calm, slow_mean, raw_eq1).clamp(min=0.0)
+        raw = torch.where(valid, raw, 0.0)
+        upd = torch.where(
+            self.has_ewma,
+            self.ewma_a * raw + (1.0 - self.ewma_a) * self.t_slow,
+            raw,
+        )
+        self.t_slow = torch.where(valid, upd, self.t_slow)
+        self.has_ewma = self.has_ewma | valid
+        backlogged = valid & (self.t_slow > threshold)
+
+        # -- ladder (SlowTierMiku.window, vectorized) ----------------------
+        was_restricted = self.restricted
+        demote_unres = ~was_restricted & backlogged
+        fast_idle = (~valid & (f_ins == 0)) | (valid & (alpha < self.fast_idle_alpha))
+        release = was_restricted & fast_idle
+        over = was_restricted & ~fast_idle & valid & (raw > threshold)
+        draining = over & self.has_prev & (raw < self.prev_raw * self.drain_factor)
+        demote_again = over & ~draining & (self.level > 0)
+        back_off = over & ~draining & (self.level == 0)
+        under = (
+            was_restricted & ~fast_idle & ~over & valid
+            & (raw < self.target_margin * threshold)
+        )
+        hold = was_restricted & ~fast_idle & ~over & ~under
+
+        calm = torch.where(over | hold, 0, self.calm)
+        calm = torch.where(under, calm + 1, calm)
+        do_promote = under & (calm >= self.patience)
+        calm = torch.where(do_promote | release | demote_unres, 0, calm)
+        recover = do_promote & (self.rate < 1.0)
+        promote = do_promote & (self.rate >= 1.0)
+        present = slow_cls > 0
+        caps_masked = torch.where(present, self.class_caps, float("inf"))
+        class_cap = torch.where(present.any(-1), caps_masked.amin(-1),
+                                self.levels_arr[-1])
+        nxt = self.level + 1
+        nxt_val = self.levels_arr[nxt.clamp(max=self.n_levels - 1)]
+        can = (nxt < self.n_levels) & (
+            nxt_val <= class_cap.clamp(min=self.levels_arr[0])
+        )
+
+        level = torch.where(demote_unres | demote_again, 0, self.level)
+        level = torch.where(release, self.n_levels - 1, level)
+        level = torch.where(promote & can, self.level + 1, level)
+        rate = torch.where(demote_unres | release, 1.0, self.rate)
+        rate = torch.where(
+            back_off, torch.maximum(self.min_rate, self.rate * self.rate_backoff),
+            rate,
+        )
+        rate = torch.where(recover, (self.rate * self.rate_recover).clamp(max=1.0), rate)
+        restricted = (was_restricted | demote_unres) & ~release
+
+        self.level, self.rate, self.calm = level, rate, calm
+        self.restricted = restricted
+        self.prev_raw = torch.where(valid, raw, self.prev_raw)
+        self.has_prev = self.has_prev | valid
+
+        return {
+            "cap": torch.where(restricted, self.levels_arr[level], float("inf")),
+            "rate": torch.where(restricted, rate, 1.0),
+            "restricted": restricted,
+            "t_avg": t_avg,
+            "alpha": alpha,
+            "t_slow": self.t_slow.clone(),
+            "t_slow_raw": raw,
+            "threshold": threshold,
+            "backlogged": backlogged,
+            "valid": valid,
+        }

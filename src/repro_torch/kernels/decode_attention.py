@@ -1,9 +1,9 @@
 """Build, bind and launch the flash-decode GQA kernel (``csrc/decode_attention.cu``).
 
 The CUDA source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, cached by source hash under
-``kernels/_build/`` (ignored by git), and loaded with ``ctypes``.  Nothing
-is built or imported from the toolkit when this module is imported.
+shared library with a plain C interface (:mod:`repro_torch.kernels._nvcc`),
+and loaded with ``ctypes``.  Nothing is built or imported from the toolkit
+when this module is imported.
 
 :data:`LAUNCHES` counts kernel launches (one per :func:`decode_attention_cuda`
 call); callers reset it around the run they want to attribute.
@@ -12,72 +12,27 @@ call); callers reset it around the run they want to attribute.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional
 
 import torch
 
 from repro_torch.core.invariants import require
+from repro_torch.kernels import _nvcc
+from repro_torch.kernels._nvcc import LaunchCounter
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCE = _nvcc.CudaSource("decode_attention")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-
-
-class LaunchCounter:
-    """A plain integer count of kernel launches."""
-
-    def __init__(self) -> None:
-        self.count = 0
-
-    def reset(self) -> None:
-        self.count = 0
-
 
 LAUNCHES = LaunchCounter()
 
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build() -> Path:
-    """Compile the kernel library if this source has not been built yet;
-    returns its path.  ptxas's register/spill report is kept beside it
-    (``.ptxas.txt``)."""
-    src = _SRC.read_bytes()
-    lib = _BUILD_DIR / f"decode_attention-{hashlib.sha256(src).hexdigest()[:12]}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    lib.with_suffix(".ptxas.txt").write_text(proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent build sees a whole file
-    return lib
-
-
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(_nvcc.build(SOURCE)[0]))
         fn = lib.decode_attention_launch
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p] * 2

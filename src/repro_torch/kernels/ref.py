@@ -4,11 +4,19 @@
 materialization of the scores, f32 scores and softmax, the same ``NEG_INF``
 mask, window and softcap.  The CPU path of :mod:`repro_torch.kernels.ops`
 runs it, and ``chip_smoke.py`` holds the CUDA kernel against it on the card.
+
+``station_lambdas_ref``, ``global_lambda_ref`` and ``fused_window_solve_ref``
+are the batched lane's solver in float64 on any device: the reference's
+numpy ``station_lambdas`` and ``_global_lambda_numpy``
+(``repro/memsim/batched/kernel.py``) and its numpy relaxation loop
+(``repro/memsim/batched/fluid.py:222-297``), operation for operation.  The
+CPU path of :mod:`repro_torch.memsim.batched.kernel` runs them, and
+``chip_smoke.py`` holds the f32 kernels against them on the card.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,3 +48,131 @@ def decode_attention_ref(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", probs, v.float())
     return out.to(q.dtype)
+
+
+_BISECT_ITERS = 48
+_EPS = 1e-9
+
+
+def station_lambdas_ref(A, cap, route_svc, slots) -> torch.Tensor:
+    """Per-(cell, station) fair per-core rate, ``(C, S)``; +inf where the
+    station serves every user at its cap.  ``A``/``cap`` ``(C, W)``,
+    ``route_svc`` ``(C, W, S)``, ``slots`` ``(C, S)`` (0 = padding)."""
+    C = A.shape[0]
+    S = slots.shape[1]
+    hi0 = (cap / A.clamp(min=1e-12)).amax(dim=1) + 1e-6
+    hi = hi0[:, None].expand(C, S).clone()
+    lo = torch.zeros_like(hi)
+
+    def demand(lam):
+        y = torch.minimum(lam[:, None, :] * A[:, :, None], cap[:, :, None])
+        return (y * route_svc).sum(dim=1)
+
+    feasible_at_cap = demand(hi) <= slots + _EPS
+    for _ in range(_BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        ok = demand(mid) <= slots + _EPS
+        lo = torch.where(ok, mid, lo)
+        hi = torch.where(ok, hi, mid)
+    return torch.where(feasible_at_cap, float("inf"), lo)
+
+
+def _population(lam, A, cap, y_sta, o_eff, R_tor, irq_cap):
+    """Per-workload ToR holdings at per-core rate ``lam``; a queue-forming
+    workload holds its MLP population minus its share of the IRQ."""
+    y_free = torch.minimum(lam[:, None] * A, cap)
+    y = torch.minimum(y_free, y_sta)
+    clamped = y_sta < y_free * (1.0 - 1e-9)
+    unclamped_pop = torch.minimum(o_eff, y * R_tor)
+    share = y / y.sum(dim=1, keepdim=True).clamp(min=1e-12)
+    qb_pop = torch.maximum(o_eff - irq_cap[:, None] * share, unclamped_pop)
+    return y, torch.where(clamped, qb_pop, unclamped_pop)
+
+
+def global_lambda_ref(A, cap, y_sta, o_eff, R_tor, tor_cap, irq_cap) -> torch.Tensor:
+    """Max common per-core rate per cell under the ToR population bound,
+    ``(C,)``; +inf where the ToR never fills."""
+    hi0 = (cap / A.clamp(min=1e-12)).amax(dim=1) + 1e-6
+    lo = torch.zeros_like(hi0)
+    hi = hi0.clone()
+
+    def feasible(lam):
+        _, pop = _population(lam, A, cap, y_sta, o_eff, R_tor, irq_cap)
+        return pop.sum(dim=1) <= tor_cap + _EPS
+
+    feasible_at_cap = feasible(hi0)
+    for _ in range(_BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        ok = feasible(mid)
+        lo = torch.where(ok, mid, lo)
+        hi = torch.where(ok, hi, mid)
+    return torch.where(feasible_at_cap, float("inf"), lo)
+
+
+def _contract(x, m):
+    """``einsum("cw,cws->cs", x, m)`` as products then a sum, as numpy's
+    einsum forms it (no fused multiply-add)."""
+    return (x[:, :, None] * m).sum(dim=1)
+
+
+def fused_window_solve_ref(
+    A, y_rate, o_eff, route, route_svc, svc_pipe, slots, tor_cap, irq_cap, Wq,
+    n_outer: int, damp: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One window's wait relaxation: ``n_outer`` damped iterations of
+    station scaling, the global-lambda bisection, the population accounting
+    of queue-forming workloads and the Little's-law wait update.  Returns
+    ``(y (C, W), Wq (C, S), lam (C,))``; ``lam`` is the last iteration's,
+    +inf where the ToR never fills."""
+    C, W = A.shape
+    y = torch.zeros_like(A)
+    lam = torch.full((C,), float("inf"), dtype=A.dtype, device=A.device)
+    used = route_svc > 1e-12
+    for _ in range(n_outer):
+        r_sta = Wq[:, None, :] + svc_pipe
+        R_tor = (route * r_sta).sum(dim=2)
+        R_base = (route * svc_pipe).sum(dim=2)
+        # Issue-side caps: token rate and the MLP population (waits
+        # included: a backlogged tier slows its own issuers).
+        cap = torch.minimum(y_rate, o_eff / R_tor.clamp(min=1e-9))
+        cap = torch.where(A > 0, cap, 0.0)
+        lam_s = station_lambdas_ref(A, cap, route_svc, slots)
+        lam_min = torch.where(used, lam_s[:, None, :], float("inf")).amin(dim=2)
+        # Padded workloads have no used station: clamp +inf before the
+        # product so it is 0, not NaN.
+        y_sta = torch.where(torch.isfinite(lam_min), lam_min, 1e30) * A.clamp(min=0.0)
+        lam = global_lambda_ref(A, cap, y_sta, o_eff, R_tor, tor_cap, irq_cap)
+        lam_b = torch.where(torch.isfinite(lam), lam, 1e30)[:, None]
+        y_free = torch.minimum(lam_b * A, cap)
+        y = torch.minimum(y_free, y_sta)
+        # Queue-forming workloads: held at their station share while their admission
+        # allowance and issue caps still have headroom.
+        qb = (y_sta <= lam_b * A * (1.0 + 1e-9)) & (y_sta < cap * (1.0 - 1e-9))
+        unc_pop = torch.minimum(o_eff, y * R_tor)
+        share = y / y.sum(dim=1, keepdim=True).clamp(min=1e-12)
+        pop_w = torch.where(
+            qb, torch.maximum(o_eff - irq_cap[:, None] * share, unc_pop), unc_pop)
+
+        # Wait relaxation: the queued population sits at the saturated
+        # stations of the station-clamped workloads (Little's law).
+        d_s = _contract(y, route_svc)
+        inflow_s = _contract(y, route)
+        util = d_s / slots.clamp(min=1e-9)
+        sat = (util >= 0.98) & (slots > 0)
+        n_pop = torch.minimum(pop_w.sum(dim=1), tor_cap)
+        base_pop = (y * R_base).sum(dim=1)
+        q_total = (n_pop - base_pop).clamp(min=0.0)
+        q_max = torch.where(qb, (pop_w - y * R_base).clamp(min=0.0), 0.0)
+        q_sum = q_max.sum(dim=1)
+        scale = torch.where(
+            q_sum > 1e-12, (q_total / q_sum.clamp(min=1e-12)).clamp(max=1.0), 0.0)
+        q_w = q_max * scale[:, None]
+        w_st = torch.where(sat[:, None, :], route_svc, 0.0)
+        w_norm = w_st.sum(dim=2, keepdim=True)
+        w_st = torch.where(w_norm > 1e-12, w_st / w_norm.clamp(min=1e-12), 0.0)
+        q_s = _contract(q_w, w_st)
+        mean_svc = d_s / inflow_s.clamp(min=1e-12)
+        w_new = q_s * mean_svc / slots.clamp(min=1e-9)
+        w_new = torch.where(sat, w_new, 0.0)
+        Wq = damp * Wq + (1.0 - damp) * w_new
+    return y, Wq, lam

@@ -1,0 +1,318 @@
+"""The window-lockstep fluid engine: one step advances every cell of a group.
+
+A port of ``repro.memsim.batched.fluid``.  Each control window is a
+closed-network equilibrium of the structures the DES simulates event by
+event (§4.2): cores with bounded MLP issuing round-robin, the FIFO IRQ/ToR
+admission path, per-tier device stations, the LLC station and the shared
+ToR population bound.  Per cell and window the ToR either has room (each
+workload runs at its own issue cap, clamped to the fair share of any
+saturated station it uses) or it is coupled (one per-core rate governs
+every workload, and a saturated slow station collapses the fast tier's
+inserts: the paper's unfair queuing in fluid form).  The per-tier window
+counters feed the vector MIKU ladder, whose caps and rates throttle the
+next window.
+
+Everything runs on one device: the group's float64 host arrays are copied
+there once, the relaxation goes through
+:func:`~repro_torch.memsim.batched.kernel.fused_window_solve` (one K3
+launch per window on the card, the float64 plain loop on the CPU), and the
+ladder keeps its state there.  The host reads the device once per fired
+window (the ladder's outputs, to build the :class:`Decision` records) and
+once at the end (the accumulators); :data:`COUNTS` counts both.
+
+Not ported yet: per-window telemetry (``record_windows``), analytic
+latency histograms, vector tiering and the merged law; the lane refuses
+jobs that need them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.controller import (
+    Decision,
+    Phase,
+    TierDecisions,
+    VectorMikuLadder,
+)
+from repro_torch.core.des import SimResult, WorkloadStats
+from repro_torch.core.littles_law import OpClass, TierCounters, TierEstimate
+from repro_torch.device import resolve_device
+from repro_torch.memsim.batched import kernel
+from repro_torch.memsim.batched.stacking import BatchGroup
+
+_OPS = tuple(OpClass)
+_N_OUTER = 30  # wait-relaxation iterations per window
+_DAMP = 0.5
+#: Ladder output fields copied to the host at every fired window.
+_LADDER_FIELDS = ("cap", "rate", "restricted", "t_avg", "alpha", "t_slow",
+                  "t_slow_raw", "threshold", "backlogged", "valid")
+
+
+class Counts:
+    """Windows advanced and device-to-host copies made by :func:`run_fluid`
+    since the last :meth:`reset`."""
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def reset(self) -> None:
+        self.windows = 0
+        self.host_copies = 0
+
+
+COUNTS = Counts()
+
+
+def _to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """Copy tensors to the host as float64 numpy arrays in one transfer."""
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
+    COUNTS.host_copies += 1
+    host = flat.cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        out.append(host[at:at + t.numel()].reshape(tuple(t.shape)))
+        at += t.numel()
+    return out
+
+
+def build_ladder(group: BatchGroup,
+                 device: Optional[torch.device] = None) -> Optional[VectorMikuLadder]:
+    """The group's stacked vector ladder on ``device`` (None when no cell
+    has MIKU).  Raises ``ValueError`` for cells whose units mix rung
+    tables."""
+    grid = [p.units if p.units else [] for p in group.plans]
+    if not any(grid):
+        return None
+    return VectorMikuLadder.from_units(grid, resolve_device(device))
+
+
+def run_fluid(
+    group: BatchGroup,
+    ladder: Optional[VectorMikuLadder] = None,
+    device=None,
+) -> List[SimResult]:
+    """Run one stacked cell group to its horizons on ``device`` (the card
+    unless ``"cpu"``); SimResults in group order.  ``ladder`` is the group's
+    pre-built :func:`build_ladder` result (built here when omitted)."""
+    dev = resolve_device(device)
+    C, W, S, T = (len(group.plans), group.n_wl, group.n_st, group.n_tiers)
+    llc = group.llc
+    win = group.window_ns
+    n_ops = len(_OPS)
+    has_ctl = np.array([bool(p.units) for p in group.plans])
+    n_slow_cell = group.n_tiers_cell - 1
+    U = max(1, T - 1)
+    if ladder is None:
+        ladder = build_ladder(group, dev)
+    inf = float("inf")
+    f64 = dict(dtype=torch.float64, device=dev)
+
+    def put(x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, dtype=np.float64)).to(dev)
+
+    # Station-shaped constants: device service per (c, w, s) with the LLC
+    # column; pipeline per station (the LLC has none).
+    pipe_st = np.zeros((C, W, S))
+    pipe_st[:, :, :T] = group.pipe[:, None, :T]
+    svc = put(group.svc)
+    svc_pipe = put(group.svc + pipe_st)  # per-insert residency sans queueing
+    op_onehot = put(np.stack([group.op == o for o in range(n_ops)], axis=-1))
+    has_phases = any(seq is not None for row in group.phases for seq in row)
+    p = group.p_llc
+    p_llc = put(np.where(p == 2.0, 1.0, np.where((p >= 0.0) & (p <= 1.0), p, 0.0)))
+    managed = torch.as_tensor(group.managed).to(dev)
+    active_w = torch.as_tensor(group.active_w).to(dev)
+    cores = put(group.cores)
+    effmlp = put(group.effmlp)
+    bytes_t = put(group.bytes_t)
+    slots = put(group.slots)
+    tor_cap = put(group.tor_cap)
+    irq_cap = put(group.irq_cap)
+    tier_frac = put(group.tier_frac)
+
+    # The window clock lives on the host (it decides which cells fire); the
+    # per-window lengths go to the device once.
+    n_seg = int(np.max(np.ceil(group.sim_ns / win - 1e-9))) if C else 0
+    t0_all = np.arange(n_seg)[:, None] * win + np.zeros(C)
+    t1_all = np.minimum(t0_all + win, group.sim_ns)
+    seg_all = np.maximum(t1_all - t0_all, 0.0)
+    active_all = seg_all > 1e-12
+    fire_all = active_all & (t1_all >= t0_all + win - 1e-9)
+    dt_all = put(np.where(active_all, seg_all, 0.0))
+    fire_dev = torch.as_tensor(fire_all).to(dev)
+    apply_dev = (fire_dev[:, :, None]
+                 & torch.as_tensor(has_ctl).to(dev)[None, :, None]
+                 & (torch.arange(U, device=dev)[None, None, :]
+                    < torch.as_tensor(n_slow_cell).to(dev)[None, :, None]))
+
+    # Throttle state written by the ladder (tier-addressed, like apply()).
+    tier_cap = torch.full((C, U), inf, **f64)
+    tier_rate = torch.ones((C, U), **f64)
+    Wq = torch.zeros((C, S), **f64)  # station waits, warm-started
+
+    bytes_w = torch.zeros((C, W), **f64)
+    completed_w = torch.zeros((C, W), **f64)
+    latsum_w = torch.zeros((C, W), **f64)
+    ins_t = torch.zeros((C, T), **f64)
+    occ_t = torch.zeros((C, T), **f64)
+    cls_t = torch.zeros((C, T, n_ops), **f64)
+    occ_int_t = torch.zeros((C, T), **f64)
+    tor_inserts = torch.zeros(C, **f64)
+    tor_occ = torch.zeros(C, **f64)
+    tor_peak = torch.zeros(C, **f64)
+    decisions: List[list] = [[] for _ in range(C)]
+    bytes_wins: List[torch.Tensor] = []  # per window, for the timelines
+
+    for k in range(n_seg):
+        active = active_all[k]
+        if not active.any():
+            break
+        fire = fire_all[k]
+        COUNTS.windows += 1
+
+        # -- routing & throttles for this window --------------------------
+        frac = (put(group.window_fracs(t0_all[k], t1_all[k])) if has_phases
+                else tier_frac)  # (C, W, T)
+        route = torch.cat([frac * (1.0 - p_llc)[:, :, None], p_llc[:, :, None]],
+                          dim=2)  # stations: tiers, then the LLC (S = T + 1)
+        if T > 1:
+            touched = managed[:, :, None] & (frac[:, :, 1:] > 1e-12)
+            w_cap = torch.where(touched, tier_cap[:, None, :T - 1], inf).amin(dim=2)
+            w_rate = torch.where(touched, tier_rate[:, None, :T - 1], 1.0).amin(dim=2)
+        else:
+            w_cap = torch.full((C, W), inf, **f64)
+            w_rate = torch.ones((C, W), **f64)
+        A = torch.minimum(cores, w_cap)
+        A = torch.where(active_w, A.clamp(min=0.0), 0.0)
+        e_cost = (frac * svc[:, :, :T]).sum(dim=2)
+        y_rate = torch.where(w_rate >= 1.0 - 1e-12, inf,
+                             w_rate / e_cost.clamp(min=1e-9))
+        o_eff = A * effmlp
+        route_svc = route * svc
+
+        # -- equilibrium solve (wait relaxation + water-filling) ----------
+        y, Wq, lam = kernel.fused_window_solve(
+            A, y_rate, o_eff, route, route_svc, svc_pipe, slots, tor_cap,
+            irq_cap, Wq, _N_OUTER, _DAMP)
+        coupled = torch.isfinite(lam)
+
+        # -- accumulate window counters -----------------------------------
+        dt = dt_all[k]
+        ins_w = y * dt[:, None]
+        r_sta = Wq[:, None, :] + svc_pipe
+        R_tor = (route * r_sta).sum(dim=2)
+        y_tot = y.sum(dim=1)
+        w_irq = torch.where(coupled, irq_cap / y_tot.clamp(min=1e-9), 0.0)
+        ins_dev = ins_w[:, :, None] * route[:, :, :T]
+        ins_t += ins_dev.sum(dim=1)
+        occ_dev = ins_dev * r_sta[:, :, :T]
+        occ_t += occ_dev.sum(dim=1)
+        cls_w = (ins_dev[:, :, :, None] * op_onehot[:, :, None, :]).sum(dim=1)
+        cls_t += cls_w
+        bytes_win = ins_w * (frac * bytes_t).sum(dim=2)
+        bytes_w += bytes_win
+        bytes_wins.append(bytes_win)
+        completed_w += ins_w
+        latsum_w += ins_w * (R_tor + w_irq[:, None])
+        tor_inserts += ins_w.sum(dim=1)
+        pop = torch.minimum((y * R_tor).sum(dim=1), tor_cap)
+        tor_occ += pop * dt
+        tor_peak = torch.maximum(tor_peak, pop)
+        llc_res = route[:, :, llc] * r_sta[:, :, llc]
+        occ_int_t += (occ_dev + (ins_w * llc_res)[:, :, None] * frac).sum(dim=1)
+
+        # -- fire the control window (decisions apply to the next one) ----
+        if not fire.any() or ladder is None:
+            continue
+        n_avail = min(U, T - 1)
+        s_ins = torch.zeros((C, U), **f64)
+        s_occ = torch.zeros((C, U), **f64)
+        s_cls = torch.zeros((C, U, n_ops), **f64)
+        s_ins[:, :n_avail] = ins_dev.sum(dim=1)[:, 1:1 + n_avail]
+        s_occ[:, :n_avail] = occ_dev.sum(dim=1)[:, 1:1 + n_avail]
+        s_cls[:, :n_avail] = cls_w[:, 1:1 + n_avail]
+        out = ladder.window(ins_dev[:, :, 0].sum(dim=1), occ_dev[:, :, 0].sum(dim=1),
+                            cls_w[:, 0], s_ins, s_occ, s_cls)
+        # Tier-addressed apply: per-tier caps/rates for the next window,
+        # written once for every firing cell with a controller.
+        tier_cap = torch.where(apply_dev[k], out["cap"], tier_cap)
+        tier_rate = torch.where(apply_dev[k], out["rate"], tier_rate)
+        host = dict(zip(_LADDER_FIELDS, _to_host(*(out[f] for f in _LADDER_FIELDS))))
+        for ci in np.flatnonzero(fire & has_ctl):
+            names = group.plans[ci].export["tier_names"][1:]
+            ds = []
+            for u in range(int(n_slow_cell[ci])):
+                cap_v = float(host["cap"][ci, u])
+                restricted = bool(host["restricted"][ci, u])
+                est = TierEstimate(
+                    t_avg=float(host["t_avg"][ci, u]),
+                    alpha=float(host["alpha"][ci, u]),
+                    t_slow=float(host["t_slow"][ci, u]),
+                    t_slow_raw=float(host["t_slow_raw"][ci, u]),
+                    threshold=float(host["threshold"][ci, u]),
+                    backlogged=bool(host["backlogged"][ci, u]),
+                    valid=bool(host["valid"][ci, u]),
+                )
+                ds.append(Decision(
+                    max_concurrency=(
+                        None if not restricted or math.isinf(cap_v) else int(cap_v)
+                    ),
+                    rate_factor=float(host["rate"][ci, u]),
+                    phase=Phase.RESTRICTED if restricted else Phase.UNRESTRICTED,
+                    estimate=est,
+                ))
+            decisions[ci].append(TierDecisions(tiers=tuple(names), decisions=tuple(ds)))
+
+    # -- materialize SimResults -------------------------------------------
+    n_run = len(bytes_wins)
+    timeline = (torch.stack(bytes_wins) if n_run
+                else torch.zeros((0, C, W), **f64))
+    (bytes_w, completed_w, latsum_w, ins_t, occ_t, cls_t, occ_int_t, tor_inserts,
+     tor_occ, tor_peak, timeline) = _to_host(
+        bytes_w, completed_w, latsum_w, ins_t, occ_t, cls_t, occ_int_t,
+        tor_inserts, tor_occ, tor_peak, timeline)
+    results: List[SimResult] = []
+    for ci, plan in enumerate(group.plans):
+        e = plan.export
+        names = e["tier_names"]
+        fired = np.flatnonzero(fire_all[:n_run, ci])
+        stats = {}
+        for wi, name in enumerate(e["w_names"]):
+            st = WorkloadStats()
+            st.completed = int(round(completed_w[ci, wi]))
+            st.bytes = float(bytes_w[ci, wi])
+            st.latency_sum = float(latsum_w[ci, wi])
+            st.latency_count = st.completed
+            mean = st.latency_sum / max(1, st.latency_count)
+            # No per-request reservoir in the fluid lane: percentiles
+            # degenerate to the mean.
+            st.latency_samples = [mean] if st.completed else []
+            st.timeline = [((k + 1) * win, float(timeline[k, ci, wi])) for k in fired]
+            stats[name] = st
+        tcs = {}
+        for t in range(e["n_tiers"]):
+            tc = TierCounters()
+            tc.inserts = int(round(ins_t[ci, t]))
+            tc.occupancy_time = float(occ_t[ci, t])
+            tc.class_counts = {
+                op: int(round(cls_t[ci, t, o])) for o, op in enumerate(_OPS)
+            }
+            tcs[names[t]] = tc
+        results.append(SimResult(
+            sim_ns=float(group.sim_ns[ci]),
+            stats=stats,
+            tier_counters=tcs,
+            tor_peak=int(math.ceil(tor_peak[ci])),
+            tor_occupancy_integral=float(tor_occ[ci]),
+            tor_inserts=int(round(tor_inserts[ci])),
+            decisions=decisions[ci],
+            per_tier_occupancy_integral={
+                names[t]: float(occ_int_t[ci, t]) for t in range(e["n_tiers"])
+            },
+        ))
+    return results

@@ -1,0 +1,142 @@
+"""Stack SimJobs into the batched lane's array form (a copy of
+``repro.memsim.batched.stacking`` without the tiering hook).
+
+One :class:`CellPlan` per job: the job's exported static state
+(:func:`repro_torch.core.des.export_state`) plus its calibrated per-slow-tier
+MIKU units, built through :func:`repro_torch.memsim.calibration.default_miku`
+so the ladder is calibrated exactly as a scalar controller would be.
+:class:`BatchGroup` holds the padded float64 ``(cells, workloads,
+stations)`` arrays on the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core.des import export_state
+from repro_torch.memsim.sweep import SimJob
+
+
+@dataclasses.dataclass
+class CellPlan:
+    """One job, ready for stacking: exported state + MIKU units."""
+
+    job: SimJob
+    export: dict
+    #: Per-slow-tier SlowTierMiku units (empty = no controller).
+    units: list
+
+
+def plan_cell(job: SimJob) -> CellPlan:
+    """Export the job's static state and build its controller units."""
+    if job.miku and job.miku_law != "pertier":
+        raise NotImplementedError(
+            f"miku_law={job.miku_law!r} is not ported yet; only the per-tier "
+            "law runs on the batched lane"
+        )
+    export = export_state(job.platform, job.workloads,
+                          granularity=job.granularity,
+                          window_ns=job.window_ns)
+    units: list = []
+    if job.miku:
+        from repro_torch.memsim.calibration import default_miku
+
+        n_slow = export["n_tiers"] - 1
+        ctl = default_miku(job.platform, job.granularity, **job.miku_overrides)
+        ctl._ensure_units(n_slow, export["tier_names"][1:])
+        units = list(ctl.units[:n_slow])
+    return CellPlan(job=job, export=export, units=units)
+
+
+class BatchGroup:
+    """Padded array form of one window-cadence group of cells.
+
+    Stations are the union layout ``[tier 0 .. max_tiers-1, llc]``; cells
+    with fewer tiers carry zero-capacity padding.  Workload slots beyond a
+    cell's count are inactive (zero cores).
+    """
+
+    def __init__(self, cells: Sequence[Tuple[int, CellPlan]]):
+        self.indices = [i for i, _ in cells]
+        self.plans = [p for _, p in cells]
+        C = len(self.plans)
+        exps = [p.export for p in self.plans]
+        self.window_ns = float(exps[0]["window_ns"])
+        T = max(e["n_tiers"] for e in exps)
+        W = max(len(e["w_names"]) for e in exps)
+        S = T + 1  # + LLC station
+        self.n_tiers, self.n_wl, self.n_st = T, W, S
+        self.llc = T
+
+        self.n_tiers_cell = np.array([e["n_tiers"] for e in exps])
+        self.sim_ns = np.array([p.job.sim_ns for p in self.plans])
+        self.tor_cap = np.array([e["tor_capacity"] for e in exps], float)
+        self.irq_cap = np.array([e["irq_capacity"] for e in exps], float)
+        self.slots = np.zeros((C, S))  # 0 = padding station
+        self.pipe = np.zeros((C, S))
+        self.active_w = np.zeros((C, W), bool)
+        self.svc = np.ones((C, W, S))
+        self.bytes_t = np.zeros((C, W, T))
+        self.p_llc = np.full((C, W), -1.0)
+        self.tier_frac = np.zeros((C, W, T))
+        self.effmlp = np.zeros((C, W))
+        self.cores = np.zeros((C, W))
+        self.managed = np.zeros((C, W), bool)
+        self.op = np.zeros((C, W), int)
+        self.phases: List[List[Optional[list]]] = []
+
+        for ci, e in enumerate(exps):
+            nt = e["n_tiers"]
+            self.slots[ci, :nt] = e["st_slots"][:nt]
+            self.slots[ci, self.llc] = e["st_slots"][nt]
+            self.pipe[ci, :nt] = e["pipe"]
+            nw = len(e["w_names"])
+            self.active_w[ci, :nw] = True
+            for wi in range(nw):
+                self.svc[ci, wi, :nt] = e["w_svc"][wi]
+                self.svc[ci, wi, self.llc] = e["w_llc_svc"][wi]
+                self.bytes_t[ci, wi, :nt] = e["w_bytes"][wi]
+                self.p_llc[ci, wi] = e["w_phit"][wi]
+                self.tier_frac[ci, wi, :nt] = e["w_tier_frac"][wi]
+                self.effmlp[ci, wi] = e["w_effmlp"][wi]
+                self.cores[ci, wi] = e["w_cores"][wi]
+                self.managed[ci, wi] = e["w_managed"][wi]
+                self.op[ci, wi] = e["w_op"][wi]
+            self.phases.append(
+                [e["w_phases"][wi] if wi < nw else None for wi in range(W)]
+            )
+
+    def window_fracs(self, t0: np.ndarray, t1: np.ndarray) -> np.ndarray:
+        """Per-window tier-routing fractions ``(C, W, T)``: the static
+        routing, with phased workloads replaced by the time-weighted tier
+        occupancy of their (cycled) phase schedule over ``[t0, t1)``."""
+        out = self.tier_frac.copy()
+        for ci, row in enumerate(self.phases):
+            for wi, seq in enumerate(row):
+                if seq is None:
+                    continue
+                dur = float(t1[ci] - t0[ci])
+                if dur <= 0:
+                    continue
+                out[ci, wi, :] = 0.0
+                period = sum(d for d, _ in seq)
+                pos = float(t0[ci]) % period
+                left = dur
+                k = 0
+                acc = 0.0
+                for k, (d, _) in enumerate(seq):  # the current phase
+                    if pos < acc + d:
+                        break
+                    acc += d
+                offset = pos - acc
+                while left > 1e-9:
+                    d, tier = seq[k % len(seq)]
+                    span = min(left, d - offset)
+                    out[ci, wi, tier] += span / dur
+                    left -= span
+                    offset = 0.0
+                    k += 1
+        return out

@@ -1,0 +1,66 @@
+"""Sweep entry point: many independent simulated-testbed cells.
+
+A copy of ``repro.memsim.sweep``'s :class:`SimJob` (the fields the batched
+lane reads, with their validation) and :func:`run_sweep`.  The port runs
+sweeps on the batched lane only: the scalar event-driven DES is not ported
+yet (ROADMAP queue A, "the scalar DES lane").
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence
+
+from repro_torch.core.des import SimResult, WorkloadSpec, validate_workloads
+from repro_torch.core.device_model import PlatformModel
+
+
+@dataclasses.dataclass
+class SimJob:
+    """One independent simulation cell."""
+
+    platform: PlatformModel
+    workloads: List[WorkloadSpec]
+    sim_ns: float
+    granularity: int = 4
+    window_ns: float = 10_000.0
+    #: Build a platform-calibrated MIKU controller for the cell.
+    miku: bool = False
+    miku_overrides: Dict[str, float] = dataclasses.field(default_factory=dict)
+    #: Which decision law ``miku=True`` builds: "pertier" (one ladder per
+    #: slow tier, the default), "merged" or "peredge".  Only "pertier" is
+    #: ported; the batched lane refuses the others.
+    miku_law: str = "pertier"
+    #: Per-window telemetry and analytic latency histograms; not ported
+    #: yet, the batched lane refuses jobs that ask for them.
+    record_windows: bool = False
+    latency_hist: bool = False
+
+    def __post_init__(self):
+        validate_workloads(self.platform, self.workloads)
+        if self.miku_law not in ("pertier", "merged", "peredge"):
+            raise ValueError(
+                f"unknown miku_law {self.miku_law!r}; "
+                "expected 'pertier', 'merged' or 'peredge'"
+            )
+
+
+def run_sweep(
+    jobs: Sequence[SimJob],
+    lane: str = "batched",
+    device=None,
+) -> List[SimResult]:
+    """Run ``jobs`` on ``device`` (the card unless ``"cpu"``), results in job
+    order.  ``lane="scalar"`` (the event-driven DES) is not ported."""
+    if lane == "scalar":
+        raise NotImplementedError(
+            "the scalar DES lane is not ported yet (ROADMAP queue A, "
+            "'the scalar DES lane'); use lane='batched'"
+        )
+    if lane != "batched":
+        raise ValueError(
+            f"unknown sweep lane {lane!r}; expected 'scalar' or 'batched'"
+        )
+    from repro_torch.memsim.batched.lane import run_sweep_batched
+
+    return run_sweep_batched(jobs, device=device)

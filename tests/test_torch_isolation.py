@@ -34,7 +34,10 @@ def test_port_file_imports_neither_jax_nor_reference(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.launch.serve, "
-            "repro_torch.kernels.ops, repro_torch.models.weights; "
+            "repro_torch.kernels.ops, repro_torch.models.weights, "
+            "repro_torch.launch.sweep, repro_torch.scenarios, "
+            "repro_torch.memsim.batched, repro_torch.memsim.batched.fluid, "
+            "repro_torch.kernels.fluid_solver; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules, "
             "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -49,7 +52,9 @@ def test_entry_points_without_device_raise_on_cpu_only_machine():
     from repro_torch import resolve_device
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import build_cluster
+    from repro_torch.memsim.batched import run_sweep_batched
     from repro_torch.models.transformer import TransformerLM
+    from repro_torch.scenarios import plan, run_scenario
 
     with pytest.raises(RuntimeError, match="CUDA"):
         build_cluster(n_requests=1)
@@ -57,4 +62,9 @@ def test_entry_points_without_device_raise_on_cpu_only_machine():
         TransformerLM(get_arch("llama31-8b").smoke).init(torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda:0")
+    jobs = [j for _, _, js in plan("corun_sweep", {"threads": 2, "mlp": 96}) for j in js]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_sweep_batched(jobs)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_scenario("corun_sweep_1k")
     assert resolve_device("cpu").type == "cpu"
