@@ -28,7 +28,18 @@ Phases, each printed as one JSON line:
      through K3 on the card, with the launch counts read around each run,
      the first held against the plain lane on the card by the reference's
      kilo-grid gates (benchmarks/bench_des.py), and a torch.profiler run of
-     it for the device busy share.
+     it for the device busy share;
+  9. k4_sweep: the SSD chunked-scan kernel against its chunked plain version
+     and the token recurrence, y and final state, on tests/test_kernels.py's
+     cases, chunk invariance, and the mamba2 shapes (S = 2048, a ragged
+     S = 200, the serve prompt), each with kernel, plain and bound times;
+ 10. ssm_check: mamba2-2.7b at full width (64 layers), random weights from a
+     seeded generator, one 300-token prefill and 3 decode steps through the
+     kernel and through the plain ssd_chunked, logits compared (f32 gated,
+     bf16 printed);
+ 11. serve_mamba2: build_cluster("mamba2-2.7b", full=True, mode="miku") with
+     the launch counts of K4 and K1 read around the run, and a torch.profiler
+     run of 3 batch-4 decode steps.
 The line before the last lists every kernel's numbers; the last line is the
 device summary.  Any failed check exits non-zero; without CUDA (or without
 the rest of the repository beside this file) it exits non-zero at once.
@@ -131,6 +142,7 @@ def main() -> None:
         from repro_torch.kernels import _nvcc
         from repro_torch.kernels import decode_attention as k1
         from repro_torch.kernels import fluid_solver as fs
+        from repro_torch.kernels import ssd_scan as k4
         from repro_torch.kernels.ref import decode_attention_ref
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
@@ -153,7 +165,7 @@ def main() -> None:
 
     # -- 1. environment and build --------------------------------------------
     t0 = time.perf_counter()
-    libs = _nvcc.build(k1.SOURCE, fs.SOURCE)  # one nvcc per source, together
+    libs = _nvcc.build(k1.SOURCE, fs.SOURCE, k4.SOURCE)  # one nvcc per source, together
     build_s = time.perf_counter() - t0
     ptxas = {lib.name: [line.split("ptxas info    : ")[-1] for line in
                         lib.with_suffix(".ptxas.txt").read_text().splitlines()
@@ -319,9 +331,14 @@ def main() -> None:
     check(launches == cfg.n_layers * steps and launches > 0,
           f"kernel launches {launches} != layers x decode steps {cfg.n_layers * steps}")
 
+    del cluster, hbm, host, e  # free the llama weights before the next paths
+    torch.cuda.empty_cache()
+
     k2_row = k2_check(dev)
     k3_row = k3_check(dev)
     lane = sweep_phase(dev)
+    k4_row = k4_sweep(dev)
+    k4_launches = ssm_phases(dev)
 
     row = sweep["serve"]
     print(json.dumps({"kernels": [{
@@ -353,6 +370,13 @@ def main() -> None:
         "replaces": "src/repro/memsim/batched/kernel.py:239",
         "launches": lane["k3_launches"],
         **k3_row,
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:89",
+        "launches": k4_launches,
+        **k4_row,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -697,6 +721,266 @@ def sweep_phase(dev):
          top_kernels=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3,
                            calls=e.count) for e in top])
     return main
+
+
+# -- the SSM path: K4 ------------------------------------------------------------
+
+#: (case, (b, s, h, p, n), chunk, dtype, tol): tests/test_kernels.py's sweep
+#: in f32 and bf16, then the mamba2 shapes: a long prompt, a ragged S and
+#: the serve run's 8-token prompt (one chunk of 8).
+K4_CASES = [(f"sweep{i}_{name}", shape, chunk, dtype, tol)
+            for name, dtype, tol in (("f32", "float32", 1e-4), ("bf16", "bfloat16", 5e-2))
+            for i, (shape, chunk) in enumerate((((1, 64, 2, 32, 16), 16),
+                                                ((2, 128, 4, 32, 16), 32),
+                                                ((1, 256, 2, 64, 128), 64)))]
+K4_CASES += [
+    ("mamba2_s2048_bf16", (1, 2048, 80, 64, 128), 128, "bfloat16", 5e-2),
+    ("mamba2_s2048_f32", (1, 2048, 80, 64, 128), 128, "float32", 1e-4),
+    ("mamba2_s200_f32", (1, 200, 80, 64, 128), 128, "float32", 1e-4),
+    ("mamba2_s200_bf16", (1, 200, 80, 64, 128), 128, "bfloat16", 5e-2),
+    ("serve", (1, 8, 80, 64, 128), 128, "bfloat16", 5e-2),
+]
+
+
+def ssd_bound_ms(b, s, h, p, n, chunk, esize):
+    """Least time of one scan on these shapes: x, B and C read once in
+    their dtype, dt and a in f32, y written once, the final state in f32;
+    against the operations the chunked algorithm needs: C B^T once per
+    (batch row, chunk) at G = 1 (causal half), per head the causal
+    (C B^T * decay) @ dx, the state's contribution from the second chunk on
+    and every chunk's state update.  bf16 inputs against the bf16
+    tensor-core rate, f32 against the f32 rate."""
+    chunk = min(chunk, s)
+    nbytes = (2 * b * s * h * p + 2 * b * s * n) * esize + b * s * h * 4 + h * 4 \
+        + b * h * p * n * 4
+    flops = 0
+    for t0 in range(0, s, chunk):
+        q = min(chunk, s - t0)
+        tri = q * (q + 1) // 2
+        flops += b * 2 * tri * n
+        flops += b * h * (2 * tri * p + 2 * q * p * n * (2 if t0 else 1))
+    return bound(nbytes, flops, H100_BF16_FLOPS if esize == 2 else H100_F32_FLOPS)
+
+
+def k4_inputs(gen, b, s, h, p, n, dtype, dev):
+    """Scan inputs as the model hands them over: x, B and C are strided
+    views of one [B, S, H*P + 2N] projection (the distribution of
+    tests/test_kernels.py: x * 0.5, B and C * 0.3), dt = softplus(normal),
+    a = -exp(0.3 normal)."""
+    import torch
+    import torch.nn.functional as F
+
+    xbc = torch.randn(b, s, h * p + 2 * n, generator=gen, device=dev)
+    xbc[..., :h * p] *= 0.5
+    xbc[..., h * p:] *= 0.3
+    xbc = xbc.to(dtype)
+    x = xbc[..., :h * p].unflatten(-1, (h, p))
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = F.softplus(torch.randn(b, s, h, generator=gen, device=dev))
+    a = -torch.exp(torch.randn(h, generator=gen, device=dev) * 0.3)
+    return x, dt, bm, cm, a
+
+
+def k4_sweep(dev):
+    """Phase 9: K4 (through ops.ssd_scan, as the model calls it) against
+    ssd_scan_chunked_ref and ssd_scan_ref on the card, y and final state,
+    with kernel, plain and bound times; then chunk 32 against chunk 128.
+    Returns the serve shape's row for the kernels line."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_scan_chunked_ref, ssd_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = {}
+    for name, (b, s, h, p, n), chunk, dtype, tol in K4_CASES:
+        dtype = getattr(torch, dtype)
+        x, dt, bm, cm, a = k4_inputs(gen, b, s, h, p, n, dtype, dev)
+        y, st = ops.ssd_scan(x, dt, bm, cm, a, chunk=chunk)
+        torch.cuda.synchronize()
+        xk, dtk, bc = x.transpose(1, 2), dt.transpose(1, 2), torch.stack([bm, cm], dim=2)
+        ck = min(chunk, s)
+        yc, stc = ssd_scan_chunked_ref(xk, dtk, bc, a, chunk=ck)
+        yr, str_ = ssd_scan_ref(xk, dtk, bc, a)
+        errs, ok = {}, True
+        for oracle, (yo, so) in (("chunked", (yc, stc)), ("recurrence", (yr, str_))):
+            yo = yo.transpose(1, 2).float()
+            errs[f"y_err_{oracle}"] = (y.float() - yo).abs().max().item()
+            errs[f"state_err_{oracle}"] = (st - so).abs().max().item()
+            ok &= torch.allclose(y.float(), yo, atol=tol, rtol=tol)
+            ok &= torch.allclose(st, so, atol=tol, rtol=tol)
+        ok &= bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+        row = dict(case=name, shape=dict(b=b, s=s, h=h, p=p, n=n, chunk=ck),
+                   dtype=str(dtype).split(".")[-1], tol=tol, ok=ok, **errs,
+                   max_abs_err=max(errs["y_err_chunked"], errs["state_err_chunked"]))
+        iters = 20 if s >= 1024 else 100
+        row["ms"] = time_ms(lambda: ops.ssd_scan(x, dt, bm, cm, a, chunk=chunk), iters)
+        row["plain_ms"] = time_ms(lambda: ssd_scan_chunked_ref(xk, dtk, bc, a, chunk=ck),
+                                  max(1, iters // 10))
+        row["library_ms"] = None  # no single PyTorch call computes the SSD scan
+        row["bound_ms"], row["bound_by"] = ssd_bound_ms(b, s, h, p, n, chunk,
+                                                        x.element_size())
+        rows[name] = row
+        emit("k4_sweep", **row)
+        check(ok, f"ssd_scan {name}: {errs} beyond {tol}")
+    # The state carries across chunks: chunk 32 against chunk 128.
+    x, dt, bm, cm, a = k4_inputs(gen, 1, 128, 2, 32, 16, torch.float32, dev)
+    y32, s32 = ops.ssd_scan(x, dt, bm, cm, a, chunk=32)
+    y128, s128 = ops.ssd_scan(x, dt, bm, cm, a, chunk=128)
+    inv = dict(y_err=(y32 - y128).abs().max().item(), state_err=(s32 - s128).abs().max().item())
+    emit("k4_sweep", case="chunk32_vs_chunk128", tol=1e-4, **inv)
+    check(torch.allclose(y32, y128, atol=1e-4, rtol=1e-4)
+          and torch.allclose(s32, s128, atol=1e-4, rtol=1e-4),
+          f"ssd_scan chunk invariance: {inv}")
+    torch.cuda.empty_cache()
+    return {k: rows["serve"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}
+
+
+def ssm_check(model, params, gen, dev, prompt_len=300, steps=3):
+    """One prefill of a ``prompt_len``-token prompt and ``steps`` decode
+    steps, through K4 and, from a fresh state, through the plain
+    ssd_chunked on the same device; the same tokens feed both.  Returns
+    the comparison (f32 gate: 2e-3 prefill, 3e-3 decode)."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.models import ssm as ssm_lib
+
+    cfg = model.cfg
+    prompt = torch.randint(1, cfg.vocab, (1, prompt_len), generator=gen, device=dev)
+    k4.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lk, st_k = model.prefill(params, prompt, model.init_decode_state(1, 1, dev))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = k4.LAUNCHES.count
+    kernel_ssd = ssm_lib.ssd
+    ssm_lib.ssd = lambda xs, bm, cm, dt, a, *, chunk: ssm_lib.ssd_chunked(
+        xs, bm, cm, dt, a, chunk=chunk)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp, st_p = model.prefill(params, prompt, model.init_decode_state(1, 1, dev))
+        torch.cuda.synchronize()
+        plain_prefill_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ssm_lib.ssd = kernel_ssd
+    lk, lp = lk.float(), lp.float()
+    out = dict(prompt_len=prompt_len, chunk=cfg.ssm_chunk, steps=steps,
+               k4_launches_in_prefill=launches, prefill_ms=prefill_ms,
+               plain_prefill_ms=plain_prefill_ms,
+               prefill_max_abs_err=(lk - lp).abs().max().item(),
+               prefill_logit_scale=lp.abs().max().item(),
+               prefill_argmax_agree=bool((lk.argmax(-1) == lp.argmax(-1)).all()),
+               prefill_allclose=torch.allclose(lk, lp, atol=2e-3, rtol=2e-3),
+               state_h_max_abs_err=(st_k.ssm["h"] - st_p.ssm["h"]).abs().max().item(),
+               decode_max_abs_err=0.0, decode_allclose=True,
+               finite=bool(torch.isfinite(lk).all()), argmax_agree=0)
+    tok = lk.argmax(-1).to(torch.int32)
+    for _ in range(steps):
+        dk, st_k = model.decode_step(params, st_k, tok)
+        dp, st_p = model.decode_step(params, st_p, tok)
+        dk, dp = dk.float(), dp.float()
+        out["decode_max_abs_err"] = max(out["decode_max_abs_err"], (dk - dp).abs().max().item())
+        out["decode_allclose"] &= torch.allclose(dk, dp, atol=3e-3, rtol=3e-3)
+        out["finite"] &= bool(torch.isfinite(dk).all())
+        out["argmax_agree"] += int((dk.argmax(-1) == dp.argmax(-1)).sum())
+        tok = dk.argmax(-1).to(torch.int32)
+    out["logits_shape"] = list(dk.shape)
+    check(launches == cfg.n_layers, f"a prefill launched K4 {launches} times, not once "
+          f"per layer ({cfg.n_layers})")
+    return out
+
+
+def ssm_phases(dev):
+    """Phases 10 and 11, the main path of K4: mamba2-2.7b at full width,
+    the f32 gate against the plain scan, then the tiered cluster with the
+    launch counts set to 0 just before its run and read just after.
+    Returns K4's launches in that run."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.launch.serve import build_cluster
+    from repro_torch.models.transformer import TransformerLM
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    full = get_arch("mamba2-2.7b").config
+    dims = full.ssm_dims
+    state_bytes = full.n_layers * dims["n_heads"] * dims["head_dim"] * dims["d_state"] * 4
+    # f32, gated: the kernel and the plain scan differ only in summation
+    # order, so the logits meet the reference's own bounds.
+    cfg32 = dataclasses.replace(full, dtype=torch.float32)
+    model32 = TransformerLM(cfg32)
+    torch.cuda.reset_peak_memory_stats()
+    params32 = model32.init(torch.Generator(device=dev).manual_seed(2), dev)
+    f32 = ssm_check(model32, params32, gen, dev)
+    emit("ssm_check", config=full.name, dtype="float32", tol_prefill=2e-3, tol_decode=3e-3,
+         n_layers=full.n_layers, ssm_heads=dims["n_heads"], head_dim=dims["head_dim"],
+         d_state=dims["d_state"], ssm_state_bytes_per_slot=state_bytes,
+         device_memory_allocated_gb=torch.cuda.memory_allocated() / 1e9,
+         peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **f32)
+    check(f32["prefill_allclose"] and f32["decode_allclose"] and f32["finite"],
+          f"full-width f32 mamba2 logits differ between K4 and the plain scan: {f32}")
+    del params32
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cluster = build_cluster("mamba2-2.7b", full=True, n_requests=4, max_new=8,
+                            mode="miku", seed=0, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    hbm, host = cluster.engines
+    cfg = hbm.cfg.model
+    emit("setup", config=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab, ssm_heads=dims["n_heads"], param_bytes=hbm.param_bytes,
+         kv_bytes_per_token=hbm.kv_bytes_per_token, seconds=setup_s,
+         device_memory_allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    bf16 = ssm_check(TransformerLM(cfg), hbm.params, gen, dev)
+    emit("ssm_check", config=cfg.name, dtype="bfloat16", gated=False, **bf16)
+    check(bf16["finite"], "non-finite bf16 mamba2 logits")
+    prof = profile_decode(TransformerLM(cfg), hbm.params, dev)
+    # A decode step reads every weight and reads and writes 4 slots' states.
+    prof["bound_ms"], prof["bound_by"] = bound(hbm.param_bytes + 2 * 4 * state_bytes, 0, 1)
+    emit("decode_profile", config=cfg.name, **prof)
+
+    # The main path: launches counted from here.
+    k1.LAUNCHES.reset()
+    k4.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    res = cluster.run(max_ticks=10**9)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, k1_launches = k4.LAUNCHES.count, k1.LAUNCHES.count
+    prefills = sum(len(e.done) for e in cluster.engines)
+    h2d_bytes = host.offloader.bytes_to_device
+    h2d_s = host.offloader.copy_seconds()
+    tel = cluster.control.telemetry()
+    emit("serve_mamba2", mode="miku", n_layers=cfg.n_layers,
+         engines={e.cfg.name: dict(placement=e.cfg.placement, requests=res[e.cfg.name]
+                                   ["requests"], tokens=res[e.cfg.name]["tokens"],
+                                   decode_steps=e.decode_steps) for e in cluster.engines},
+         simulated_tokens_per_s={k: v["tokens_per_s"] for k, v in res.items()},
+         simulated_note="queue clock with the reference's tier constants, not measured",
+         wall_s=wall_s, miku_windows=tel["windows"],
+         miku_restricted_windows=tel["restricted_windows"],
+         h2d_bytes=h2d_bytes, h2d_device_s=h2d_s, h2d_gb_per_s=h2d_bytes / h2d_s / 1e9,
+         k4_launches=launches, layers_x_prefills=cfg.n_layers * prefills,
+         k1_launches=k1_launches,
+         peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(res["hbm"]["requests"] == 4 and res["host"]["requests"] == 1,
+          f"mamba2 serve did not finish its requests: {res}")
+    for e in cluster.engines:
+        for r in e.done:
+            check(len(r.output) == 8 and all(0 <= t < cfg.vocab for t in r.output),
+                  f"bad output for request {r.rid} of {e.cfg.name}: {r.output}")
+    check(launches == cfg.n_layers * 5 == cfg.n_layers * prefills,
+          f"K4 launches {launches} != layers x prefills {cfg.n_layers * prefills}")
+    check(k1_launches == 0, f"the mamba2 path launched K1 {k1_launches} times")
+    return launches
 
 
 def _finite(x) -> bool:

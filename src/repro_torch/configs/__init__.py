@@ -1,4 +1,4 @@
-"""Architecture registry of the port: the configs whose dense path is
+"""Architecture registry of the port: the configs whose families are
 ported (a subset of ``repro.configs``), copied so the port imports nothing
 from the reference."""
 
@@ -10,9 +10,9 @@ from typing import Dict, List
 
 from repro_torch.models.transformer import ModelConfig
 
-ARCH_IDS: List[str] = ["llama31-8b"]
+ARCH_IDS: List[str] = ["llama31-8b", "mamba2-2.7b"]
 
-_MODULES: Dict[str, str] = {"llama31-8b": "llama31_8b"}
+_MODULES: Dict[str, str] = {"llama31-8b": "llama31_8b", "mamba2-2.7b": "mamba2_2p7b"}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,6 +12,15 @@ numpy ``station_lambdas`` and ``_global_lambda_numpy``
 (``repro/memsim/batched/fluid.py:222-297``), operation for operation.  The
 CPU path of :mod:`repro_torch.memsim.batched.kernel` runs them, and
 ``chip_smoke.py`` holds the f32 kernels against them on the card.
+
+``ssd_scan_ref`` is the reference's token-by-token SSD recurrence
+(``repro/kernels/ref.py:46``) in float32, and ``ssd_scan_chunked_ref`` the
+plain version of exactly what the scan kernel computes: the chunked
+algorithm of ``repro/kernels/ssd_scan.py::_ssd_kernel``, float32 inside,
+one group, the kernel layout (x [B, H, S, P], dt [B, H, S], bc [B, S, 2, N],
+a [H]).  Both return y in x's dtype and the final state [B, H, P, N] f32.
+The CPU path of :func:`repro_torch.kernels.ops.ssd_scan` runs the chunked
+one; the model's CPU path runs ``models/ssm.py::ssd_chunked`` instead.
 """
 
 from __future__ import annotations
@@ -176,3 +185,74 @@ def fused_window_solve_ref(
         w_new = torch.where(sat, w_new, 0.0)
         Wq = damp * Wq + (1.0 - damp) * w_new
     return y, Wq, lam
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,  # [B, H, S, P]
+    dt: torch.Tensor,  # [B, H, S] f32
+    bc: torch.Tensor,  # [B, S, 2, N]
+    a: torch.Tensor,  # [H] f32 (negative)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-by-token SSD recurrence (the ground-truth semantics):
+
+        h_t = exp(a * dt_t) h_{t-1} + dt_t * x_t B_t^T
+        y_t = h_t . C_t
+    """
+    b, h, s, p = x.shape
+    n = bc.shape[-1]
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    bmat, cmat = bc[:, :, 0].float(), bc[:, :, 1].float()  # [B, S, N]
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        dtt = dtf[:, :, t]  # [B, H]
+        decay = torch.exp(dtt * af[None, :])
+        upd = torch.einsum("bhp,bn->bhpn", dtt[..., None] * xf[:, :, t], bmat[:, t])
+        state = state * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cmat[:, t]))
+    return torch.stack(ys, dim=2).to(x.dtype), state
+
+
+def ssd_scan_chunked_ref(
+    x: torch.Tensor,  # [B, H, S, P]
+    dt: torch.Tensor,  # [B, H, S] f32
+    bc: torch.Tensor,  # [B, S, 2, N]
+    a: torch.Tensor,  # [H] f32 (negative)
+    *,
+    chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan kernel's arithmetic in plain torch, float32 inside: per
+    chunk of ``min(chunk, S)`` steps, ``(C B^T * causal exp-segsum) @ (dt x)``
+    plus ``exp(cum) * C h^T`` from the carried state, then
+    ``h <- exp(sum dt a) h + sum_q tail_q dt_q x_q B_q^T``.  S is padded to a
+    chunk multiple with dt = 0 (exact no-op steps)."""
+    b, h, s, p = x.shape
+    n = bc.shape[-1]
+    chunk = min(chunk, s)
+    pad = -s % chunk
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.float(), (0, pad))
+    bcf = torch.nn.functional.pad(bc.float(), (0, 0, 0, 0, 0, pad))
+    af = a.float()[None, :, None]  # [1, H, 1]
+    q = chunk
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, s + pad, q):
+        xq = xf[:, :, c0:c0 + q]  # [B, H, Q, P]
+        dtq = dtf[:, :, c0:c0 + q]  # [B, H, Q]
+        bq, cq = bcf[:, c0:c0 + q, 0], bcf[:, c0:c0 + q, 1]  # [B, Q, N]
+        da = dtq * af
+        cum = torch.cumsum(da, dim=-1)  # [B, H, Q]
+        rel = cum[..., :, None] - cum[..., None, :]  # [B, H, Q, Q]
+        decay = torch.where(mask, torch.exp(rel), 0.0)
+        scores = torch.einsum("bqn,bkn->bqk", cq, bq)[:, None]  # [B, 1, Q, Q]
+        dx = dtq[..., None] * xq  # [B, H, Q, P]
+        y = torch.einsum("bhqk,bhkp->bhqp", scores * decay, dx)
+        y = y + torch.exp(cum)[..., None] * torch.einsum("bqn,bhpn->bhqp", cq, state)
+        tail = torch.exp(cum[..., -1:] - cum)  # [B, H, Q]
+        s_chunk = torch.einsum("bhqp,bqn->bhpn", (tail * dtq)[..., None] * xq, bq)
+        state = torch.exp(da.sum(dim=-1))[..., None, None] * state + s_chunk
+        ys.append(y)
+    y = torch.cat(ys, dim=2)[:, :, :s]
+    return y.to(x.dtype), state

@@ -3,6 +3,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 24 --mode miku
   PYTHONPATH=src python -m repro_torch.launch.serve --full --requests 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu
 
 Modes: ``opt`` (each instance alone), ``racing`` (no control), ``miku``
 (dynamic control).  Runs on the card unless ``--device cpu``.  The tok/s

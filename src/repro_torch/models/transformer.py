@@ -1,11 +1,12 @@
-"""The dense decoder of the port (``TransformerLM``'s dense path from
-``repro/models/transformer.py``).
+"""The decoder of the port (``TransformerLM``'s dense and pure-SSM paths
+from ``repro/models/transformer.py``).
 
 Parameters keep the reference's stacked ``[L, ...]`` leaves and names, so
 ``repro_torch.models.weights.params_from_numpy`` maps the reference's tree
 onto the port's.  ``lax.scan`` over layers becomes a Python loop over the
 leading index.  Decode state is mutable: ``prefill`` and ``decode_step``
-write the KV caches in place and return a state that shares them.
+write the KV caches and the SSM states in place and return a state that
+shares them.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     Params,
     embed_init,
@@ -33,9 +35,9 @@ FULL_WINDOW = 1 << 30  # "window" larger than any sequence = dense attention
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Copy of the reference's ``ModelConfig`` for the dense path; ``dtype``
-    is a torch dtype.  Flags of families the port has not reached yet raise
-    ``NotImplementedError`` instead of being ignored."""
+    """Copy of the reference's ``ModelConfig`` for the dense and pure-SSM
+    families; ``dtype`` is a torch dtype.  Flags of families the port has
+    not reached yet raise ``NotImplementedError`` instead of being ignored."""
 
     name: str
     n_layers: int
@@ -61,15 +63,18 @@ class ModelConfig:
     use_post_norms: bool = False
     n_experts: int = 0
     ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
     n_encoder_layers: int = 0
     frontend: Optional[str] = None
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self) -> None:
         unported = {
-            "block": self.block != "dense",
+            f"block={self.block!r}": self.block not in ("dense", "ssm"),
             "n_experts (MoE)": self.n_experts != 0,
-            "ssm_state (SSM)": self.ssm_state != 0,
             "n_encoder_layers (encoder)": self.n_encoder_layers != 0,
             "frontend": self.frontend is not None,
             "window_pattern": self.window_pattern != "full",
@@ -81,43 +86,72 @@ class ModelConfig:
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(
-                f"{self.name}: {', '.join(bad)} not ported yet (dense path only)"
+                f"{self.name}: {', '.join(bad)} not ported yet "
+                "(dense and pure-SSM paths only)"
             )
-        if self.n_q_heads % self.n_kv_heads:
+        if self.uses_attention and self.n_q_heads % self.n_kv_heads:
             raise ValueError("n_q_heads must be a multiple of n_kv_heads")
 
+    @property
+    def uses_attention(self) -> bool:
+        return self.block in ("dense", "moe", "hybrid")
+
+    @property
+    def uses_ssm(self) -> bool:
+        return self.block in ("ssm", "hybrid")
+
+    @property
+    def ssm_dims(self) -> Dict[str, int]:
+        return ssm_lib.ssm_dims(self.d_model, expand=self.ssm_expand,
+                                head_dim=self.ssm_head_dim, d_state=self.ssm_state,
+                                n_groups=self.ssm_groups)
+
     def window_sizes(self) -> List[int]:
-        """Per-layer attention windows (all full on the dense path)."""
+        """Per-layer attention windows (all full on the ported paths)."""
         return [FULL_WINDOW] * self.n_layers
 
 
 @dataclasses.dataclass
 class DecodeState:
-    """Per-slot decoding state: k/v [L, B, S_max, Hkv, Dh] and per-slot
-    ``length`` [B] int32 (tokens already in the cache)."""
+    """Per-slot decoding state: k/v [L, B, S_max, Hkv, Dh] (None without
+    attention), per-slot ``length`` [B] int32 (tokens already seen), and
+    the SSM state (None without SSM layers): h [L, B, H, P, N] f32 and
+    conv [L, B, K-1, conv_dim] in the model's dtype."""
 
-    kv: Dict[str, torch.Tensor]
+    kv: Optional[Dict[str, torch.Tensor]]
     length: torch.Tensor
+    ssm: Optional[Dict[str, torch.Tensor]] = None
 
 
 def param_shapes(cfg: ModelConfig) -> Dict:
-    """The parameter tree's shapes, leaf names as in the reference."""
+    """The parameter tree, leaf names as in the reference; each leaf is
+    ``(shape, dtype)``: ``cfg.dtype``, except the SSM leaves the reference
+    keeps in float32."""
+    def leaves(tree, in_ssm=False):
+        return {k: leaves(v, in_ssm or k == "ssm") if isinstance(v, dict)
+                else (v, torch.float32 if in_ssm and k in ssm_lib.F32_LEAVES else cfg.dtype)
+                for k, v in tree.items()}
+
+    return leaves(_shapes(cfg))
+
+
+def _shapes(cfg: ModelConfig) -> Dict:
     L, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
-    hq, hkv, dh = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
-    attn_shapes = {"wq": (L, d, hq, dh), "wk": (L, d, hkv, dh),
-                   "wv": (L, d, hkv, dh), "wo": (L, hq, dh, d)}
-    if cfg.qkv_bias:
-        attn_shapes.update(bq=(L, hq, dh), bk=(L, hkv, dh), bv=(L, hkv, dh))
-    shapes = {
-        "embed": (cfg.vocab, d),
-        "layers": {
+    if cfg.block == "ssm":
+        layers = {"ssm": ssm_lib.ssm_shapes(d, cfg.ssm_dims, L), "pre_ssm_norm": (L, d)}
+    else:
+        hq, hkv, dh = cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
+        attn_shapes = {"wq": (L, d, hq, dh), "wk": (L, d, hkv, dh),
+                       "wv": (L, d, hkv, dh), "wo": (L, hq, dh, d)}
+        if cfg.qkv_bias:
+            attn_shapes.update(bq=(L, hq, dh), bk=(L, hkv, dh), bv=(L, hkv, dh))
+        layers = {
             "attn": attn_shapes,
             "pre_attn_norm": (L, d),
             "mlp": {"w_gate": (L, d, f), "w_up": (L, d, f), "w_down": (L, f, d)},
             "pre_mlp_norm": (L, d),
-        },
-        "final_norm": (d,),
-    }
+        }
+    shapes = {"embed": (cfg.vocab, d), "layers": layers, "final_norm": (d,)}
     if not cfg.tied_embeddings:
         shapes["lm_head"] = (cfg.vocab, d)
     return shapes
@@ -129,8 +163,9 @@ def _layer(layers: Params, i: int) -> Params:
 
 
 class TransformerLM:
-    """Dense decoder LM: ``init``, ``forward``, ``logits``, ``prefill`` and
-    one-token ``decode_step`` with an explicit :class:`DecodeState`."""
+    """Decoder LM, dense or pure SSM: ``init``, ``forward``, ``logits``,
+    ``prefill`` and one-token ``decode_step`` with an explicit
+    :class:`DecodeState`."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -138,7 +173,8 @@ class TransformerLM:
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator, device=None) -> Params:
         """Random weights from ``generator`` (which must live on ``device``):
-        truncated-normal dense and embedding leaves, zero norms and biases."""
+        truncated-normal dense and embedding leaves, zero norms and biases,
+        and the SSM's fixed ``A_log``, ``D`` and ``dt_bias``."""
         cfg = self.cfg
         dev = resolve_device(device)
         dt = cfg.dtype
@@ -149,17 +185,23 @@ class TransformerLM:
             return torch.zeros(shape, dtype=dt, device=dev)
 
         params: Params = {"embed": embed_init((cfg.vocab, d), dt, generator, dev)}
-        params["layers"] = {
-            "attn": attn.attention_init(d, hq, cfg.n_kv_heads, dh, dt, generator, dev,
-                                        stacked=L, qkv_bias=cfg.qkv_bias),
-            "pre_attn_norm": zeros(L, d),
-            "mlp": {
-                "w_gate": dense_init(d, (L, d, f), dt, generator, dev),
-                "w_up": dense_init(d, (L, d, f), dt, generator, dev),
-                "w_down": dense_init(f, (L, f, d), dt, generator, dev),
-            },
-            "pre_mlp_norm": zeros(L, d),
-        }
+        if cfg.block == "ssm":
+            params["layers"] = {
+                "ssm": ssm_lib.ssm_init(d, cfg.ssm_dims, dt, generator, dev, stacked=L),
+                "pre_ssm_norm": zeros(L, d),
+            }
+        else:
+            params["layers"] = {
+                "attn": attn.attention_init(d, hq, cfg.n_kv_heads, dh, dt, generator, dev,
+                                            stacked=L, qkv_bias=cfg.qkv_bias),
+                "pre_attn_norm": zeros(L, d),
+                "mlp": {
+                    "w_gate": dense_init(d, (L, d, f), dt, generator, dev),
+                    "w_up": dense_init(d, (L, d, f), dt, generator, dev),
+                    "w_down": dense_init(f, (L, f, d), dt, generator, dev),
+                },
+                "pre_mlp_norm": zeros(L, d),
+            }
         params["final_norm"] = zeros(d)
         if not cfg.tied_embeddings:
             params["lm_head"] = embed_init((cfg.vocab, d), dt, generator, dev)
@@ -173,6 +215,10 @@ class TransformerLM:
         return x
 
     def _ffn(self, layer: Params, x: torch.Tensor) -> torch.Tensor:
+        """The layer's MLP sub-block; the identity for a layer without one
+        (the SSM block: d_ff = 0)."""
+        if "mlp" not in layer:
+            return x
         h = rmsnorm(x, layer["pre_mlp_norm"])
         return x + mlp_apply(layer["mlp"], h, activation=self.cfg.activation)
 
@@ -189,14 +235,25 @@ class TransformerLM:
 
     # ------------------------------------------------------- train / prefill
     def _run(self, params: Params, tokens: torch.Tensor,
-             kv: Optional[Dict[str, torch.Tensor]]) -> torch.Tensor:
-        """Full-sequence stack; writes each layer's K/V prefix into ``kv``."""
+             kv: Optional[Dict[str, torch.Tensor]] = None,
+             ssm: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """Full-sequence stack; writes each layer's K/V prefix into ``kv``
+        and each SSM layer's final scan and conv states into ``ssm``."""
         cfg = self.cfg
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         x = self._embed(params, tokens)
         for i, window in enumerate(cfg.window_sizes()):
             layer = _layer(params["layers"], i)
+            if "attn" not in layer:  # pure SSM block
+                h = rmsnorm(x, layer["pre_ssm_norm"])
+                out, st = ssm_lib.ssm_branch(layer["ssm"], h, cfg.ssm_dims,
+                                             chunk=cfg.ssm_chunk)
+                if ssm is not None:
+                    ssm["h"][i] = st["h"]
+                    ssm["conv"][i] = st["conv"]
+                x = self._ffn(layer, x + out)
+                continue
             h = rmsnorm(x, layer["pre_attn_norm"])
             if kv is not None:
                 _, k, v = attn.project_qkv(layer["attn"], h, positions,
@@ -213,16 +270,27 @@ class TransformerLM:
 
     def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         """Full-sequence forward: hidden states [B, S, D] after the final norm."""
-        return self._run(params, tokens, None)
+        return self._run(params, tokens)
 
     # ---------------------------------------------------------------- serving
     def init_decode_state(self, batch: int, max_len: int, device=None) -> DecodeState:
         cfg = self.cfg
         dev = resolve_device(device)
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        kv = {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-              "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
-        return DecodeState(kv=kv, length=torch.zeros(batch, dtype=torch.int32, device=dev))
+        kv = ssm = None
+        if cfg.uses_attention:
+            shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            kv = {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                  "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+        if cfg.uses_ssm:
+            dims = cfg.ssm_dims
+            ssm = {
+                "h": torch.zeros((cfg.n_layers, batch, dims["n_heads"], dims["head_dim"],
+                                  dims["d_state"]), dtype=torch.float32, device=dev),
+                "conv": torch.zeros((cfg.n_layers, batch, dims["d_conv"] - 1,
+                                     dims["conv_dim"]), dtype=cfg.dtype, device=dev),
+            }
+        return DecodeState(kv=kv, ssm=ssm,
+                           length=torch.zeros(batch, dtype=torch.int32, device=dev))
 
     def decode_step(
         self,
@@ -237,6 +305,15 @@ class TransformerLM:
         length = state.length
         for i, window in enumerate(cfg.window_sizes()):
             layer = _layer(params["layers"], i)
+            if "attn" not in layer:  # pure SSM block: the recurrence
+                h = rmsnorm(x, layer["pre_ssm_norm"])
+                y, new = ssm_lib.ssm_step(
+                    layer["ssm"], h, {"h": state.ssm["h"][i], "conv": state.ssm["conv"][i]},
+                    cfg.ssm_dims)
+                state.ssm["h"][i] = new["h"]
+                state.ssm["conv"][i] = new["conv"]
+                x = self._ffn(layer, x + y)
+                continue
             h = rmsnorm(x, layer["pre_attn_norm"])
             cache = {"k": state.kv["k"][i], "v": state.kv["v"][i]}
             x = x + attn.attend_cached(
@@ -247,7 +324,7 @@ class TransformerLM:
             x = self._ffn(layer, x)
         x = rmsnorm(x, params["final_norm"])
         logits = self._logits(params, x)[:, 0, :]
-        return logits, DecodeState(kv=state.kv, length=length + 1)
+        return logits, DecodeState(kv=state.kv, ssm=state.ssm, length=length + 1)
 
     def prefill(
         self,
@@ -255,9 +332,10 @@ class TransformerLM:
         tokens: torch.Tensor,  # [B, S]
         state: DecodeState,
     ) -> Tuple[torch.Tensor, DecodeState]:
-        """Prefill the caches with a prompt; returns (last logits [B,V], state)."""
+        """Prefill the caches and SSM states with a prompt; returns (last
+        logits [B,V], state)."""
         b, s = tokens.shape
-        x = self._run(params, tokens, state.kv)
+        x = self._run(params, tokens, state.kv, state.ssm)
         logits = self._logits(params, x[:, -1:, :])[:, 0, :]
         length = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
-        return logits, DecodeState(kv=state.kv, length=length)
+        return logits, DecodeState(kv=state.kv, ssm=state.ssm, length=length)

@@ -18,14 +18,13 @@ from repro_torch.device import resolve_device
 from repro_torch.models.transformer import ModelConfig, param_shapes
 
 
-def _convert(tree: Any, shapes: Any, dtype: torch.dtype, device: torch.device,
-             path: str) -> Any:
-    if isinstance(shapes, dict):
-        if not isinstance(tree, dict) or set(tree) != set(shapes):
+def _convert(tree: Any, leaves: Any, device: torch.device, path: str) -> Any:
+    if isinstance(leaves, dict):
+        if not isinstance(tree, dict) or set(tree) != set(leaves):
             got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
-            raise ValueError(f"{path or 'params'}: expected keys {sorted(shapes)}, got {got}")
-        return {k: _convert(tree[k], shapes[k], dtype, device, f"{path}/{k}")
-                for k in shapes}
+            raise ValueError(f"{path or 'params'}: expected keys {sorted(leaves)}, got {got}")
+        return {k: _convert(tree[k], leaves[k], device, f"{path}/{k}") for k in leaves}
+    shapes, dtype = leaves
     arr = np.asarray(tree)
     if tuple(arr.shape) != tuple(shapes):
         raise ValueError(f"{path}: expected shape {shapes}, got {arr.shape}")
@@ -37,7 +36,9 @@ def _convert(tree: Any, shapes: Any, dtype: torch.dtype, device: torch.device,
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Dict[str, Any]:
-    """The port's parameters from the reference's tree of numpy arrays, cast
-    to ``cfg.dtype`` on ``device``; raises on a missing, extra or misshapen
-    leaf."""
-    return _convert(tree, param_shapes(cfg), cfg.dtype, resolve_device(device), "")
+    """The port's parameters from the reference's tree of numpy arrays on
+    ``device``, each leaf cast to its dtype in
+    :func:`~repro_torch.models.transformer.param_shapes` (``cfg.dtype``, or
+    float32 for the SSM's ``A_log``, ``D`` and ``dt_bias``); raises on a
+    missing, extra or misshapen leaf."""
+    return _convert(tree, param_shapes(cfg), resolve_device(device), "")

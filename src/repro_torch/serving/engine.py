@@ -86,8 +86,10 @@ class ServingEngine:
             self.generator = torch.Generator(device=self.device).manual_seed(0)
         self.param_bytes = param_bytes(params)
         cfgm = cfg.model
-        # K and V, 2 bytes each, per layer (the reference's constant).
-        self.kv_bytes_per_token = 2 * cfgm.n_kv_heads * cfgm.head_dim * cfgm.n_layers * 2
+        # K and V, 2 bytes each, per layer (the reference's constant); a
+        # model without attention keeps no KV cache.
+        self.kv_bytes_per_token = (2 * cfgm.n_kv_heads * cfgm.head_dim * cfgm.n_layers * 2
+                                   if cfgm.uses_attention else 0)
         self._place_state(params)
         self.state = self.model.init_decode_state(cfg.max_slots, cfg.max_len, self.device)
         self.slot_req: List[Optional[Request]] = [None] * cfg.max_slots
@@ -95,7 +97,7 @@ class ServingEngine:
         self.done: List[Request] = []
         self._tokens = torch.zeros(cfg.max_slots, dtype=torch.int32, device=self.device)
         self._active = np.zeros((cfg.max_slots,), bool)
-        #: decode steps taken (each runs every layer's decode attention once)
+        #: decode steps taken (each runs every layer once)
         self.decode_steps = 0
 
     def _place_state(self, params: Any) -> None:
@@ -125,8 +127,11 @@ class ServingEngine:
         return [i for i, r in enumerate(self.slot_req) if r is None]
 
     def _insert_state(self, slot: int, state1: DecodeState, plen: int) -> None:
-        for name in ("k", "v"):
-            self.state.kv[name][:, slot] = state1.kv[name][:, 0]
+        """Copy a batch-1 prefill's KV prefix and SSM states into ``slot``."""
+        for cache, new in ((self.state.kv, state1.kv), (self.state.ssm, state1.ssm)):
+            if cache is not None:
+                for name in cache:
+                    cache[name][:, slot] = new[name][:, 0]
         self.state.length[slot] = plen
 
     def admit(self, now_ns: float) -> List[Tuple[Request, int]]:

@@ -37,7 +37,8 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.kernels.ops, repro_torch.models.weights, "
             "repro_torch.launch.sweep, repro_torch.scenarios, "
             "repro_torch.memsim.batched, repro_torch.memsim.batched.fluid, "
-            "repro_torch.kernels.fluid_solver; "
+            "repro_torch.kernels.fluid_solver, repro_torch.kernels.ssd_scan, "
+            "repro_torch.models.ssm, repro_torch.configs.mamba2_2p7b; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules, "
             "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -132,13 +132,22 @@ def test_decode_step_matches_forward():
 
 
 @pytest.mark.parametrize("flag", [dict(block="moe"), dict(n_experts=8),
-                                  dict(ssm_state=16), dict(n_encoder_layers=2),
+                                  dict(block="hybrid", ssm_state=16),
+                                  dict(n_encoder_layers=2),
                                   dict(frontend="vision"), dict(window_pattern="swa"),
                                   dict(use_post_norms=True), dict(norm="layernorm")])
 def test_unported_families_raise(flag):
     with pytest.raises(NotImplementedError):
         ModelConfig(name="x", n_layers=1, d_model=8, n_q_heads=2, n_kv_heads=1,
                     head_dim=4, d_ff=8, vocab=16, **flag)
+
+
+def test_ssm_block_builds():
+    cfg = ModelConfig(name="x", n_layers=1, d_model=8, n_q_heads=0, n_kv_heads=0,
+                      head_dim=0, d_ff=0, vocab=16, block="ssm", ssm_state=4,
+                      ssm_head_dim=4)
+    assert cfg.uses_ssm and not cfg.uses_attention
+    assert cfg.ssm_dims["n_heads"] == 4
 
 
 def test_weights_bridge_rejects_mismatched_trees():
