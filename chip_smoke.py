@@ -5,10 +5,13 @@
 Phases, each printed as one JSON line:
   1. environment: card, power limit, torch/CUDA versions, kernel build time;
   2. kernel sweep: the flash-decode kernel against its plain PyTorch version
-     (tests/test_kernels.py's cases and tolerances, the serve shape and a
-     long cache), each with kernel, plain and library times and the bound
-     (CUDA events; the serve shape's K/V stay in L2 between launches, the
-     long cache's 1.07 GB cannot);
+     (tests/test_kernels.py's cases and tolerances, the serve shape, a long
+     cache, and in bf16 and f32 a ragged long cache, one long row and a row
+     with nothing valid), each with kernel, plain and library times, the
+     bound (CUDA events; the serve shape's K/V stay in L2 between launches,
+     the long caches' 134 MB-1.07 GB cannot), the kernel's split plan
+     (n_split, blocks), the device kernels a call enqueues (read from a
+     CUDA graph of one call) and their profiled time;
   3. small-input check: a two-layer model (head_dim 64, f32) served on the
      card and on the CPU (the plain path the CPU tests hold against the JAX
      reference) must give the same greedy tokens and the same result dict;
@@ -23,7 +26,8 @@ Phases, each printed as one JSON line:
      shapes), timed at the corun_sweep_1k shape;
   7. k3_check: the fused window solver against its float64 plain version on
      corun_sweep_1k's first window and on seeded random windows, timed at
-     the corun_sweep_1k shape;
+     the corun_sweep_1k shape (k3_timing: call and kernel-alone time, warps
+     per cell, dependent rounds per bisection);
   8. sweep: run_scenario("corun_sweep_1k") and run_scenario("corun_sweep")
      through K3 on the card, with the launch counts read around each run,
      the first held against the plain lane on the card by the reference's
@@ -78,6 +82,8 @@ SWEEP1K_P95_BOUND = 0.08
 #: this share of cells beyond 2e-3; the real first window requires 2e-3 on
 #: every cell.
 K3_RANDOM_MAX_SHARE_BEYOND = 0.05
+#: K1's device kernels: the split kernel and, when n_split > 1, the combine.
+K1_KERNELS = ("decode_attention_kernel", "decode_combine_kernel")
 #: (C, W, S, padded workloads, padded stations) of the random K3 windows.
 K3_RANDOM_CASES = ((1024, 2, 3, 0, 0), (256, 3, 4, 1, 0), (128, 8, 5, 2, 1),
                    (512, 5, 3, 0, 0))
@@ -201,6 +207,15 @@ def main() -> None:
     cases.append(("serve", (4, 32, 8, 128, 96), torch.bfloat16, 2e-2, {}, serve_lengths))
     cases.append(("long_cache", (8, 32, 8, 128, 32768), torch.bfloat16, 2e-2, {},
                   [32768] * 8))
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        # Rows of very different lengths: most splits of the short rows are
+        # empty; one long row alone; a row with nothing valid (a uniform
+        # average over all S) beside a 3-token row.
+        cases.append((f"long_ragged_{tag}", (4, 32, 8, 128, 32768), dtype, tol, {},
+                      [1, 513, 4096, 32768]))
+        cases.append((f"long_b1_{tag}", (1, 32, 8, 128, 32768), dtype, tol, {}, [32768]))
+        cases.append((f"nothing_valid_{tag}", (2, 32, 8, 128, 4096), dtype, tol, {}, [0, 3]))
 
     sweep = {}
     for name, shape, dtype, tol, kw, lengths in cases:
@@ -211,10 +226,24 @@ def main() -> None:
         ref = decode_attention_ref(q, k, v, lens, **kw)
         err = (out.float() - ref.float()).abs().max().item()
         ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+        plan = k1.launch_plan(b, hkv, hq // hkv, s, dh, dtype, dev)
         row = dict(case=name, shape=dict(b=b, hq=hq, hkv=hkv, dh=dh, s=s),
-                   dtype=str(dtype).split(".")[-1], tol=tol, max_abs_err=err, ok=ok)
-        iters = 10 if name == "long_cache" else 100
+                   dtype=str(dtype).split(".")[-1], tol=tol, max_abs_err=err, ok=ok,
+                   n_split=plan["n_split"], blocks=plan["blocks"],
+                   resident_blocks=plan["resident_blocks"])
+        iters = 10 if s >= 32768 else 100
         row["ms"] = time_ms(lambda: k1.decode_attention_cuda(q, k, v, lens, **kw), iters)
+        # Measured, not planned: the device kernels one call enqueues (the
+        # split kernel, and the combine kernel when n_split > 1) and their time.
+        launched = graph_kernels(lambda: k1.decode_attention_cuda(q, k, v, lens, **kw))
+        row["device_kernels_per_call"] = len(launched)
+        check(len(launched) == (1 if plan["n_split"] == 1 else 2)
+              and all(any(n in kn for n in K1_KERNELS) for kn in launched),
+              f"decode attention {name}: kernels {launched} a call at n_split "
+              f"{plan['n_split']}")
+        row["kernel_device_ms"] = kernel_device_ms(
+            lambda: k1.decode_attention_cuda(q, k, v, lens, **kw), K1_KERNELS, 10,
+            kernels=len(launched))
         row["plain_ms"] = time_ms(lambda: decode_attention_ref(q, k, v, lens, **kw), iters)
         row["library_ms"] = None
         if kw.get("softcap") is None:
@@ -340,7 +369,7 @@ def main() -> None:
     k4_row = k4_sweep(dev)
     k4_launches = ssm_phases(dev)
 
-    row = sweep["serve"]
+    row, long_row = sweep["serve"], sweep["long_cache"]
     print(json.dumps({"kernels": [{
         "name": "decode_attention",
         "route": "cuda",
@@ -353,6 +382,17 @@ def main() -> None:
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
+        # launches counts wrapper calls; each ran this many device kernels
+        # (captured in the kernel sweep), taking kernel_device_ms in all.
+        "device_kernels_per_call": row["device_kernels_per_call"],
+        "kernel_device_ms": row["kernel_device_ms"],
+        "long_cache_ms": long_row["ms"],
+        "long_cache_kernel_device_ms": long_row["kernel_device_ms"],
+        "long_cache_library_ms": long_row["library_ms"],
+        "long_cache_bound_ms": long_row["bound_ms"],
+        "long_cache_plain_ms": long_row["plain_ms"],
+        "long_cache_max_abs_err": long_row["max_abs_err"],
+        "long_cache_device_kernels_per_call": long_row["device_kernels_per_call"],
     }, {
         "name": "global_lambda",
         "route": "cuda",
@@ -459,22 +499,61 @@ def window_solve_ops(C, W, S, n_outer):
     return C * (2 * W * S + n_outer * (station + glam + rest))
 
 
-def kernel_device_ms(fn, name: str, iters: int = 20) -> float:
-    """Device time of one launch of the kernel whose name contains
-    ``name``, from torch.profiler over ``iters`` calls of ``fn`` (the
-    wrapper's own casts and copies excluded)."""
+def graph_kernels(fn) -> list:
+    """The kernels that one call of ``fn`` enqueues, by (mangled) name: the
+    call captured in a CUDA graph, its kernel nodes read back through the
+    driver API."""
+    import ctypes
+
+    import torch
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = (ctypes.c_uint8 * 256)()  # CUDA_KERNEL_NODE_PARAMS_v2; func comes first
+        name = ctypes.c_char_p()
+        check(cuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params) == 0
+              and cuda.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p.from_buffer(
+                  params).value) == 0, "reading a kernel node's name failed")
+        names.append(name.value.decode())
+    return names
+
+
+def kernel_device_ms(fn, names, iters: int = 20, kernels: int = 1,
+                     tries: int = 3) -> float:
+    """Device time per call of the ``kernels`` kernels whose names contain
+    one of ``names`` (each launched once a call of ``fn``), from
+    torch.profiler over ``iters`` calls (the wrapper's own casts and copies
+    excluded).  The trace can drop records: one that does not show each
+    such kernel ``iters`` times is taken again, up to ``tries`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    names = (names,) if isinstance(names, str) else names
+    for _ in range(tries):
+        fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if name in e.key]
-    check(sum(e.count for e in hits) == iters, f"profiler saw {hits} for {name}")
-    return sum(e.self_device_time_total for e in hits) / iters / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if any(n in e.key for n in names)]
+        if len(hits) == kernels and all(e.count == iters for e in hits):
+            return sum(e.self_device_time_total for e in hits) / iters / 1e3
+    fail(f"profiler saw {[(e.key[:60], e.count) for e in hits]} for {names} in "
+         f"{iters} calls, {tries} times")
 
 
 def bound(nbytes, ops, peak):
@@ -524,10 +603,10 @@ def k2_check(dev):
     )
     nbytes = (5 * 1024 * 2 + 3 * 1024) * 4 + 1024 * 4
     row["bound_ms"], row["bound_by"] = bound(nbytes, glam_ops(1024, 2), H100_F32_FLOPS)
+    row["kernel_device_ms"] = kernel_device_ms(lambda: bk.global_lambda(*args),
+                                               "global_lambda_kernel")
     emit("k2_check", cases=len(cases), cells=n_cells, inf_cells=n_inf, tol_rel=2e-3,
-         max_rel_err=worst, shape=dict(C=1024, W=2), **row,
-         kernel_device_ms=kernel_device_ms(lambda: bk.global_lambda(*args),
-                                           "global_lambda_kernel"))
+         max_rel_err=worst, shape=dict(C=1024, W=2), **row)
     return row
 
 
@@ -594,7 +673,16 @@ def k3_check(dev):
     nbytes = (3 * C * W + 3 * C * W * S + 2 * C * S + 2 * C + C * W + C * S + C) * 4
     row["bound_ms"], row["bound_by"] = bound(
         nbytes, window_solve_ops(C, W, S, n_outer), H100_F32_FLOPS)
+    # The sequential bisection steps a cell's chain had (the tests at the
+    # cap included), and the dependent rounds the warp runs instead: the
+    # stations' tests at the cap take one step on all lanes, the global
+    # lambda's runs on a spare lane of its first round.
+    scheme = fs.round_scheme(S)  # as the CUDA source defines it
+    rounds = scheme["rounds_per_bisection"]
     row["serial_steps_per_cell"] = n_outer * (S * 49 + 49)
+    row["dependent_rounds_per_cell"] = n_outer * (1 + rounds["station"]
+                                                  + rounds["global_lambda"])
+    row.update(scheme)
 
     rng = np.random.default_rng(5)
     beyond = cells = 0
@@ -619,12 +707,12 @@ def k3_check(dev):
               "workloads' y or padded stations' Wq not exactly 0")
     check(beyond <= K3_RANDOM_MAX_SHARE_BEYOND * cells,
           f"fused_window_solve random windows: {beyond} of {cells} cells beyond 2e-3")
-    emit("k3_timing", shape=dict(zip("CWS", shape)), **row,
-         kernel_device_ms=kernel_device_ms(
-             lambda: fs.fused_window_solve_cuda(*args, n_outer, damp),
-             "fused_window_solve_kernel", 10))
+    row["kernel_device_ms"] = kernel_device_ms(
+        lambda: fs.fused_window_solve_cuda(*args, n_outer, damp),
+        "fused_window_solve_kernel", 10)
+    emit("k3_timing", shape=dict(zip("CWS", shape)), **row)
     return {k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                "library_ms")}
+                                "library_ms", "kernel_device_ms")}
 
 
 def sweep_phase(dev):

@@ -12,12 +12,20 @@ is a device function that every K3 relaxation step calls, as in the
 reference's fused solver.  The plain versions are
 :func:`repro_torch.kernels.ref.global_lambda_ref` and
 :func:`~repro_torch.kernels.ref.fused_window_solve_ref`.
+
+Both kernels run one warp per cell, four cells a block.  Their 48-step
+bisections run speculatively across the warp's lanes in rounds of several
+levels (the global lambda's, and the S station bisections' at once; the
+CUDA source owns the scheme and :func:`round_scheme` reads it back) and give
+the sequential result bit for bit;
+:func:`~repro_torch.kernels.ref.speculative_bisect_ref` is that scheme in
+plain torch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -28,11 +36,10 @@ from repro_torch.kernels._nvcc import LaunchCounter
 #: Contracted multiply-adds would round differently from the reference's
 #: f32 solver and move bisection decisions.
 SOURCE = _nvcc.CudaSource("fluid_solver", ("-fmad=false",))
-#: The kernels keep a cell's rows in thread-local arrays of these sizes.
+#: The kernels keep a cell's rows in registers and shared memory of these sizes.
 MAX_W = 8
 MAX_S = 8
 BIG = 1e30
-
 GLOBAL_LAMBDA_LAUNCHES = LaunchCounter()
 WINDOW_SOLVE_LAUNCHES = LaunchCounter()
 
@@ -50,10 +57,26 @@ def _load() -> ctypes.CDLL:
             [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_float]
             + [ctypes.c_void_p])
         lib.fluid_window_solve_launch.restype = ctypes.c_int
+        for name in ("fluid_warps_per_cell", "fluid_bisect_iters", "fluid_glam_levels"):
+            getattr(lib, name).argtypes = []
+        lib.fluid_station_levels.argtypes = [ctypes.c_int]
         lib.fluid_error_string.argtypes = [ctypes.c_int]
         lib.fluid_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def round_scheme(S: int) -> Dict[str, object]:
+    """The bisection scheme the kernels run at ``S`` stations, as the CUDA
+    source defines it (built at first use): warps per cell, steps of the
+    sequential bisection, levels per round and dependent rounds per
+    bisection, for the global lambda and for the station bisections."""
+    lib = _load()
+    steps = lib.fluid_bisect_iters()
+    levels = dict(station=lib.fluid_station_levels(S), global_lambda=lib.fluid_glam_levels())
+    return dict(warps_per_cell=lib.fluid_warps_per_cell(), sequential_steps=steps,
+                levels_per_round=levels,
+                rounds_per_bisection={k: -(-steps // v) for k, v in levels.items()})
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:

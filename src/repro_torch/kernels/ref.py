@@ -5,6 +5,12 @@ materialization of the scores, f32 scores and softmax, the same ``NEG_INF``
 mask, window and softcap.  The CPU path of :mod:`repro_torch.kernels.ops`
 runs it, and ``chip_smoke.py`` holds the CUDA kernel against it on the card.
 
+``decode_attention_split_ref`` is the plain version of what the CUDA kernel
+computes on its split road: per split of each row's walked range, f32
+``(m, l, acc)`` partials, then the combine's rescaling (empty splits
+skipped).  The tests hold it to ``decode_attention_ref``; nothing else
+runs it.
+
 ``station_lambdas_ref``, ``global_lambda_ref`` and ``fused_window_solve_ref``
 are the batched lane's solver in float64 on any device: the reference's
 numpy ``station_lambdas`` and ``_global_lambda_numpy``
@@ -12,6 +18,11 @@ numpy ``station_lambdas`` and ``_global_lambda_numpy``
 (``repro/memsim/batched/fluid.py:222-297``), operation for operation.  The
 CPU path of :mod:`repro_torch.memsim.batched.kernel` runs them, and
 ``chip_smoke.py`` holds the f32 kernels against them on the card.
+
+``speculative_bisect_ref`` is the round scheme of the solver kernel's
+bisections in f32: each round evaluates the predicate at every midpoint of
+the next ``levels`` levels of the bisection tree, then follows the path.
+The tests hold it bit for bit to the sequential bisection.
 
 ``ssd_scan_ref`` is the reference's token-by-token SSD recurrence
 (``repro/kernels/ref.py:46``) in float32, and ``ssd_scan_chunked_ref`` the
@@ -25,7 +36,7 @@ one; the model's CPU path runs ``models/ssm.py::ssd_chunked`` instead.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -59,8 +70,128 @@ def decode_attention_ref(
     return out.to(q.dtype)
 
 
+def split_bounds(length: int, s: int, n_split: int, window: int = 1 << 30,
+                 tile: int = 64) -> List[Tuple[int, int]]:
+    """The decode-attention kernel's ``[begin, end)`` of each of the
+    ``n_split`` blocks of one row: the walked range (the valid positions
+    ``[max(0, length - window), min(length, s))``, or all of ``[0, s)`` when
+    none is valid) cut into ``n_split`` equal parts rounded up to whole
+    tiles; trailing parts may be empty."""
+    lo, hi = max(0, length - window), min(length, s)
+    begin, end = (lo, hi) if lo < hi else (0, s)
+    chunk = -(-(end - begin) // n_split)
+    chunk = -(-chunk // tile) * tile
+    bounds = []
+    for z in range(n_split):
+        b0 = min(end, begin + z * chunk)
+        bounds.append((b0, min(end, b0 + chunk)))
+    return bounds
+
+
+def decode_attention_split_ref(
+    q: torch.Tensor,  # [B, Hkv, G, Dh]
+    k: torch.Tensor,  # [B, Hkv, S, Dh]
+    v: torch.Tensor,  # [B, Hkv, S, Dh]
+    lengths: torch.Tensor,  # [B] int32 valid token counts
+    n_split: int,
+    *,
+    window: int = 1 << 30,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+    p_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Split-KV flash-decode as the kernel computes it: each block's f32
+    ``(m, l, acc)`` over its part of the walked range (masked scores inside
+    it are ``NEG_INF``; an empty part is ``m = -inf, l = 0``), then
+    ``out = sum_z e^(m_z - M) acc_z / max(sum_z e^(m_z - M) l_z, 1e-20)``
+    over the non-empty parts.  ``p_dtype`` rounds the probabilities to that
+    type as the operand of the value product (the kernel's bf16 road); ``l``
+    sums them unrounded."""
+    b, hkv, g, dh = q.shape
+    s = k.shape[2]
+    if scale is None:
+        scale = dh**-0.5
+    scores = torch.einsum("bhgd,bhsd->bhgs", q.float() * scale, k.float())
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    pos = torch.arange(s, device=q.device)[None, :]
+    length = lengths.to(device=q.device, dtype=torch.int64)[:, None]
+    valid = (pos < length) & (length - 1 - pos < window)
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.tensor(NEG_INF, device=q.device))
+    part_of = torch.full((b, s), -1, dtype=torch.int64, device=q.device)
+    for row, n in enumerate(lengths.tolist()):
+        for z, (b0, b1) in enumerate(split_bounds(int(n), s, n_split, window)):
+            part_of[row, b0:b1] = z
+    vf = v.float()
+    ms, ls, accs = [], [], []
+    for z in range(n_split):
+        inside = (part_of == z)[:, None, None, :]
+        m = torch.where(inside, scores, float("-inf")).amax(dim=-1, keepdim=True)
+        p = torch.where(inside, torch.exp(scores - torch.where(torch.isfinite(m), m, 0.0)),
+                        0.0)
+        ls.append(p.sum(dim=-1))
+        ms.append(m[..., 0])
+        pv = p if p_dtype is None else p.to(p_dtype).float()
+        accs.append(torch.einsum("bhgs,bhsd->bhgd", pv, vf))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)  # split first
+    kept = l > 0
+    m_all = torch.where(kept, m, float("-inf")).amax(dim=0)
+    wt = torch.where(kept, torch.exp(m - m_all), 0.0)
+    l_all = (wt * l).sum(dim=0)
+    out = (wt[..., None] * acc).sum(dim=0) / l_all.clamp(min=1e-20)[..., None]
+    return out.to(q.dtype)
+
+
 _BISECT_ITERS = 48
 _EPS = 1e-9
+
+
+def speculative_bisect_ref(
+    pred: Callable[[torch.Tensor], torch.Tensor],
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    iters: int,
+    levels: int,
+) -> torch.Tensor:
+    """``iters`` bisection steps (``mid = 0.5 * (lo + hi)``; ``lo = mid``
+    where ``pred(mid)``, else ``hi = mid``) in rounds of ``levels`` steps, as
+    the solver kernel's lanes run them: a round evaluates ``pred`` at the
+    ``2**levels - 1`` midpoints of the next ``levels`` levels of the tree,
+    each derived from the round's ``(lo, hi)`` along its own path by the same
+    f32 operations; the last-level node whose ancestors' values all agree
+    with its path gives its bracket, and its own step ends the round.
+    Returns ``lo``; it equals the sequential bisection's bit for bit."""
+    done = 0
+    while done < iters:
+        lv = min(levels, iters - done)
+        brackets, oks = [], []
+        for node in range((1 << lv) - 1):
+            path = node + 1  # a leading 1, then the path: 1 = predicate true
+            n_lo, n_hi = lo, hi
+            for i in range(path.bit_length() - 2, -1, -1):
+                mid = 0.5 * (n_lo + n_hi)
+                if (path >> i) & 1:
+                    n_lo = mid
+                else:
+                    n_hi = mid
+            brackets.append((n_lo, n_hi))
+            oks.append(pred(0.5 * (n_lo + n_hi)))
+        new_lo, new_hi = lo, hi
+        for node in range((1 << (lv - 1)) - 1, (1 << lv) - 1):
+            path, a = node + 1, 0
+            on = torch.ones_like(oks[0])
+            for i in range(path.bit_length() - 2, -1, -1):
+                up = (path >> i) & 1
+                on = on & (oks[a] if up else ~oks[a])
+                a = 2 * a + 1 + up
+            n_lo, n_hi = brackets[node]
+            mid = 0.5 * (n_lo + n_hi)
+            new_lo = torch.where(on, torch.where(oks[node], mid, n_lo), new_lo)
+            new_hi = torch.where(on, torch.where(oks[node], n_hi, mid), new_hi)
+        lo, hi = new_lo, new_hi
+        done += lv
+    return lo
 
 
 def station_lambdas_ref(A, cap, route_svc, slots) -> torch.Tensor:

@@ -41,6 +41,7 @@ from repro_torch.kernels import fluid_solver
 from repro_torch.kernels.ref import (
     fused_window_solve_ref,
     global_lambda_ref,
+    speculative_bisect_ref,
     station_lambdas_ref,
 )
 from repro_torch.memsim.batched import fluid, kernel
@@ -197,6 +198,112 @@ def test_random_window_gate_is_one_the_reference_f32_solver_meets():
         beyond += int((err > 2e-3).sum())
         cells += C
     assert 0 < beyond <= cs.K3_RANDOM_MAX_SHARE_BEYOND * cells
+
+
+# -- (c') the kernels' speculative bisection equals the sequential one ---------
+
+
+def _sequential_bisect(pred, lo, hi, iters):
+    """The f32 bisection the kernels' rounds replace, one step at a time."""
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        ok = pred(mid)
+        lo = torch.where(ok, mid, lo)
+        hi = torch.where(ok, hi, mid)
+    return lo
+
+
+def _f32(x):
+    return torch.as_tensor(np.asarray(x, dtype=np.float32))
+
+
+def _threshold_problem():
+    """Seeded thresholds inside, at and beyond the bracket."""
+    rng = np.random.default_rng(21)
+    hi = _f32(rng.uniform(1.0, 1e4, 64))
+    thr = _f32(rng.uniform(-10.0, 1.1e4, 64))
+    thr[:4] = torch.stack([hi[0], hi[1] * 0.5, torch.tensor(0.0), hi[3] * 0.25])
+    return (lambda lam: lam <= thr), torch.zeros_like(hi), hi
+
+
+def _station_problem():
+    """The station-demand predicate of all S = 3 stations at once, on
+    test_station_lambdas_ref_matches_reference_numpy's inputs (seed 6) in
+    f32, summed over workloads in the kernel's order."""
+    rng = np.random.default_rng(6)
+    C, W, S = 16, 2, 3
+    A = _f32(rng.uniform(1, 16, (C, W)))
+    cap = _f32(rng.uniform(0.05, 3.0, (C, W)))
+    route_svc = _f32(rng.uniform(0.0, 200.0, (C, W, S)) * (rng.random((C, W, S)) < 0.7))
+    limit = _f32(rng.uniform(8, 256, (C, S))) + 1e-9
+
+    def pred(lam):  # lam (C, S)
+        d = torch.zeros_like(lam)
+        for w in range(W):
+            d = d + torch.minimum(lam * A[:, w, None], cap[:, w, None]) * route_svc[:, w]
+        return d <= limit
+
+    hi0 = (cap / A.clamp(min=1e-12)).amax(dim=1) + 1e-6
+    return pred, torch.zeros(C, S), hi0[:, None].expand(C, S).clone()
+
+
+def _glam_problem(seed, C, W, pad):
+    """The global-lambda feasibility test in f32 on a GLAM_CASES input, as
+    csrc/fluid_solver.cu::glam_feasible computes it."""
+    A, cap, y_sta, o_eff, R_tor, tor, irq = map(_f32, _glam_inputs(seed, C, W, pad))
+
+    def pred(lam):
+        ys, clamped, unc = [], [], []
+        ysum = torch.zeros_like(lam)
+        for w in range(W):
+            y_free = torch.minimum(lam * A[:, w], cap[:, w])
+            ys.append(torch.minimum(y_free, y_sta[:, w]))
+            clamped.append(y_sta[:, w] < y_free * (1.0 - 1e-9))
+            unc.append(torch.minimum(o_eff[:, w], ys[w] * R_tor[:, w]))
+            ysum = ysum + ys[w]
+        denom = ysum.clamp(min=1e-12)
+        pop = torch.zeros_like(lam)
+        for w in range(W):
+            share = ys[w] / denom
+            pop = pop + torch.where(
+                clamped[w], torch.maximum(o_eff[:, w] - irq * share, unc[w]), unc[w])
+        return pop <= tor + 1e-9
+
+    hi0 = (cap / A.clamp(min=1e-12)).amax(dim=1) + 1e-6
+    return pred, torch.zeros(C), hi0
+
+
+BISECT_PROBLEMS = {"thresholds": _threshold_problem, "station_demand": _station_problem}
+BISECT_PROBLEMS.update({f"glam_seed{c[0]}": (lambda c=c: _glam_problem(*c))
+                        for c in GLAM_CASES})
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("problem", sorted(BISECT_PROBLEMS))
+def test_speculative_bisection_is_the_sequential_one_bit_for_bit(problem, levels):
+    pred, lo, hi = BISECT_PROBLEMS[problem]()
+    assert lo.dtype == hi.dtype == torch.float32
+    want = _sequential_bisect(pred, lo, hi, 48)
+    got = speculative_bisect_ref(pred, lo, hi, 48, levels)
+    assert torch.equal(got, want)
+    # The brackets really move: some predicate values are true, some false.
+    assert (want > lo).any() and (want < hi).any()
+
+
+def test_kernel_round_counts():
+    """The rounds of the kernels' scheme at corun_sweep's S = 3, counted as
+    predicate calls of its plain version: 16 station rounds of 3 levels
+    (3 x 48 sequential steps before), each 7 nodes; 10 global-lambda rounds
+    (48 steps before), 9 of 5 levels (31 nodes) and one of the last 3."""
+    for levels, calls in ((3, 16 * 7), (5, 9 * 31 + 7)):
+        seen = []
+
+        def pred(mid):
+            seen.append(mid)
+            return mid < 0.3
+
+        speculative_bisect_ref(pred, torch.zeros(4), torch.ones(4), 48, levels)
+        assert len(seen) == calls
 
 
 # -- (d) planning: exported state and stacked arrays ---------------------------

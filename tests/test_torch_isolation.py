@@ -1,7 +1,7 @@
-"""The port stands alone: no file of src/repro_torch (nor chip_smoke.py)
-imports jax or the reference package, importing it leaves jax unloaded, and
-its entry points refuse to run on a machine without CUDA unless asked for
-the CPU."""
+"""The port stands alone: no file of src/repro_torch (nor chip_smoke.py and
+kernel_ab.py) imports jax or the reference package, importing it leaves jax
+unloaded, and its entry points refuse to run on a machine without CUDA
+unless asked for the CPU."""
 
 import ast
 import os
@@ -13,7 +13,8 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "kernel_ab.py"]
 
 
 def _imported_roots(path: Path):

@@ -4,7 +4,9 @@ kernel run in interpret mode (repro.kernels.ops), on the cases and with the
 tolerances of tests/test_kernels.py: 1e-5 in f32, 2e-2 in bf16.
 
 The CUDA kernel itself runs only on the card (chip_smoke.py holds it against
-this plain version there); on the CPU the wrapper takes the plain path."""
+this plain version there); on the CPU the wrapper takes the plain path.  The
+kernel's split road (per-split partials and their combine) has a plain
+version of its own, held here to the oracle and to the Pallas kernel."""
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -17,7 +19,11 @@ from repro.kernels.ref import decode_attention_ref as jax_ref
 from repro_torch.core.invariants import InvariantViolation
 from repro_torch.kernels import decode_attention as kernel_mod
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import decode_attention_ref
+from repro_torch.kernels.ref import (
+    decode_attention_ref,
+    decode_attention_split_ref,
+    split_bounds,
+)
 
 # Tiny shapes: one intra-op thread is fastest and keeps parallel test
 # workers from oversubscribing the cores.
@@ -140,3 +146,79 @@ def test_kernel_launcher_rejects_cpu_tensors_and_bad_shapes():
     with pytest.raises(ValueError, match="group"):
         ops.decode_attention(torch.zeros(1, 6, 64), torch.zeros(1, 16, 4, 64),
                              torch.zeros(1, 16, 4, 64), torch.ones(1, dtype=torch.int32))
+
+
+# -- the split road: per-split (m, l, acc) partials and their combine ---------
+
+#: (case, (b, hq, hkv, dh, s), lengths, kwargs): ragged rows, one of them
+#: shorter than any split count (so most of its splits are empty); a row
+#: with nothing valid; a window whose first valid position is not a tile
+#: boundary; softcap at head_dim 128.
+SPLIT_CASES = [
+    ("ragged", (3, 8, 2, 64, 512), [512, 2, 137], {}),
+    ("nothing_valid", (2, 8, 2, 64, 256), [0, 3], {}),
+    ("window_mid_split", (2, 8, 4, 64, 512), [512, 300], dict(window=100)),
+    ("softcap", (2, 8, 4, 128, 256), [256, 85], dict(softcap=30.0)),
+]
+
+
+def _split_port(q, k, v, lengths, n_split, **kw):
+    """The split plain version on model-layout numpy inputs (f32)."""
+    b, hq, dh = q.shape
+    hkv = k.shape[2]
+    out = decode_attention_split_ref(
+        torch.from_numpy(q).reshape(b, hkv, hq // hkv, dh),
+        torch.from_numpy(k).transpose(1, 2), torch.from_numpy(v).transpose(1, 2),
+        torch.from_numpy(lengths), n_split, **kw)
+    return out.reshape(b, hq, dh).numpy()
+
+
+@pytest.mark.parametrize("oracle", ["ref", "pallas"])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7, 64])
+@pytest.mark.parametrize("case,shape,lengths,kw", SPLIT_CASES,
+                         ids=[c[0] for c in SPLIT_CASES])
+def test_split_plain_version_matches_oracles(oracle, n_split, case, shape, lengths, kw):
+    b, hq, hkv, dh, s = shape
+    q, k, v, lens = _inputs(5, b, hq, hkv, dh, s, np.float32, lengths=lengths)
+    out = _split_port(q, k, v, lens, n_split, **kw)
+    if oracle == "ref":
+        want = _port(q, k, v, lens, torch.float32, **kw)
+    else:
+        want = np.asarray(pallas_decode_attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens),
+            block_s=64, **kw))
+    np.testing.assert_allclose(out, want, atol=1e-6, rtol=1e-6)
+
+
+def test_split_cases_cover_empty_and_partial_splits():
+    """The cases above reach the combine's edge cases: empty splits beside
+    non-empty ones, and a walked range that starts off a tile boundary."""
+    assert split_bounds(2, 512, 3)[1:] == [(2, 2), (2, 2)]
+    assert split_bounds(0, 256, 7)[0] == (0, 64)  # nothing valid: all of S
+    assert split_bounds(3, 256, 64)[4:] == [(3, 3)] * 60
+    first, second = split_bounds(512, 512, 2, window=100)
+    assert first == (412, 476) and second == (476, 512)
+    assert sum(e - b for b, e in split_bounds(137, 512, 7)) == 137
+
+
+@pytest.mark.parametrize("n_split", [1, 7])
+def test_bf16_probabilities_fit_the_bf16_tolerance(n_split):
+    """The kernel rounds P to bf16 as the operand of its value product; on
+    f32 inputs that rounding alone stays inside the bf16 tolerance."""
+    q, k, v, lens = _inputs(6, 2, 16, 2, 128, 512, np.float32, lengths=[512, 77])
+    out = decode_attention_split_ref(
+        *(torch.from_numpy(a) for a in (q.reshape(2, 2, 8, 128), k.transpose(0, 2, 1, 3),
+                                        v.transpose(0, 2, 1, 3), lens)),
+        n_split, p_dtype=torch.bfloat16)
+    want = _port(q, k, v, lens, torch.float32)
+    np.testing.assert_allclose(out.reshape(2, 16, 128).numpy(), want, atol=2e-2, rtol=2e-2)
+
+
+def test_split_count_fills_one_wave_and_never_splits_the_serve_cache():
+    resident = 132 * 2  # an H100's SMs x the bf16 kernel's blocks per SM
+    assert kernel_mod.split_count(96, 4 * 8, resident) == 1  # serve shape
+    assert kernel_mod.split_count(32768, 8 * 8, resident) == 4  # long cache, B=8
+    assert kernel_mod.split_count(32768, 8, resident) == 16  # B=1: splits of 2048
+    assert kernel_mod.split_count(4096, 2 * 8, resident) == 2
+    assert kernel_mod.split_count(2048, 8, resident) == 1
+    assert kernel_mod.split_count(32768, 1000, resident) == 1
