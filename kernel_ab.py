@@ -1,5 +1,5 @@
-"""Same-call A/B of the port's K1, K2 and K3 between another tree of this
-repo and this one, on one GPU.
+"""Same-call A/B of the port's K1, K2, K3 and K4 between another tree of
+this repo and this one, on one GPU.
 
     mkdir -p .scratch/parent && git archive <rev> | tar -x -C .scratch/parent
     python3 kernel_ab.py .scratch/parent
@@ -15,13 +15,19 @@ same seeded inputs:
   that tree's plain version;
 * K3 on corun_sweep_1k's first window (both groups, C = 1024) and K2 at
   C = 1024, W = 2: the call and the kernel alone;
+* K4 (``ops.ssd_scan``, bf16) at the mamba2 serve prompt (B = 1, S = 8)
+  and at a 2k prompt (S = 2048): the call and its device kernels alone,
+  with the max abs error of y and the final state against that tree's
+  plain version (``ssd_scan_chunked_ref``);
 * corun_sweep_1k's wall, three runs after a warm one;
 
 and keeps K3's outputs on every window of a corun_sweep_1k run and on
 chip_smoke.py's random windows, and K2's on its inputs.  Those must equal
 the other tree's bit for bit, NaN patterns included (exit 1 otherwise).
-Prints the card, one JSON line per turn and a summary of each tree's mean
-times.
+K4's y and state are kept too and compared by max abs difference only: a
+redesign of the scan sums in another order and rounds other operands, so
+two trees need not agree bit for bit.  Prints the card, one JSON line per
+turn and a summary of each tree's mean times.
 """
 
 from __future__ import annotations
@@ -42,6 +48,9 @@ K1_SHAPES = {  # (b, hq, hkv, dh, s), lengths: chip_smoke.py's serve and long ca
     "long_cache": ((8, 32, 8, 128, 32768), [32768] * 8),
 }
 K2_SHAPES = ((1024, 2, 0), (128, 5, 1), (7, 8, 3), (300, 3, 0))  # C, W, padded
+K4_SHAPES = {"serve": (1, 8, 80, 64, 128), "s2048": (1, 2048, 80, 64, 128)}  # b, s, h, p, n
+#: K4's device kernels in either tree (one scan kernel before the redesign).
+K4_NAMES = ("ssd_scan_kernel", "ssd_state_kernel", "ssd_pass_kernel", "ssd_chunk_kernel")
 
 
 def _import_tree(tree):
@@ -49,23 +58,25 @@ def _import_tree(tree):
     from repro_torch.kernels import _nvcc
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.kernels import ssd_scan as k4
 
     cs.check(k1.__file__.startswith(os.path.abspath(tree) + os.sep),
              f"imported {k1.__file__}, not the tree {tree}")
-    return _nvcc, k1, fs
+    return _nvcc, k1, fs, k4
 
 
 def build(tree) -> None:
-    _nvcc, k1, fs = _import_tree(tree)
-    _nvcc.build(k1.SOURCE, fs.SOURCE)
+    _nvcc, k1, fs, k4 = _import_tree(tree)
+    _nvcc.build(k1.SOURCE, fs.SOURCE, k4.SOURCE)
 
 
 def turn(tree, out_path) -> None:
     """One tree's measurements; its outputs go to ``out_path``."""
     import torch
 
-    _, k1, fs = _import_tree(tree)
-    from repro_torch.kernels.ref import decode_attention_ref
+    _, k1, fs, _ = _import_tree(tree)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import decode_attention_ref, ssd_scan_chunked_ref
     from repro_torch.memsim.batched import fluid
     from repro_torch.scenarios import run_scenario
 
@@ -88,6 +99,26 @@ def turn(tree, out_path) -> None:
             kernel_device_ms=cs.kernel_device_ms(call, cs.K1_KERNELS, 10, kernels),
             max_abs_err=err.item())
         del q, k, v
+    torch.cuda.empty_cache()
+
+    for name, (b, s, h, p, n) in K4_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(13)
+        x, dt, bm, cm, a = cs.k4_inputs(gen, b, s, h, p, n, torch.bfloat16, dev)
+
+        def call():
+            return ops.ssd_scan(x, dt, bm, cm, a, chunk=128)
+
+        y, st = call()
+        yc, stc = ssd_scan_chunked_ref(x.transpose(1, 2), dt.transpose(1, 2),
+                                       torch.stack([bm, cm], dim=2), a, chunk=min(128, s))
+        kernels = len(cs.graph_kernels(call))
+        res[f"k4_{name}"] = dict(
+            ms=cs.time_ms(call, 20 if s >= 1024 else 100), device_kernels_per_call=kernels,
+            kernel_device_ms=cs.kernel_device_ms(call, K4_NAMES, 10, kernels),
+            y_err=(y.float() - yc.transpose(1, 2).float()).abs().max().item(),
+            state_err=(st - stc).abs().max().item())
+        keep[f"k4_{name}"] = [y, st]
+        del x, dt, bm, cm, a, yc, stc
     torch.cuda.empty_cache()
 
     n_outer, damp = fluid._N_OUTER, fluid._DAMP
@@ -174,18 +205,22 @@ def main(other) -> None:
         rows[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
     keep = {name: torch.load(os.path.join(out_dir, f"{name}-{i}.pt"))
             for i, name in ((0, "other"), (1, "this"))}
-    differ = [key for key in keep["this"]
-              if not _bit_equal(keep["this"][key], keep["other"][key])]
+    differ = [key for key in keep["this"] if not key.startswith("k4_")
+              and not _bit_equal(keep["this"][key], keep["other"][key])]
+    k4_diff = {key: [(a.float() - b.float()).abs().max().item()
+                     for a, b in zip(keep["this"][key], keep["other"][key])]
+               for key in keep["this"] if key.startswith("k4_")}
 
     summary = {}
     for name, turns in rows.items():
         summary[name] = {f"{kern}_{field}": sum(t[kern][field] for t in turns) / len(turns)
-                         for kern in ("k1_serve", "k1_long_cache", "k3", "k2")
+                         for kern in ("k1_serve", "k1_long_cache", "k3", "k2", "k4_serve",
+                                      "k4_s2048")
                          for field in ("ms", "kernel_device_ms")}
         walls = [w for t in turns for w in t["corun_sweep_1k_wall_s"]]
         summary[name]["corun_sweep_1k_wall_s"] = sum(walls) / len(walls)
-    print(json.dumps({"summary": summary, "bit_equal_k2_k3": not differ, "differ": differ}),
-          flush=True)
+    print(json.dumps({"summary": summary, "bit_equal_k2_k3": not differ, "differ": differ,
+                      "k4_max_abs_diff_y_state": k4_diff}), flush=True)
     cs.check(not differ, f"K2/K3 outputs differ between the trees: {differ}")
 
 

@@ -32,6 +32,11 @@ one group, the kernel layout (x [B, H, S, P], dt [B, H, S], bc [B, S, 2, N],
 a [H]).  Both return y in x's dtype and the final state [B, H, P, N] f32.
 The CPU path of :func:`repro_torch.kernels.ops.ssd_scan` runs the chunked
 one; the model's CPU path runs ``models/ssm.py::ssd_chunked`` instead.
+``ssd_scan_staged_ref`` is the plain version of the scan kernels' three
+stages (chunk states, the state pass, chunk outputs) in the same layout,
+f32 throughout or, with ``operand_dtype``, rounding where the kernels'
+tensor-core operands round; ``chip_smoke.py`` holds the kernels to it on
+the card.
 """
 
 from __future__ import annotations
@@ -386,4 +391,66 @@ def ssd_scan_chunked_ref(
         state = torch.exp(da.sum(dim=-1))[..., None, None] * state + s_chunk
         ys.append(y)
     y = torch.cat(ys, dim=2)[:, :, :s]
+    return y.to(x.dtype), state
+
+
+def ssd_scan_staged_ref(
+    x: torch.Tensor,  # [B, H, S, P]
+    dt: torch.Tensor,  # [B, H, S] f32
+    bc: torch.Tensor,  # [B, S, 2, N]
+    a: torch.Tensor,  # [H] f32 (negative)
+    *,
+    chunk: int,
+    operand_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan as the kernels stage it, chunks of ``min(chunk, S)`` steps
+    (S padded to a chunk multiple with dt = 0):
+
+    * A: per chunk, ``s_c = sum_k x_k (tail_k dt_k) B_k^T`` with
+      ``tail_k = exp(cum_last - cum_k)``, and ``decay_c = exp(cum_last)``;
+    * B: ``h_in[c] = h; h = decay_c h + s_c`` in chunk order (the last ``h``
+      is the final state);
+    * C: ``y = exp(cum_q) (C h_in[c]^T) + W' @ x`` with
+      ``W'[q, k] = C B^T [k <= q] exp(cum_q - cum_k) dt_k``.
+
+    f32 throughout when ``operand_dtype`` is None.  Otherwise the three
+    products' rounded operands are rounded once to it, as the kernels'
+    tensor-core road does: ``x_k tail_k dt_k`` (Stage A), ``h_in`` and
+    ``W'`` (Stage C); x, B and C enter as given.  Returns y in x's dtype
+    and the final state [B, H, P, N] f32."""
+    b, h, s, p = x.shape
+    n = bc.shape[-1]
+    q = min(chunk, s)
+    pad = -s % q
+    nc = (s + pad) // q
+
+    def rnd(t: torch.Tensor) -> torch.Tensor:
+        return t if operand_dtype is None else t.to(operand_dtype).float()
+
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, pad)).reshape(b, h, nc, q, p)
+    dtf = torch.nn.functional.pad(dt.float(), (0, pad)).reshape(b, h, nc, q)
+    bcf = torch.nn.functional.pad(bc.float(), (0, 0, 0, 0, 0, pad))
+    bq = bcf[:, :, 0].reshape(b, nc, q, n)
+    cq = bcf[:, :, 1].reshape(b, nc, q, n)
+    cum = torch.cumsum(dtf * a.float()[None, :, None, None], dim=-1)  # [B, H, nc, Q]
+    last = cum[..., -1:]
+    # Stage A.
+    xs = rnd(xf * (torch.exp(last - cum) * dtf)[..., None])
+    s_c = torch.einsum("bhcqp,bcqn->bhcpn", xs, bq)
+    decay = torch.exp(last[..., 0])  # [B, H, nc]
+    # Stage B.
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(state)
+        state = decay[:, :, c, None, None] * state + s_c[:, :, c]
+    hin = rnd(torch.stack(h_in, dim=2))  # [B, H, nc, P, N]
+    # Stage C.
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    seg = torch.where(mask, torch.exp(cum[..., :, None] - cum[..., None, :]), 0.0)
+    cb = torch.einsum("bcqn,bckn->bcqk", cq, bq)[:, None]  # [B, 1, nc, Q, Q]
+    w = rnd(cb * seg * dtf[..., None, :])
+    inter = torch.einsum("bcqn,bhcpn->bhcqp", cq, hin)
+    y = torch.exp(cum)[..., None] * inter + torch.einsum("bhcqk,bhckp->bhcqp", w, xf)
+    y = y.reshape(b, h, nc * q, p)[:, :, :s]
     return y.to(x.dtype), state
