@@ -11,7 +11,9 @@ Phases, each printed as one JSON line:
      bound (CUDA events; the serve shape's K/V stay in L2 between launches,
      the long caches' 134 MB-1.07 GB cannot), the kernel's split plan
      (n_split, blocks), the device kernels a call enqueues (read from a
-     CUDA graph of one call) and their profiled time;
+     CUDA graph of one call) and their profiled time; cases at head_dim 32
+     (the smoke configs') at the smoke serve shape in f32 and bf16 and a
+     long cache;
   3. small-input check: a two-layer model (head_dim 64, f32) served on the
      card and on the CPU (the plain path the CPU tests hold against the JAX
      reference) must give the same greedy tokens and the same result dict;
@@ -49,7 +51,24 @@ Phases, each printed as one JSON line:
      through the plain scan (wall, logits difference printed);
  11. serve_mamba2: build_cluster("mamba2-2.7b", full=True, mode="miku") with
      the launch counts of K4 and K1 read around the run, and a torch.profiler
-     run of 3 batch-4 decode steps.
+     run of 3 batch-4 decode steps;
+ 12. serve_smoke: ``python -m repro_torch.launch.serve`` with its defaults
+     (the llama31 smoke config, head_dim 32, MIKU), run in this process,
+     with K1's launches read around it (2 layers x the engines' decode
+     steps);
+ 13. fig11: run_scenario("fig11_llm") at the reference's defaults on the
+     card, its rows held equal to the same call's rows on the CPU, K1's
+     launches read around it (n_layers x the four clusters' decode steps),
+     and its wall time;
+ 14. figures: the nine grid scenarios (fig3-fig10, loaded_latency) on the
+     card, each job held against the plain lane on the card (exact cells
+     equal; fluid cells by the sweep phase's gates), with each scenario's
+     wall, K3 launches, K3 instances and device busy share, and fig10's
+     racing_ddr and miku_ddr;
+ 15. mva: core.mva.analyze on the card against the CPU on tests/test_mva.py's
+     inputs, rel 1e-5.
+They run in this order: 1-5, 12, 13, 6, 7, 9, 14, 15, 8, 10, 11.  Every
+line carries ``elapsed_s``, the seconds since the script started.
 The line before the last lists every kernel's numbers; the last line is the
 device summary.  Any failed check exits non-zero; without CUDA (or without
 the rest of the repository beside this file) it exits non-zero at once.
@@ -57,16 +76,20 @@ the rest of the repository beside this file) it exits non-zero at once.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
@@ -102,6 +125,23 @@ SWEEP1K_P95_BOUND = 0.08
 K3_RANDOM_MAX_SHARE_BEYOND = 0.05
 #: K1's device kernels: the split kernel and, when n_split > 1, the combine.
 K1_KERNELS = ("decode_attention_kernel", "decode_combine_kernel")
+#: A K1 sweep row's fields that the kernels line repeats.
+K1_FIELDS = ("ms", "kernel_device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "max_abs_err", "n_split", "device_kernels_per_call")
+#: The grid figures of the figures phase, the reference's declaration order.
+FIGURES = ("fig3_bandwidth", "fig4_latency", "loaded_latency", "fig5_corun",
+           "fig6_tor_correlation", "fig7_llc", "fig8_sync", "fig9_service", "fig10_miku")
+#: The figures' plain lane (the float64 solver, on the CPU, where it runs 4x
+#: faster than launching its small kernels on the card) runs in these
+#: worker processes, started after the kernel build so that they overlap
+#: the K1 sweep and the full-width decode check; fig10 (240 windows) alone.
+PLAIN_LANE_WORKERS = (("fig10_miku",),
+                      ("loaded_latency", "fig5_corun", "fig3_bandwidth", "fig4_latency"),
+                      ("fig7_llc", "fig8_sync", "fig6_tor_correlation", "fig9_service"))
+#: The figures' decision-flip jobs against the plain lane: the kilo grid's
+#: 12 in 1024 cells, scaled to the figures' 140 jobs and rounded down (63
+#: of them run on the fluid engine, 6 of those with MIKU).
+FIGURES_MAX_FLIPS = 1
 #: (C, W, S, padded workloads, padded stations) of the random K3 windows.
 K3_RANDOM_CASES = ((1024, 2, 3, 0, 0), (256, 3, 4, 1, 0), (128, 8, 5, 2, 1),
                    (512, 5, 3, 0, 0))
@@ -113,7 +153,8 @@ def fail(msg: str) -> None:
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - T0, **fields}),
+          flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -191,6 +232,7 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = _nvcc.build(k1.SOURCE, fs.SOURCE, k4.SOURCE)  # one nvcc per source, together
     build_s = time.perf_counter() - t0
+    plain_lane = start_plain_lane()
     ptxas = {lib.name: [line.split("ptxas info    : ")[-1] for line in
                         lib.with_suffix(".ptxas.txt").read_text().splitlines()
                         if "registers" in line or "spill" in line] for lib in libs}
@@ -224,6 +266,13 @@ def main() -> None:
     serve_lengths = torch.randint(8, 17, (4,), generator=gen, device=dev).tolist()
     cases.append(("serve", (4, 32, 8, 128, 96), torch.bfloat16, 2e-2, {}, serve_lengths))
     cases.append(("long_cache", (8, 32, 8, 128, 32768), torch.bfloat16, 2e-2, {},
+                  [32768] * 8))
+    # head_dim 32: the smoke configs' (fig11, serve's default), at the smoke
+    # serve shape (4 slots, 4 q / 2 kv heads, max_len 96) and a long cache.
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        cases.append((f"dh32_serve_{tag}", (4, 4, 2, 32, 96), dtype, tol, {}, serve_lengths))
+    cases.append(("dh32_long_cache", (8, 4, 2, 32, 32768), torch.bfloat16, 2e-2, {},
                   [32768] * 8))
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -381,9 +430,14 @@ def main() -> None:
     del cluster, hbm, host, e  # free the llama weights before the next paths
     torch.cuda.empty_cache()
 
+    serve_smoke(dev)
+    fig11 = fig11_phase(dev)
+
     k2_row = k2_check(dev)
     k3_row = k3_check(dev)
     lane = sweep_phase(dev)
+    figures = figures_phase(dev, plain_lane)
+    mva_phase(dev)
     k4_row = k4_sweep(dev)
     k4_launches = ssm_phases(dev)
     emit("profiler", traces=len(PROFILE_PADS_LOST), pad_kernels=PROFILE_PAD_KERNELS,
@@ -416,6 +470,11 @@ def main() -> None:
         "long_cache_plain_ms": long_row["plain_ms"],
         "long_cache_max_abs_err": long_row["max_abs_err"],
         "long_cache_device_kernels_per_call": long_row["device_kernels_per_call"],
+        # head_dim 32 (the smoke configs'): its launches in fig11's run, and
+        # its readings at the smoke serve shape and a long cache.
+        "fig11_launches": fig11["k1_launches"],
+        "dh32": {name[len("dh32_"):]: {k: sweep[name][k] for k in K1_FIELDS}
+                 for name in sweep if name.startswith("dh32_")},
     }, {
         "name": "global_lambda",
         "route": "cuda",
@@ -432,6 +491,8 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/fluid_solver.cu",
         "replaces": "src/repro/memsim/batched/kernel.py:239",
         "launches": lane["k3_launches"],
+        "figures_launches": figures["k3_launches"],
+        "figures_instances": figures["k3_instances"],
         **k3_row,
     }, {
         "name": "ssd_scan",
@@ -856,6 +917,330 @@ def sweep_phase(dev):
          top_kernels=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3,
                            calls=e.count) for e in top])
     return main
+
+
+# -- the smoke serve CLI, fig11, the grid figures, MVA ---------------------------
+
+
+class engines_built:
+    """Within it, ``.engines`` collects every ServingEngine constructed (the
+    CLI and the fig11 cell build theirs internally)."""
+
+    def __enter__(self):
+        from repro_torch.serving import engine as eng_lib
+
+        cls, init = eng_lib.ServingEngine, eng_lib.ServingEngine.__init__
+        self._restore = lambda: setattr(cls, "__init__", init)
+        self.engines = engines = []
+
+        def record(eng, *args, **kwargs):
+            init(eng, *args, **kwargs)
+            engines.append(eng)
+
+        cls.__init__ = record
+        return self
+
+    def __exit__(self, *exc):
+        self._restore()
+
+
+def serve_smoke(dev):
+    """Phase 12: ``python -m repro_torch.launch.serve`` with its defaults
+    (the smoke config, head_dim 32, on the card), run in this process with
+    K1's launch count set to 0 just before and read just after."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.launch import serve
+
+    cfg = get_arch("llama31-8b").smoke
+    out = io.StringIO()
+    with engines_built() as built, contextlib.redirect_stdout(out):
+        k1.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        serve.main([])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = k1.LAUNCHES.count
+    steps = sum(e.decode_steps for e in built.engines)
+    lines = out.getvalue().splitlines()
+    emit("serve_smoke", command="python -m repro_torch.launch.serve", output=lines,
+         config=cfg.name, head_dim=cfg.head_dim, n_layers=cfg.n_layers, wall_s=wall,
+         engines={e.cfg.name: dict(requests=len(e.done), decode_steps=e.decode_steps)
+                  for e in built.engines},
+         k1_launches=launches, layers_x_decode_steps=cfg.n_layers * steps,
+         simulated_note="tok/s on the queue clock with the reference's tier constants")
+    check(launches == cfg.n_layers * steps and launches > 0,
+          f"serve_smoke: K1 launches {launches} != layers x decode steps "
+          f"{cfg.n_layers * steps}")
+    check(len(lines) == 2 and all(e.finished for e in built.engines),
+          f"serve_smoke: the default serve did not finish its requests: {lines}")
+
+
+def fig11_phase(dev):
+    """Phase 13: the §6 case study at the reference's defaults on the card,
+    K1's launch count set to 0 just before and read just after; its rows
+    must equal the same call's rows on the CPU (they are the simulated
+    queue clock's, so they depend on byte counts only)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.scenarios import run_scenario
+
+    cfg = get_arch("llama31-8b").smoke
+    with engines_built() as built:
+        k1.LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = run_scenario("fig11_llm")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = k1.LAUNCHES.count
+    steps = sum(e.decode_steps for e in built.engines)
+    t0 = time.perf_counter()
+    cpu_rows = run_scenario("fig11_llm", device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    emit("fig11", rows=rows, rows_equal_cpu=rows == cpu_rows, wall_s=wall,
+         cpu_wall_s=cpu_wall, engines=len(built.engines), decode_steps=steps,
+         k1_launches=launches, layers_x_decode_steps=cfg.n_layers * steps,
+         simulated_note="tokens/s simulated (TPU-v5e tier constants), not measured")
+    check(rows == cpu_rows, "fig11: the card's rows differ from the CPU's")
+    check(all(_finite(v) for r in rows for v in r.values() if isinstance(v, float)),
+          "fig11: non-finite rows")
+    check(launches == cfg.n_layers * steps and launches > 0,
+          f"fig11: K1 launches {launches} != layers x decode steps {cfg.n_layers * steps}")
+    return dict(k1_launches=launches, wall_s=wall)
+
+
+def _record_sweep():
+    """Patch the planner so that each run_scenario's jobs and results are
+    kept; returns (the record, a function that restores the planner)."""
+    from repro_torch.scenarios import planner
+
+    got, sweep = {}, planner.run_sweep
+
+    def record(jobs, **kw):
+        got["jobs"], got["results"] = jobs, sweep(jobs, **kw)
+        return got["results"]
+
+    planner.run_sweep = record
+    return got, lambda: setattr(planner, "run_sweep", sweep)
+
+
+def plain_lane_worker(path, names):
+    """Run ``names`` on the port's plain lane (CPU tensors: the float64
+    solver) and pickle each one's rows, results and wall to ``path``."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+
+    from repro_torch.scenarios import run_scenario
+
+    torch.set_num_threads(1)
+    got, restore = _record_sweep()
+    out = {}
+    try:
+        for name in names:
+            t0 = time.perf_counter()
+            rows = run_scenario(name, device="cpu")
+            out[name] = dict(rows=rows, results=got["results"],
+                             wall_s=time.perf_counter() - t0)
+    finally:
+        restore()
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def start_plain_lane():
+    """Start PLAIN_LANE_WORKERS (no card: CUDA_VISIBLE_DEVICES is empty);
+    they are killed at exit if still running."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plain_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    workers = []
+    for i, names in enumerate(PLAIN_LANE_WORKERS):
+        path = os.path.join(tmp, f"plain{i}.pkl")
+        err = open(path + ".err", "w")
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--plain-lane-worker", path, *names],
+                                env=env, stdout=subprocess.DEVNULL, stderr=err)
+        workers.append((proc, path, err))
+
+    def stop():
+        for proc, _, err in workers:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err.close()
+
+    atexit.register(stop)
+    return dict(workers=workers, started=time.perf_counter())
+
+
+def join_plain_lane(plain_lane, timeout_s=600.0):
+    """The workers' results by scenario, and the seconds spent waiting here
+    for them to end; fails if one did not end well."""
+    out, t0 = {}, time.perf_counter()
+    for proc, path, err in plain_lane["workers"]:
+        left = plain_lane["started"] + timeout_s - time.perf_counter()
+        try:
+            rc = proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            fail(f"the plain-lane worker for {proc.args[4:]} ran past {timeout_s} s")
+        err.flush()
+        tail = open(path + ".err").read()[-2000:]
+        check(rc == 0, f"the plain-lane worker for {proc.args[4:]} exited {rc}: {tail}")
+        with open(path, "rb") as f:
+            out.update(pickle.load(f))
+    return out, time.perf_counter() - t0
+
+
+def figures_phase(dev, plain_lane):
+    """Phase 14: the nine grid figures on the card, K3's count set to 0
+    just before each and read just after, every job held against the plain
+    lane (the float64 solver, run on the CPU by the workers that started
+    after the build): exact-lane cells equal, fluid cells by the sweep
+    phase's gates over all nine.  Returns K3's launches and the instances
+    it ran."""
+    import torch
+
+    from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.memsim.batched import exact, fluid
+    from repro_torch.memsim.batched.stacking import plan_cell
+    from repro_torch.scenarios import run_scenario
+
+    def run(name):
+        """Rows, jobs, results and counts of one run on the card."""
+        shapes = set()
+        solve = fluid.kernel.fused_window_solve
+
+        def record_solve(*args):
+            shapes.add(tuple(args[3].shape))  # route: (C, W, S)
+            return solve(*args)
+
+        got, restore = _record_sweep()
+        fluid.kernel.fused_window_solve = record_solve
+        fs.WINDOW_SOLVE_LAUNCHES.reset()
+        fluid.COUNTS.reset()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = run_scenario(name)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+            fluid.kernel.fused_window_solve = solve
+        return rows, got["jobs"], got["results"], dict(
+            wall_s=wall, k3_launches=fs.WINDOW_SOLVE_LAUNCHES.count,
+            windows=fluid.COUNTS.windows, shapes=sorted(shapes))
+
+    def same_exact(a, b):
+        return (a.tor_inserts == b.tor_inserts and a.tor_peak == b.tor_peak
+                and all(a.stats[w].completed == b.stats[w].completed
+                        and a.stats[w].bytes == b.stats[w].bytes
+                        and a.stats[w].timeline == b.stats[w].timeline
+                        and a.stats[w].latency_hist == b.stats[w].latency_hist
+                        for w in a.stats))
+
+    plain, plain_wait_s = join_plain_lane(plain_lane)
+    errs, flips, total = [], 0, dict(k3_launches=0, instances=set(), exact_jobs=0,
+                                     exact_mismatches=0, fluid_jobs=0)
+    for name in FIGURES:
+        rows, jobs, res, info = run(name)
+        walls = []
+
+        def again():
+            t0 = time.perf_counter()
+            run_scenario(name)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+
+        dev_s = sum(e.self_device_time_total for e in profiled(again)) / 1e6
+        n_exact = n_flip = mism = 0
+        check(len(plain[name]["results"]) == len(jobs), f"{name}: plain lane job count")
+        for job, k, p in zip(jobs, res, plain[name]["results"]):
+            if exact.exact_regime(plan_cell(job)) is not None:
+                n_exact += 1
+                mism += not same_exact(k, p)
+                continue
+            if (sum(d.restricted for d in k.decisions) > 0) != (
+                    sum(d.restricted for d in p.decisions) > 0):
+                n_flip += 1
+                continue
+            errs.append(max(abs(k.bandwidth(w) - p.bandwidth(w)) / max(p.bandwidth(w), 1e-9)
+                            for w in k.stats))
+        instances = sorted({fs.window_solve_instance(W, S) for _, W, S in info["shapes"]})
+        row = dict(scenario=name, rows=len(rows), jobs=len(jobs), exact_jobs=n_exact,
+                   fluid_jobs=len(jobs) - n_exact, exact_mismatches=mism,
+                   decision_flip_jobs=n_flip, wall_s=info["wall_s"],
+                   plain_lane_cpu_wall_s=plain[name]["wall_s"], windows=info["windows"],
+                   k3_launches=info["k3_launches"],
+                   k3_groups=[dict(C=C, W=W, S=S) for C, W, S in info["shapes"]],
+                   k3_instances=[f"<{w}, {s}>" for w, s in instances],
+                   device_busy_share=dev_s / walls[0], wall_s_profiled=walls[0])
+        if name == "fig10_miku":
+            row["fig10"] = [{k: r[k] for k in ("platform", "op", "racing_ddr", "miku_ddr")}
+                            for r in rows]
+        emit("figures", **row)
+        check(info["k3_launches"] == info["windows"],
+              f"{name}: {info['k3_launches']} K3 launches for {info['windows']} windows")
+        check(all(_finite(v) for r in rows for v in r.values() if isinstance(v, float)),
+              f"{name}: non-finite rows")
+        flips += n_flip
+        total["k3_launches"] += info["k3_launches"]
+        total["instances"].update(instances)
+        total["exact_jobs"] += n_exact
+        total["exact_mismatches"] += mism
+        total["fluid_jobs"] += len(jobs) - n_exact
+    errs.sort()
+    p95 = errs[int(0.95 * (len(errs) - 1))] if errs else 0.0
+    instances = [f"<{w}, {s}>" for w, s in sorted(total["instances"])]
+    emit("figures", scenario="all", exact_jobs=total["exact_jobs"],
+         exact_mismatches=total["exact_mismatches"], fluid_jobs=total["fluid_jobs"],
+         decision_flip_jobs=flips, max_flips=FIGURES_MAX_FLIPS, aligned_p95_rel_err=p95,
+         aligned_worst_rel_err=errs[-1] if errs else 0.0, p95_bound=SWEEP1K_P95_BOUND,
+         k3_launches=total["k3_launches"], k3_instances=instances,
+         plain_lane_workers=len(PLAIN_LANE_WORKERS), plain_lane_wait_s=plain_wait_s)
+    check(total["exact_mismatches"] == 0, "figures: exact-lane cells differ from the plain lane")
+    check(flips <= FIGURES_MAX_FLIPS and p95 <= SWEEP1K_P95_BOUND,
+          f"figures: {flips} decision-flip jobs, aligned p95 {p95}")
+    check(total["k3_launches"] > 0 and total["instances"] == {(2, 3)},
+          f"figures: K3 ran the instances {instances}")
+    return dict(k3_launches=total["k3_launches"], k3_instances=instances)
+
+
+def mva_phase(dev):
+    """Phase 15: core.mva.analyze on the card against the CPU, on
+    tests/test_mva.py's inputs, rel 1e-5."""
+    from repro_torch.core.device_model import platform_a
+    from repro_torch.core.littles_law import OpClass
+    from repro_torch.core.mva import analyze
+
+    p = platform_a()
+    cases = ([(op, 16, 0) for op in OpClass] + [(OpClass.LOAD, 0, 16)]
+             + [(OpClass.LOAD, n, 0) for n in range(1, 34)]
+             + [(OpClass.LOAD, 0, n) for n in range(1, 34)])
+    fields = ("throughput_fast", "throughput_slow", "residency_fast", "residency_slow",
+              "bandwidth_fast_gbps", "bandwidth_slow_gbps")
+    worst, t_card = 0.0, 0.0
+    for op, f, sl in cases:
+        t0 = time.perf_counter()
+        card = analyze(p, op, f, sl)
+        vals = [float(getattr(card, k)) for k in fields]
+        t_card += time.perf_counter() - t0
+        cpu = analyze(p, op, f, sl, device="cpu")
+        for v, k in zip(vals, fields):
+            want = float(getattr(cpu, k))
+            worst = max(worst, abs(v - want) / max(abs(want), 1e-30))
+    example = analyze(p, OpClass.LOAD, 16, 0)
+    emit("mva", cases=len(cases), rounds=200, tol_rel=1e-5, max_rel_err=worst,
+         card_ms_per_call=t_card / len(cases) * 1e3,
+         load_16_threads_ddr_gbps=float(example.bandwidth_fast_gbps))
+    check(worst <= 1e-5, f"mva: the card differs from the CPU by rel {worst}")
 
 
 # -- the SSM path: K4 ------------------------------------------------------------
@@ -1340,4 +1725,7 @@ def _to(tree, device):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--plain-lane-worker"]:
+        plain_lane_worker(sys.argv[2], sys.argv[3:])
+    else:
+        main()

@@ -2,7 +2,8 @@
 
 A copy of what the batched sweep lane needs from ``repro.core.des``:
 :class:`WorkloadSpec`, :func:`validate_workloads`, :class:`WorkloadStats`
-and :class:`SimResult`, plus :func:`export_state`, the per-workload
+(with its latency reads), :class:`SimResult` and
+:data:`LATENCY_RESERVOIR`, plus :func:`export_state`, the per-workload
 constants the reference's ``TieredMemorySim`` derives in its constructor
 and exports for array stacking.
 
@@ -18,10 +19,14 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.device_model import PlatformModel, UnknownTierError
-from repro_torch.core.littles_law import OpClass, TierCounters
+from repro_torch.core.littles_law import OpClass, TierCounters, linear_percentile
 
 _DDR, _CXL = 0, 1
 _OPS = tuple(OpClass)
+
+#: Bound on a workload's latency sample (the reference DES's reservoir; the
+#: exact lane subsamples its full latency vector to this many).
+LATENCY_RESERVOIR = 2048
 
 
 @dataclasses.dataclass
@@ -99,6 +104,19 @@ class WorkloadStats:
     latency_samples: List[float] = dataclasses.field(default_factory=list)
     #: (t_ns, bytes completed in the window) for bandwidth over time.
     timeline: List[Tuple[float, float]] = dataclasses.field(default_factory=list)
+    #: :class:`repro_torch.obs.histogram.LatencyHistogram` over all completed
+    #: requests; None unless the job ran with ``latency_hist=True``.
+    latency_hist: Optional[object] = None
+
+    def mean_latency_ns(self) -> float:
+        return self.latency_sum / max(1, self.latency_count)
+
+    def percentile_ns(self, q: float) -> float:
+        """Sample percentile (linear between order statistics); NaN with no
+        samples."""
+        if not self.latency_samples:
+            return float("nan")
+        return linear_percentile(sorted(self.latency_samples), q)
 
     def bandwidth_gbps(self, sim_ns: float) -> float:
         return self.bytes / sim_ns  # B/ns == GB/s
@@ -116,9 +134,17 @@ class SimResult:
     #: (:class:`~repro_torch.core.controller.TierDecisions`).
     decisions: list
     per_tier_occupancy_integral: Dict[str, float]
+    #: Per-tier latency histograms (keyed by tier name); None unless the job
+    #: ran with ``latency_hist=True``.
+    tier_latency_hist: Optional[dict] = None
 
     def bandwidth(self, name: str) -> float:
         return self.stats[name].bandwidth_gbps(self.sim_ns)
+
+    @property
+    def tor_avg_latency_ns(self) -> float:
+        """Occupancy / inserts: the paper's ToR-derived service time."""
+        return self.tor_occupancy_integral / max(1, self.tor_inserts)
 
 
 def _tier_fractions(w: WorkloadSpec, names: Tuple[str, ...]) -> List[float]:

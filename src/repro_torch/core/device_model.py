@@ -3,8 +3,9 @@
 A copy of the part of ``repro.core.device_model`` the batched sweep lane
 uses: :class:`DeviceModel`, :class:`PlatformModel`, the paper's two
 platforms (Table 1) and a :data:`PLATFORMS` table of the entries the
-``corun_sweep`` scenarios name.  The switch, NUMA-remote, TPU-unit and
-fabric platforms are not ported yet.
+grid scenarios name (A, B and their one-DIMM, one-expander ``-1to1``
+variants).  The switch, NUMA-remote, TPU-unit and fabric platforms are not
+ported yet.
 
 Every device is ``c`` deterministic servers with per-access service time
 ``s`` (64 B cachelines) plus a pipeline latency that holds no slot:
@@ -68,6 +69,10 @@ class DeviceModel:
         reads, writes = ACCESS_MIX[op]
         return reads * self.read_service_ns + writes * self.write_service_ns
 
+    def peak_bandwidth_gbps(self, op: OpClass) -> float:
+        """Peak retired-data bandwidth (GB/s) for a pure stream of ``op``."""
+        return self.total_slots * self.access_bytes / self.service_ns(op)  # B/ns == GB/s
+
     def scaled(self, interleave: int, name: str = "") -> "DeviceModel":
         return dataclasses.replace(
             self, interleave=interleave, name=name or f"{self.name}x{interleave}"
@@ -126,6 +131,13 @@ class PlatformModel:
     def tier_names(self) -> Tuple[str, ...]:
         return tuple(d.tier for d in self.tiers)
 
+    def device_for(self, tier: str) -> DeviceModel:
+        """The device of tier ``tier``."""
+        names = self.tier_names
+        if tier not in names:
+            raise UnknownTierError(tier, names)
+        return self.tiers[names.index(tier)]
+
 
 def platform_a(ddr_dimms: int = 8, cxl_devices: int = 2) -> PlatformModel:
     """Intel Xeon Gold 6530 (EMR) socket: 8x DDR5 + 2x CXL (Table 1)."""
@@ -162,4 +174,6 @@ def platform_b(ddr_dimms: int = 12, cxl_devices: int = 4) -> PlatformModel:
 PLATFORMS: Dict[str, PlatformModel] = {
     "A": platform_a(),
     "B": platform_b(),
+    "A-1to1": platform_a(ddr_dimms=1, cxl_devices=1),
+    "B-1to1": platform_b(ddr_dimms=1, cxl_devices=1),
 }

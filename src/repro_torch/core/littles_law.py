@@ -244,3 +244,19 @@ class LittlesLawEstimator:
         )
         self.history.append(est)
         return est
+
+
+def linear_percentile(sorted_xs: Sequence[float], q: float) -> float:
+    """Order statistic with linear interpolation (numpy's default rule):
+    rank ``q * (n - 1)`` of the ascending ``sorted_xs``, interpolated
+    between the two bracketing order statistics; 0.0 when empty."""
+    n = len(sorted_xs)
+    if n == 0:
+        return 0.0
+    r = min(max(q, 0.0), 1.0) * (n - 1)
+    lo = int(r)
+    if lo >= n - 1:
+        return float(sorted_xs[-1])
+    frac = r - lo
+    a = float(sorted_xs[lo])
+    return a + (float(sorted_xs[lo + 1]) - a) * frac

@@ -55,6 +55,8 @@
 // Only positions in the walked range are visited: a skipped masked score
 // contributes exp(NEG_INF - m) = 0 exactly.  K/V rows are addressed by
 // strides, so the model-layout cache [B, S, Hkv, Dh] is read in place.
+// Instantiated for Dh = 32, 64 and 128 (the smoke configs' 32, the full
+// widths' 64 and 128); Smem's static_asserts hold each one to the tiling.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,6 +103,7 @@ struct Smem {
   static constexpr size_t kQBytes = Cfg<T>::kMma ? 0 : size_t(kGChunk) * kLdQ * 4;
   static constexpr size_t kPBytes = size_t(kWarps) * kGChunk * kLdP * sizeof(T);
   static constexpr size_t kMergeBytes = size_t(kWarps) * kGChunk * (kLdAcc + 2) * 4;
+  static_assert(DH % 16 == 0, "whole 16-wide Dh tiles of the mma");
   static_assert(kMergeBytes <= kRingBytes, "the merge area reuses the ring");
   static_assert(kTile * (DH * sizeof(T) / 16) % kThreads == 0, "whole copies a thread");
   static constexpr size_t kBytes = kRingBytes + kQBytes + kPBytes;
@@ -532,26 +535,26 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                             float scale, int window, float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_split < 1) return cudaErrorInvalidValue;
-  if (dtype == 0 && dh == 64)
-    return launch<float, 64>(q, k, v, lengths, out, part, b, hkv, g, s, n_split, k_strides,
-                             v_strides, scale, window, softcap, st);
-  if (dtype == 0 && dh == 128)
-    return launch<float, 128>(q, k, v, lengths, out, part, b, hkv, g, s, n_split, k_strides,
-                              v_strides, scale, window, softcap, st);
-  if (dtype == 1 && dh == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, lengths, out, part, b, hkv, g, s, n_split,
-                                     k_strides, v_strides, scale, window, softcap, st);
-  if (dtype == 1 && dh == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, lengths, out, part, b, hkv, g, s, n_split,
-                                      k_strides, v_strides, scale, window, softcap, st);
+#define K1_LAUNCH(T, DH)                                                                \
+  return launch<T, DH>(q, k, v, lengths, out, part, b, hkv, g, s, n_split, k_strides,  \
+                       v_strides, scale, window, softcap, st)
+  if (dtype == 0 && dh == 32) K1_LAUNCH(float, 32);
+  if (dtype == 0 && dh == 64) K1_LAUNCH(float, 64);
+  if (dtype == 0 && dh == 128) K1_LAUNCH(float, 128);
+  if (dtype == 1 && dh == 32) K1_LAUNCH(__nv_bfloat16, 32);
+  if (dtype == 1 && dh == 64) K1_LAUNCH(__nv_bfloat16, 64);
+  if (dtype == 1 && dh == 128) K1_LAUNCH(__nv_bfloat16, 128);
+#undef K1_LAUNCH
   return cudaErrorInvalidValue;
 }
 
 // Resident blocks per SM of the split kernel for (dtype, dh) on the current
 // device, or minus a cudaError_t.
 int decode_attention_blocks_per_sm(int dh, int dtype) {
+  if (dtype == 0 && dh == 32) return blocks_per_sm<float, 32>();
   if (dtype == 0 && dh == 64) return blocks_per_sm<float, 64>();
   if (dtype == 0 && dh == 128) return blocks_per_sm<float, 128>();
+  if (dtype == 1 && dh == 32) return blocks_per_sm<__nv_bfloat16, 32>();
   if (dtype == 1 && dh == 64) return blocks_per_sm<__nv_bfloat16, 64>();
   if (dtype == 1 && dh == 128) return blocks_per_sm<__nv_bfloat16, 128>();
   return -static_cast<int>(cudaErrorInvalidValue);

@@ -528,6 +528,17 @@ int fluid_global_lambda_launch(const float* A, const float* cap, const float* y_
   return static_cast<int>(cudaGetLastError());
 }
 
+// The sweep's cells are W = 2, S = 3 (DDR, CXL, LLC): they and smaller
+// groups take the <2, 3> instance, the rest <FS_MAX_W, FS_MAX_S>.
+static bool small_instance(int W, int S) { return W <= 2 && S <= 3; }
+
+// The <W_MAX, S_MAX> instance fluid_window_solve_launch runs for W
+// workloads and S stations.
+void fluid_window_instance(int W, int S, int* w_max, int* s_max) {
+  *w_max = small_instance(W, S) ? 2 : FS_MAX_W;
+  *s_max = small_instance(W, S) ? 3 : FS_MAX_S;
+}
+
 int fluid_window_solve_launch(const float* A, const float* y_rate, const float* o_eff,
                               const float* route, const float* route_svc,
                               const float* svc_pipe, const float* slots, const float* tor,
@@ -539,8 +550,7 @@ int fluid_window_solve_launch(const float* A, const float* y_rate, const float* 
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (C + kWarpsPerBlock - 1) / kWarpsPerBlock;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // The sweep's cells are W = 2, S = 3 (DDR, CXL, LLC).
-  if (W <= 2 && S <= 3)
+  if (small_instance(W, S))
     launch_fused<2, 3>(blocks, st, A, y_rate, o_eff, route, route_svc, svc_pipe, slots, tor,
                        irq, Wq0, y_out, Wq_out, lam_out, C, W, S, n_outer, damp);
   else

@@ -60,6 +60,8 @@ def _load() -> ctypes.CDLL:
         for name in ("fluid_warps_per_cell", "fluid_bisect_iters", "fluid_glam_levels"):
             getattr(lib, name).argtypes = []
         lib.fluid_station_levels.argtypes = [ctypes.c_int]
+        lib.fluid_window_instance.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        lib.fluid_window_instance.restype = None
         lib.fluid_error_string.argtypes = [ctypes.c_int]
         lib.fluid_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -77,6 +79,15 @@ def round_scheme(S: int) -> Dict[str, object]:
     return dict(warps_per_cell=lib.fluid_warps_per_cell(), sequential_steps=steps,
                 levels_per_round=levels,
                 rounds_per_bisection={k: -(-steps // v) for k, v in levels.items()})
+
+
+def window_solve_instance(W: int, S: int) -> Tuple[int, int]:
+    """The ``fused_window_solve_kernel<W_MAX, S_MAX>`` instance that K3
+    launches for ``W`` workloads and ``S`` stations, as the CUDA source
+    dispatches it (built at first use)."""
+    w_max, s_max = ctypes.c_int(), ctypes.c_int()
+    _load().fluid_window_instance(W, S, ctypes.byref(w_max), ctypes.byref(s_max))
+    return w_max.value, s_max.value
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:

@@ -20,9 +20,15 @@ ladder keeps its state there.  The host reads the device once per fired
 window (the ladder's outputs, to build the :class:`Decision` records) and
 once at the end (the accumulators); :data:`COUNTS` counts both.
 
-Not ported yet: per-window telemetry (``record_windows``), analytic
-latency histograms, vector tiering and the merged law; the lane refuses
-jobs that need them.
+Cells that ask for ``latency_hist`` get the reference's analytic
+histograms: each window contributes one weighted entry per workload (the
+window's mean latency from the station waits the solver returned, at the
+window's completion count) and per tier.  Those means and counts are
+computed on the device with the rest of the window and copied to the host
+with the final accumulators; the host only buckets them.
+
+Not ported yet: per-window telemetry (``record_windows``), vector tiering
+and the merged law; the lane refuses jobs that need them.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from repro_torch.core.littles_law import OpClass, TierCounters, TierEstimate
 from repro_torch.device import resolve_device
 from repro_torch.memsim.batched import kernel
 from repro_torch.memsim.batched.stacking import BatchGroup
+from repro_torch.obs.histogram import LatencyHistogram
 
 _OPS = tuple(OpClass)
 _N_OUTER = 30  # wait-relaxation iterations per window
@@ -105,6 +112,8 @@ def run_fluid(
     win = group.window_ns
     n_ops = len(_OPS)
     has_ctl = np.array([bool(p.units) for p in group.plans])
+    hist_mask = np.array([p.job.latency_hist for p in group.plans])
+    hist_on = bool(hist_mask.any())
     n_slow_cell = group.n_tiers_cell - 1
     U = max(1, T - 1)
     if ladder is None:
@@ -167,6 +176,9 @@ def run_fluid(
     tor_peak = torch.zeros(C, **f64)
     decisions: List[list] = [[] for _ in range(C)]
     bytes_wins: List[torch.Tensor] = []  # per window, for the timelines
+    # Per window, for the histograms: (C, W) mean latency and count, (C, T)
+    # the same per tier.
+    hist_wins: List[List[torch.Tensor]] = [[], [], [], []]
 
     for k in range(n_seg):
         active = active_all[k]
@@ -218,7 +230,14 @@ def run_fluid(
         bytes_w += bytes_win
         bytes_wins.append(bytes_win)
         completed_w += ins_w
-        latsum_w += ins_w * (R_tor + w_irq[:, None])
+        lat_mean = R_tor + w_irq[:, None]  # (C, W) analytic mean latency
+        latsum_w += ins_w * lat_mean
+        if hist_on:
+            lat_dev = r_sta[:, :, :T] + w_irq[:, None, None]
+            cnt_t = ins_dev.sum(dim=1)
+            mean_t = (ins_dev * lat_dev).sum(dim=1) / cnt_t.clamp(min=1e-300)
+            for acc, x in zip(hist_wins, (lat_mean, ins_w, mean_t, cnt_t)):
+                acc.append(x)
         tor_inserts += ins_w.sum(dim=1)
         pop = torch.minimum((y * R_tor).sum(dim=1), tor_cap)
         tor_occ += pop * dt
@@ -272,10 +291,12 @@ def run_fluid(
     n_run = len(bytes_wins)
     timeline = (torch.stack(bytes_wins) if n_run
                 else torch.zeros((0, C, W), **f64))
+    hists = [torch.stack(h) if h else torch.zeros((0, C, W if i < 2 else T), **f64)
+             for i, h in enumerate(hist_wins)]
     (bytes_w, completed_w, latsum_w, ins_t, occ_t, cls_t, occ_int_t, tor_inserts,
-     tor_occ, tor_peak, timeline) = _to_host(
+     tor_occ, tor_peak, timeline, *hists) = _to_host(
         bytes_w, completed_w, latsum_w, ins_t, occ_t, cls_t, occ_int_t,
-        tor_inserts, tor_occ, tor_peak, timeline)
+        tor_inserts, tor_occ, tor_peak, timeline, *hists)
     results: List[SimResult] = []
     for ci, plan in enumerate(group.plans):
         e = plan.export
@@ -293,6 +314,8 @@ def run_fluid(
             # degenerate to the mean.
             st.latency_samples = [mean] if st.completed else []
             st.timeline = [((k + 1) * win, float(timeline[k, ci, wi])) for k in fired]
+            if hist_mask[ci]:
+                st.latency_hist = _window_hist(hists[0][:, ci, wi], hists[1][:, ci, wi])
             stats[name] = st
         tcs = {}
         for t in range(e["n_tiers"]):
@@ -314,5 +337,17 @@ def run_fluid(
             per_tier_occupancy_integral={
                 names[t]: float(occ_int_t[ci, t]) for t in range(e["n_tiers"])
             },
+            tier_latency_hist=(
+                {names[t]: _window_hist(hists[2][:, ci, t], hists[3][:, ci, t])
+                 for t in range(e["n_tiers"])} if hist_mask[ci] else None),
         ))
     return results
+
+
+def _window_hist(means: np.ndarray, counts: np.ndarray) -> LatencyHistogram:
+    """One weighted entry per window with completions, in window order."""
+    h = LatencyHistogram()
+    for v, n in zip(means.tolist(), counts.tolist()):
+        if n > 0.0:
+            h.record_weighted(v, n)
+    return h

@@ -22,6 +22,8 @@ class SimJob:
     platform: PlatformModel
     workloads: List[WorkloadSpec]
     sim_ns: float
+    #: The scalar DES's seed; the batched lane is deterministic and reads none.
+    seed: int = 0
     granularity: int = 4
     window_ns: float = 10_000.0
     #: Build a platform-calibrated MIKU controller for the cell.

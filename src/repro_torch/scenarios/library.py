@@ -1,91 +1,399 @@
-"""Grid scenarios of the port: the co-run sweeps of the batched lane.
+"""The port's scenario registry: the paper's figures it can run.
 
-A copy of ``corun_sweep`` and ``corun_sweep_1k``
-(``repro/scenarios/library.py:1009-1081``) with the reference planner's
-axis expansion (grid axes in declaration order, row-major), so that the
-port's rows line up with ``repro.scenarios.run_scenario(...,
-lane="batched")``'s.  The port keeps its own registry (:data:`SCENARIOS`)
-and registers nothing into the reference's.
+Copies of the reference's scenarios (``repro/scenarios/library.py``), in
+its declaration order: the grid figures fig3-fig10 and ``loaded_latency``
+(their single-workload cells take the exact lane, the rest the fluid
+engine), the §6 case study ``fig11_llm`` (a ``run_cell`` scenario on the
+port's serving engines) and the co-run sweeps.  The port keeps its own
+registry (:data:`SCENARIOS`) and registers nothing into the reference's;
+:data:`UNPORTED` names the reference's other scenarios and what each waits
+for.
 """
 
 from __future__ import annotations
 
-import dataclasses
-import itertools
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List
 
-from repro_torch.core.device_model import PLATFORMS, PlatformModel
+from repro_torch.core.des import WorkloadSpec
+from repro_torch.core.device_model import PlatformModel
 from repro_torch.core.littles_law import OpClass
-from repro_torch.device import resolve_device
-from repro_torch.memsim.sweep import SimJob, run_sweep
-from repro_torch.memsim.workloads import bw_test
+from repro_torch.memsim.sweep import SimJob
+from repro_torch.memsim.workloads import alternating_bw_pair, bw_test, lat_share, lat_test
+from repro_torch.scenarios.spec import Axis, Scenario
 
-_DEMAND_CLASSES = (OpClass.LOAD, OpClass.STORE, OpClass.NT_STORE)
+_BW_SIM_NS = 120_000.0
+_CORUN_SIM_NS = 300_000.0
 
-
-def _parse_bool(text: str) -> bool:
-    t = text.strip().lower()
-    if t in ("1", "true", "yes", "on"):
-        return True
-    if t in ("0", "false", "no", "off"):
-        return False
-    raise ValueError(f"not a boolean: {text!r}")
+_OPS = (OpClass.LOAD, OpClass.STORE, OpClass.NT_STORE)  # never MIGRATE
+_TWO_TIERS = ("ddr", "cxl")
 
 
-@dataclasses.dataclass(frozen=True)
-class Axis:
-    """One scenario parameter: a tuple default is a grid axis (the cells
-    are the cartesian product of the grid axes), a scalar default a knob
-    every cell shares."""
-
-    name: str
-    default: Any
-    help: str = ""
-
-    @property
-    def is_grid(self) -> bool:
-        return isinstance(self.default, (tuple, list))
-
-    def parse_text(self, text: str) -> Any:
-        """Parse one ``--set`` token (comma lists become grids)."""
-        sample = self.default[0] if self.is_grid else self.default
-        # bool before int (a bool is an int); an enum parses by its value.
-        fn: Callable[[str], Any] = (_parse_bool if isinstance(sample, bool)
-                                    else type(sample))
-        if self.is_grid:
-            return tuple(fn(p.strip()) for p in text.split(","))
-        if "," in text:
-            raise ValueError(f"axis {self.name!r} is a scalar knob, got list {text!r}")
-        return fn(text.strip())
-
-
-@dataclasses.dataclass(frozen=True)
-class Scenario:
-    """A named grid experiment: ``build(platform, cell)`` gives a cell's
-    jobs, ``reduce(platform, cell, jobs, results)`` its rows."""
-
-    name: str
-    title: str
-    axes: Tuple[Axis, ...]
-    build: Callable[..., List[SimJob]]
-    reduce: Callable[..., List[Dict[str, Any]]]
-
-    def axis(self, name: str) -> Axis:
-        for a in self.axes:
-            if a.name == name:
-                return a
-        raise KeyError(f"scenario {self.name!r} has no axis {name!r}; axes: "
-                       f"{', '.join(a.name for a in self.axes)}")
+def _job(
+    platform: PlatformModel,
+    workloads: List[WorkloadSpec],
+    sim_ns: float,
+    *,
+    miku: bool = False,
+    seed: int = 0,
+    granularity: int = 4,
+    window_ns: float = 10_000.0,
+    miku_law: str = "pertier",
+    tiering=None,
+    latency_hist: bool = False,
+    record_windows: bool = False,
+) -> SimJob:
+    if tiering is not None:
+        raise NotImplementedError("tiering jobs need the vector tiering twin, "
+                                  "which is not ported yet")
+    return SimJob(
+        platform=platform,
+        workloads=workloads,
+        sim_ns=sim_ns,
+        seed=seed,
+        granularity=granularity,
+        window_ns=window_ns,
+        miku=miku,
+        miku_law=miku_law,
+        latency_hist=latency_hist,
+        record_windows=record_windows,
+    )
 
 
-def _corun_sweep_build(platform: PlatformModel, cell) -> List[SimJob]:
+def _platform_axis(default="A") -> Axis:
+    return Axis("platform", default, "platform name (core.device_model.PLATFORMS)")
+
+
+def _op_axis(default=_OPS) -> Axis:
+    return Axis("op", default, "memory instruction class")
+
+
+# -- Fig. 3: single-threaded and peak bandwidth per tier ----------------------
+
+
+def _fig3_build(platform, cell) -> List[SimJob]:
+    wl = bw_test(cell["tier"], cell["op"], cell["threads"])
+    return [_job(platform, [wl], _BW_SIM_NS)]
+
+
+def _fig3_reduce(platform, cell, jobs, results) -> List[dict]:
+    (job,), (res,) = jobs, results
+    return [{
+        "platform": cell["platform"],
+        "op": cell["op"].value,
+        "tier": cell["tier"],
+        "threads": cell["threads"],
+        "bandwidth_gbps": res.bandwidth(job.workloads[0].name),
+        "peak_model_gbps":
+            platform.device_for(cell["tier"]).peak_bandwidth_gbps(cell["op"]),
+    }]
+
+
+# -- Fig. 4 and loaded latency: average and tail latency ----------------------
+
+
+def _latency_row(st) -> dict:
+    """avg, p50 and p99 from the sample; p95 from the histogram (within
+    its 1/16 bucket width)."""
+    hist = st.latency_hist
+    return {
+        "avg_ns": st.mean_latency_ns(),
+        "p50_ns": st.percentile_ns(0.50),
+        "p95_ns": hist.percentile(0.95) if hist is not None else 0.0,
+        "p99_ns": st.percentile_ns(0.99),
+    }
+
+
+def _fig4_build(platform, cell) -> List[SimJob]:
+    wl = lat_test(cell["tier"], OpClass.LOAD, cell["threads"])
+    return [_job(platform, [wl], 400_000.0, granularity=1, latency_hist=True)]
+
+
+def _fig4_reduce(platform, cell, jobs, results) -> List[dict]:
+    (job,), (res,) = jobs, results
+    return [{
+        "platform": cell["platform"],
+        "tier": cell["tier"],
+        "threads": cell["threads"],
+        **_latency_row(res.stats[job.workloads[0].name]),
+    }]
+
+
+def _loaded_lat_build(platform, cell) -> List[SimJob]:
+    wls = [lat_test(cell["tier"], OpClass.LOAD, 1, name="probe")]
+    n = cell["load_threads"]
+    if n > 0:
+        wls.append(bw_test(cell["tier"], cell["op"], n, name="load", miku_managed=False))
+    return [_job(platform, wls, 400_000.0, granularity=1, latency_hist=True)]
+
+
+def _loaded_lat_reduce(platform, cell, jobs, results) -> List[dict]:
+    (res,) = results
+    return [{
+        "platform": cell["platform"],
+        "tier": cell["tier"],
+        "load_threads": cell["load_threads"],
+        "load_gbps": res.bandwidth("load") if cell["load_threads"] > 0 else 0.0,
+        **_latency_row(res.stats["probe"]),
+    }]
+
+
+# -- Fig. 5 + 6: co-run collapse and ToR accounting ---------------------------
+
+
+def _fig5_build(platform, cell) -> List[SimJob]:
+    op, n = cell["op"], cell["n_threads"]
+    a = bw_test("ddr", op, n, name="ddr", miku_managed=False)
+    c = bw_test("cxl", op, n, name="cxl")
+    return [
+        _job(platform, [a], _BW_SIM_NS),
+        _job(platform, [c], _BW_SIM_NS),
+        _job(platform, [a, c], _CORUN_SIM_NS),
+    ]
+
+
+def _fig5_reduce(platform, cell, jobs, results) -> List[dict]:
+    alone, cxl_alone, both = results
+    ddr_alone_bw = alone.bandwidth("ddr")
+    return [{
+        "platform": cell["platform"],
+        "op": cell["op"].value,
+        "ddr_alone_gbps": ddr_alone_bw,
+        "cxl_alone_gbps": cxl_alone.bandwidth("cxl"),
+        "ddr_corun_gbps": both.bandwidth("ddr"),
+        "cxl_corun_gbps": both.bandwidth("cxl"),
+        "ddr_loss_pct": 100.0 * (1 - both.bandwidth("ddr") / ddr_alone_bw),
+        # Fig. 6 quantities:
+        "tor_insert_rate_alone_per_ns": alone.tor_inserts / alone.sim_ns,
+        "tor_insert_rate_corun_per_ns": both.tor_inserts / both.sim_ns,
+        "tor_avg_latency_alone_ns": alone.tor_avg_latency_ns,
+        "tor_avg_latency_corun_ns": both.tor_avg_latency_ns,
+        "t_ddr_corun_ns": both.tier_counters["ddr"].mean_service_time,
+        "t_cxl_corun_ns": both.tier_counters["cxl"].mean_service_time,
+    }]
+
+
+def _fig6_build(platform, cell) -> List[SimJob]:
+    jobs = []
+    for op in _OPS:
+        for scenario in ("ddr", "cxl", "both"):
+            wls: List[WorkloadSpec] = []
+            if scenario in ("ddr", "both"):
+                wls.append(bw_test("ddr", op, 16, name="ddr", miku_managed=False))
+            if scenario in ("cxl", "both"):
+                wls.append(bw_test("cxl", op, 16, name="cxl"))
+            jobs.append(_job(platform, wls, _BW_SIM_NS))
+    return jobs
+
+
+def _fig6_reduce(platform, cell, jobs, results) -> List[dict]:
+    xs, ys = [], []
+    for job, res in zip(jobs, results):
+        xs.append(res.tor_inserts / res.sim_ns)
+        ys.append(sum(res.bandwidth(w.name) for w in job.workloads))
+    n = len(xs)
+    mx, my = sum(xs) / n, sum(ys) / n
+    cov = sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+    vx = sum((x - mx) ** 2 for x in xs) ** 0.5
+    vy = sum((y - my) ** 2 for y in ys) ** 0.5
+    return [{"platform": cell["platform"], "pearson_r": cov / max(vx * vy, 1e-12)}]
+
+
+# -- Fig. 7: LLC partitioning (Intel CAT analogue) ----------------------------
+
+
+def _fig7_build(platform, cell) -> List[SimJob]:
+    cap = platform.llc_capacity_mb
+    alloc, wss_mb = cell["ddr_share"], cell["wss_mb"]
+    a = bw_test("ddr", OpClass.STORE, 16, name="ddr", wss_mb=wss_mb,
+                llc_alloc_mb=alloc * cap, miku_managed=False)
+    b = bw_test("cxl", OpClass.STORE, 16, name="cxl", wss_mb=wss_mb,
+                llc_alloc_mb=(1.0 - alloc) * cap, miku_managed=False)
+    return [_job(platform, [a, b], _CORUN_SIM_NS)]
+
+
+def _fig7_reduce(platform, cell, jobs, results) -> List[dict]:
+    (res,) = results
+    return [{
+        "platform": cell["platform"],
+        "wss_mb": cell["wss_mb"],
+        "ddr_llc_share": cell["ddr_share"],
+        "ddr_gbps": res.bandwidth("ddr"),
+        "cxl_gbps": res.bandwidth("cxl"),
+        "total_gbps": res.bandwidth("ddr") + res.bandwidth("cxl"),
+    }]
+
+
+# -- Fig. 8: inter-core synchronization ---------------------------------------
+
+
+def _fig8_build(platform, cell) -> List[SimJob]:
+    wls = [lat_share()]
+    if cell["bg_threads"] > 0:
+        wls.append(bw_test(cell["bg_tier"], OpClass.LOAD, cell["bg_threads"],
+                           name="bg", miku_managed=False))
+    return [_job(platform, wls, 200_000.0, granularity=1)]
+
+
+def _fig8_reduce(platform, cell, jobs, results) -> List[dict]:
+    (res,) = results
+    return [{
+        "platform": cell["platform"],
+        "bg_tier": cell["bg_tier"],
+        "bg_threads": cell["bg_threads"],
+        "cas_latency_ns": res.stats["lat-share"].mean_latency_ns(),
+    }]
+
+
+# -- Fig. 9: service time vs concurrency --------------------------------------
+
+_fig9_build = _fig3_build  # the same single bw-test job
+
+
+def _fig9_reduce(platform, cell, jobs, results) -> List[dict]:
+    (job,), (res,) = jobs, results
+    return [{
+        "platform": cell["platform"],
+        "tier": cell["tier"],
+        "threads": cell["threads"],
+        "service_time_ns": res.tier_counters[cell["tier"]].mean_service_time,
+        "bandwidth_gbps": res.bandwidth(job.workloads[0].name),
+    }]
+
+
+# -- Fig. 10: MIKU vs DataRacing vs Opt ---------------------------------------
+
+
+def _fig10_build(platform, cell) -> List[SimJob]:
+    op, n = cell["op"], cell["n_threads"]
+    period_ns, cycles = cell["period_ns"], cell["cycles"]
+    sim_ns = 2 * cycles * period_ns
+    alt = alternating_bw_pair(op, n, period_ns)
+    return [
+        _job(platform, [bw_test("ddr", op, n, name="a")], _BW_SIM_NS),
+        _job(platform, [bw_test("cxl", op, n, name="a")], _BW_SIM_NS),
+        _job(platform, alt, sim_ns, window_ns=5_000.0),
+        _job(platform, alt, sim_ns, window_ns=5_000.0, miku=True),
+        _job(platform, alt, sim_ns, window_ns=5_000.0, miku=True),
+    ]
+
+
+def _fig10_reduce(platform, cell, jobs, results) -> List[dict]:
+    opt_a, opt_c, racing, miku, mba = results
+
+    def tier_split(res):
+        # Bandwidth by the tier actually served, from the per-tier counters.
+        g = 4  # granularity
+        ddr_bytes = res.tier_counters["ddr"].inserts * platform.ddr.access_bytes * g
+        cxl_bytes = res.tier_counters["cxl"].inserts * platform.cxl.access_bytes * g
+        return ddr_bytes / res.sim_ns, cxl_bytes / res.sim_ns
+
+    racing_ddr, racing_cxl = tier_split(racing)
+    miku_ddr, miku_cxl = tier_split(miku)
+    mba_ddr, mba_cxl = tier_split(mba)
+    return [{
+        "platform": cell["platform"],
+        "op": cell["op"].value,
+        "opt_ddr": opt_a.bandwidth("a"),
+        "opt_cxl": opt_c.bandwidth("a"),
+        "racing_ddr": racing_ddr,
+        "racing_cxl": racing_cxl,
+        "miku_ddr": miku_ddr,
+        "miku_cxl": miku_cxl,
+        "miku_mba_ddr": mba_ddr,
+        "miku_mba_cxl": mba_cxl,
+    }]
+
+
+# -- Fig. 11/12: co-located LLM serving (real decode steps) -------------------
+
+
+def _fig11_run_cell(platform, cell, device) -> List[dict]:
+    """An HBM-resident and a host-resident instance of the smoke config,
+    each alone (opt), racing, and under MIKU.  The rows are the simulated
+    queue clock's (the reference's tier constants), so they depend on byte
+    counts, not on the tokens."""
+    del platform
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.controller import MikuConfig, MikuController
+    from repro_torch.core.littles_law import EstimatorConfig
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving.engine import (
+        EngineConfig,
+        Request,
+        ServingEngine,
+        TieredServingCluster,
+    )
+
+    n_fast, n_slow = cell["n_req_fast"], cell["n_req_slow"]
+    new_tokens, chunks = cell["new_tokens"], cell["chunks"]
+
+    cfg = get_arch(cell["arch"]).smoke
+    params = TransformerLM(cfg).init(torch.Generator(device=device).manual_seed(0), device)
+
+    def mk(name, placement, n_req):
+        e = ServingEngine(
+            EngineConfig(name=name, model=cfg, max_slots=4, max_len=96,
+                         placement=placement, stream_chunks=chunks),
+            params,
+        )
+        for i in range(n_req):
+            e.submit(Request(rid=i, prompt=list(range(1, 9)), max_new_tokens=new_tokens))
+        return e
+
+    probe = mk("probe", "host", 0)
+    chunk_service = probe.param_bytes / chunks / 16.0  # host link B/ns
+    est = EstimatorConfig(
+        t_fast=1.2e3,
+        slow_read_threshold=8 * chunk_service,
+        ewma=0.5,
+        min_window_inserts=4,
+        min_slow_inserts=1,
+    )
+
+    a = TieredServingCluster([mk("hbm", "device", n_fast)]).run(20000)
+    b = TieredServingCluster([mk("host", "host", n_slow)]).run(20000)
+    opt = (a["hbm"]["tokens_per_s"], b["host"]["tokens_per_s"])
+
+    racing = TieredServingCluster(
+        [mk("hbm", "device", n_fast), mk("host", "host", n_slow)]).run(40000)
+
+    ctl = MikuController(MikuConfig(levels=(1, 2, 4, 8)), est)
+    miku = TieredServingCluster(
+        [mk("hbm", "device", n_fast), mk("host", "host", n_slow)],
+        controller=ctl, window_ns=3e4,
+    ).run(40000)
+    restricted = sum(1 for d in ctl.decisions if d.restricted)
+
+    def row(variant, fast_tps, slow_tps, **extra):
+        return {
+            "variant": variant,
+            "hbm_tokens_per_s": fast_tps,
+            "host_tokens_per_s": slow_tps,
+            "hbm_pct_of_opt": 100.0 * fast_tps / max(opt[0], 1e-9),
+            "host_pct_of_opt": 100.0 * slow_tps / max(opt[1], 1e-9),
+            **extra,
+        }
+
+    return [
+        row("opt", *opt),
+        row("racing", racing["hbm"]["tokens_per_s"], racing["host"]["tokens_per_s"]),
+        row("miku", miku["hbm"]["tokens_per_s"], miku["host"]["tokens_per_s"],
+            restricted_windows=restricted, windows=len(ctl.decisions)),
+    ]
+
+
+# -- Sweep-scale co-run grids (the batched lane at scale) ---------------------
+
+
+def _corun_sweep_build(platform, cell) -> List[SimJob]:
     op, n = cell["op"], cell["threads"]
     wls = [
         bw_test("ddr", op, n, name="ddr", mlp=cell["mlp"], miku_managed=False),
         bw_test("cxl", op, n, name="cxl", mlp=cell["mlp"]),
     ]
-    return [SimJob(platform=platform, workloads=wls, sim_ns=cell["sim_ns"],
-                   miku=cell["miku"])]
+    return [_job(platform, wls, cell["sim_ns"], miku=cell["miku"])]
 
 
 def _corun_sweep_reduce(platform, cell, jobs, results) -> List[dict]:
@@ -102,106 +410,169 @@ def _corun_sweep_reduce(platform, cell, jobs, results) -> List[dict]:
     }]
 
 
-SCENARIOS: Dict[str, Scenario] = {
-    s.name: s for s in (
-        Scenario(
-            name="corun_sweep",
-            title="Sweep-scale co-run grid (96 cells): threads x op x MIKU x platform",
-            axes=(
-                Axis("platform", ("A", "B"), "platform name"),
-                Axis("op", _DEMAND_CLASSES, "memory instruction class"),
-                Axis("threads", (2, 4, 8, 16), "threads per co-running group"),
-                Axis("miku", (False, True), "enable the MIKU controller"),
-                Axis("mlp", (96, 160), "outstanding cachelines per core"),
-                Axis("sim_ns", 300_000.0, "co-run simulated horizon"),
-            ),
-            build=_corun_sweep_build,
-            reduce=_corun_sweep_reduce,
+SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
+    Scenario(
+        name="fig3_bandwidth",
+        title="DDR vs CXL single/multi-thread bandwidth",
+        axes=(
+            _platform_axis(("A", "A-1to1", "B", "B-1to1")),
+            _op_axis(),
+            Axis("threads", (1, 16), "bw-test thread count"),
+            Axis("tier", _TWO_TIERS, "tier under test"),
         ),
-        Scenario(
-            name="corun_sweep_1k",
-            title="Kilo-cell co-run grid (1024 cells): the batched lane at scale",
-            axes=(
-                Axis("platform", ("A", "B"), "platform name"),
-                Axis("op", (OpClass.LOAD, OpClass.STORE), "memory instruction class"),
-                Axis("threads", (1, 2, 3, 4, 6, 8, 12, 16),
-                     "threads per co-running group"),
-                Axis("miku", (False, True), "enable the MIKU controller"),
-                Axis("mlp", (32, 40, 48, 56, 64, 80, 96, 112,
-                             128, 144, 160, 176, 192, 208, 224, 256),
-                     "outstanding cachelines per core"),
-                Axis("sim_ns", 100_000.0, "co-run simulated horizon"),
-            ),
-            build=_corun_sweep_build,
-            reduce=_corun_sweep_reduce,
+        build=_fig3_build,
+        reduce=_fig3_reduce,
+    ),
+    Scenario(
+        name="fig4_latency",
+        title="Average and tail (p99) loaded latency per tier",
+        axes=(
+            _platform_axis(),
+            Axis("tier", _TWO_TIERS, "tier under test"),
+            Axis("threads", (1, 2, 4, 8, 16), "lat-test thread count"),
         ),
-    )
+        build=_fig4_build,
+        reduce=_fig4_reduce,
+    ),
+    Scenario(
+        name="loaded_latency",
+        title="Latency-under-load curve: probe latency vs bandwidth load",
+        axes=(
+            _platform_axis(),
+            Axis("tier", _TWO_TIERS, "tier under test"),
+            Axis("load_threads", (0, 2, 4, 8, 16),
+                 "bw-test threads loading the same tier (0 = unloaded)"),
+            _op_axis(OpClass.LOAD),
+        ),
+        build=_loaded_lat_build,
+        reduce=_loaded_lat_reduce,
+    ),
+    Scenario(
+        name="fig5_corun",
+        title="Co-run bandwidth collapse and ToR accounting",
+        axes=(
+            _platform_axis(("A", "B")),
+            _op_axis(),
+            Axis("n_threads", 16, "threads per co-running group"),
+        ),
+        build=_fig5_build,
+        reduce=_fig5_reduce,
+    ),
+    Scenario(
+        name="fig6_tor_correlation",
+        title="ToR insertion rate vs delivered bandwidth (Pearson r)",
+        axes=(_platform_axis(),),
+        build=_fig6_build,
+        reduce=_fig6_reduce,
+    ),
+    Scenario(
+        name="fig7_llc",
+        title="LLC partition (CAT) sweep under tiered co-run",
+        axes=(
+            _platform_axis(),
+            Axis("wss_mb", (60.0, 120.0), "per-workload working-set size"),
+            Axis("ddr_share", (0.95, 0.75, 0.5, 0.25, 0.05),
+                 "DDR workload's LLC allocation fraction"),
+        ),
+        build=_fig7_build,
+        reduce=_fig7_reduce,
+    ),
+    Scenario(
+        name="fig8_sync",
+        title="Cross-core CAS latency under tier background traffic",
+        axes=(
+            _platform_axis(),
+            Axis("bg_tier", _TWO_TIERS, "background bw-test tier"),
+            Axis("bg_threads", (0, 4, 8, 16), "background thread count"),
+        ),
+        build=_fig8_build,
+        reduce=_fig8_reduce,
+    ),
+    Scenario(
+        name="fig9_service",
+        title="Memory service time vs thread count (MIKU's signal)",
+        axes=(
+            _platform_axis(),
+            _op_axis(OpClass.LOAD),
+            Axis("tier", _TWO_TIERS, "tier under test"),
+            Axis("threads", (1, 2, 4, 8, 16, 32), "bw-test thread count"),
+        ),
+        build=_fig9_build,
+        reduce=_fig9_reduce,
+    ),
+    Scenario(
+        name="fig10_miku",
+        title="MIKU vs DataRacing vs Opt on alternating micro-benchmarks",
+        axes=(
+            _platform_axis(),
+            _op_axis(),
+            Axis("n_threads", 16, "threads per alternating group"),
+            Axis("period_ns", 100_000.0, "tier-alternation period"),
+            Axis("cycles", 3, "alternation cycles simulated"),
+        ),
+        build=_fig10_build,
+        reduce=_fig10_reduce,
+    ),
+    Scenario(
+        name="fig11_llm",
+        title="Co-located LLM serving: HBM vs host tier, racing vs MIKU",
+        axes=(
+            Axis("arch", "llama31-8b", "model architecture (smoke config)"),
+            Axis("n_req_fast", 48), Axis("n_req_slow", 16),
+            Axis("new_tokens", 24), Axis("chunks", 64),
+        ),
+        run_cell=_fig11_run_cell,
+        slow=True,
+    ),
+    Scenario(
+        name="corun_sweep",
+        title="Sweep-scale co-run grid (96 cells): threads x op x MIKU x platform",
+        axes=(
+            _platform_axis(("A", "B")),
+            _op_axis(),
+            Axis("threads", (2, 4, 8, 16), "threads per co-running group"),
+            Axis("miku", (False, True), "enable the MIKU controller"),
+            Axis("mlp", (96, 160), "outstanding cachelines per core"),
+            Axis("sim_ns", 300_000.0, "co-run simulated horizon"),
+        ),
+        build=_corun_sweep_build,
+        reduce=_corun_sweep_reduce,
+        slow=True,
+    ),
+    Scenario(
+        name="corun_sweep_1k",
+        title="Kilo-cell co-run grid (1024 cells): the batched lane at scale",
+        axes=(
+            _platform_axis(("A", "B")),
+            _op_axis((OpClass.LOAD, OpClass.STORE)),
+            Axis("threads", (1, 2, 3, 4, 6, 8, 12, 16), "threads per co-running group"),
+            Axis("miku", (False, True), "enable the MIKU controller"),
+            Axis("mlp", (32, 40, 48, 56, 64, 80, 96, 112,
+                         128, 144, 160, 176, 192, 208, 224, 256),
+                 "outstanding cachelines per core"),
+            Axis("sim_ns", 100_000.0, "co-run simulated horizon"),
+        ),
+        build=_corun_sweep_build,
+        reduce=_corun_sweep_reduce,
+        slow=True,
+    ),
+)}
+
+#: The reference's other scenarios, each with what it waits for (ROADMAP
+#: queue A, item 5).
+_SCALAR = "the scalar DES lane"
+UNPORTED: Dict[str, str] = {
+    "fig2_tiering": f"a run_cell scenario pinned to {_SCALAR}",
+    "fig13_spark": "queued behind this slice's figures",
+    "fig14_kv": "queued behind this slice's figures",
+    "corun3_switch": "the A-switch platform",
+    "corun3_pertier": "the A-switch platform and the merged law",
+    "migrate_interference": "vector tiering",
+    "tiering_policies": "vector tiering",
+    "numa_remote": "the A-numa platform",
+    "fabric_spine_congestion": "the fabric law",
+    "fabric_port_overflow": "the fabric law",
+    "fabric_miku": "the fabric law",
+    "slo_knee": "open-loop arrivals",
+    "flash_crowd": "open-loop arrivals",
 }
-
-
-def _scenario(name: str) -> Scenario:
-    try:
-        return SCENARIOS[name]
-    except KeyError:
-        raise KeyError(f"unknown scenario {name!r}; the port has "
-                       f"{', '.join(SCENARIOS)}") from None
-
-
-def plan(
-    name: str, overrides: Optional[Dict[str, Any]] = None
-) -> List[Tuple[Dict[str, Any], PlatformModel, List[SimJob]]]:
-    """Expand a scenario into (cell, platform, jobs) without running.
-    Overrides replace axis defaults (a scalar on a grid axis becomes a
-    one-point grid; strings are parsed as ``--set`` tokens)."""
-    sc = _scenario(name)
-    values = {a.name: a.default for a in sc.axes}
-    for k, v in (overrides or {}).items():
-        axis = sc.axis(k)
-        if isinstance(v, str):
-            v = axis.parse_text(v)
-        if axis.is_grid:
-            v = tuple(v) if isinstance(v, (tuple, list)) else (v,)
-        values[k] = v
-    grid = [a for a in sc.axes if a.is_grid]
-    scalars = {a.name: values[a.name] for a in sc.axes if not a.is_grid}
-    out = []
-    for combo in itertools.product(*[values[a.name] for a in grid]):
-        cell = dict(scalars)
-        cell.update({a.name: v for a, v in zip(grid, combo)})
-        label = cell["platform"]
-        if label not in PLATFORMS:
-            raise KeyError(f"unknown platform {label!r}; known platforms: "
-                           f"{', '.join(PLATFORMS)}")
-        pm = PLATFORMS[label]
-        out.append((cell, pm, sc.build(pm, cell)))
-    return out
-
-
-def run_scenario(
-    name: str, overrides: Optional[Dict[str, Any]] = None, device=None
-) -> List[Dict[str, Any]]:
-    """Run a scenario on the batched lane on ``device`` (the card unless
-    ``"cpu"``) and return its reduced rows, in cell order."""
-    sc = _scenario(name)
-    dev = resolve_device(device)
-    planned = plan(name, overrides)
-    jobs = [j for _, _, js in planned for j in js]
-    results = run_sweep(jobs, lane="batched", device=dev)
-    rows: List[Dict[str, Any]] = []
-    i = 0
-    for cell, pm, cell_jobs in planned:
-        rows.extend(sc.reduce(pm, cell, cell_jobs, results[i:i + len(cell_jobs)]))
-        i += len(cell_jobs)
-    return rows
-
-
-def parse_set_args(name: str, pairs: Sequence[str]) -> Dict[str, Any]:
-    """``axis=value`` tokens → an overrides dict (parsed per axis)."""
-    sc = _scenario(name)
-    overrides: Dict[str, Any] = {}
-    for pair in pairs:
-        if "=" not in pair:
-            raise ValueError(f"--set expects axis=value, got {pair!r}")
-        k, v = pair.split("=", 1)
-        overrides[k.strip()] = sc.axis(k.strip()).parse_text(v)
-    return overrides

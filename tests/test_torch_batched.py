@@ -501,25 +501,65 @@ def test_run_scenario_rows_match_reference(monkeypatch):
 # -- what the port refuses, and the CUDA wrappers' checks -----------------------
 
 
-def test_lane_refuses_what_is_not_ported():
+def test_lane_refuses_what_is_still_not_ported():
+    """The merged law, per-window telemetry and the scalar lane are not
+    ported: the lane names them instead of falling back."""
     p = platform_a()
     two = [bw_test("ddr", OpClass.LOAD, 4, name="ddr", miku_managed=False),
            bw_test("cxl", OpClass.LOAD, 4, name="cxl")]
     single = SimJob(platform=p, workloads=[bw_test("ddr", OpClass.LOAD, 16)],
                     sim_ns=20_000.0)
-    _, refused = partition_jobs([single])
-    assert refused and "exact" in refused[0][1]
-    for job in (single,
-                SimJob(platform=p, workloads=two, sim_ns=20_000.0, miku=True,
-                       miku_law="merged"),
-                SimJob(platform=p, workloads=two, sim_ns=20_000.0, record_windows=True),
-                SimJob(platform=p, workloads=two, sim_ns=20_000.0, latency_hist=True)):
+    merged = SimJob(platform=p, workloads=two, sim_ns=20_000.0, miku=True,
+                    miku_law="merged")
+    windows = SimJob(platform=p, workloads=two, sim_ns=20_000.0, record_windows=True)
+    _, refused = partition_jobs([single, merged, windows])
+    assert [i for i, _ in refused] == [1, 2]
+    assert "miku_law" in refused[0][1] and "record_windows" in refused[1][1]
+    for job in (merged, windows):
         with pytest.raises(NotImplementedError):
             run_sweep_batched([job], device="cpu")
     with pytest.raises(NotImplementedError, match="scalar DES"):
         run_sweep([single], lane="scalar", device="cpu")
     with pytest.raises(ValueError, match="miku_law"):
         SimJob(platform=p, workloads=two, sim_ns=1.0, miku_law="bogus")
+
+
+def test_lane_runs_the_exact_cell_and_latency_hist_job_it_used_to_refuse(monkeypatch):
+    """The single-workload cell (the exact lane) and the two-workload
+    latency_hist job (the fluid lane's analytic histograms) run and match
+    the reference's lane: the exact cell bit for bit, the fluid job to
+    rel 1e-6, the histograms' p95 within their 1/16 bucket width."""
+    monkeypatch.delenv("REPRO_BATCH_BACKEND", raising=False)
+    ref_p, p = ref_platform_a(), platform_a()
+    ref_jobs = [
+        RefJob(platform=ref_p, workloads=[ref_bw_test("ddr", RefOp.LOAD, 16)],
+               sim_ns=20_000.0),
+        RefJob(platform=ref_p, workloads=[
+            ref_bw_test("ddr", RefOp.LOAD, 4, name="ddr", miku_managed=False),
+            ref_bw_test("cxl", RefOp.LOAD, 4, name="cxl")], sim_ns=20_000.0,
+            latency_hist=True)]
+    jobs = [
+        SimJob(platform=p, workloads=[bw_test("ddr", OpClass.LOAD, 16)], sim_ns=20_000.0),
+        SimJob(platform=p, workloads=[
+            bw_test("ddr", OpClass.LOAD, 4, name="ddr", miku_managed=False),
+            bw_test("cxl", OpClass.LOAD, 4, name="cxl")], sim_ns=20_000.0,
+            latency_hist=True)]
+    assert partition_jobs(jobs)[1] == []
+    (r_exact, r_fluid), (exact, fluid_res) = ref_run_sweep_batched(ref_jobs), \
+        run_sweep_batched(jobs, device="cpu")
+    name = "bw-ddr-load-16t"
+    assert exact.stats[name].completed == r_exact.stats[name].completed > 0
+    assert exact.bandwidth(name) == r_exact.bandwidth(name)
+    assert exact.stats[name].timeline == r_exact.stats[name].timeline
+    assert exact.tor_inserts == r_exact.tor_inserts
+    for w in ("ddr", "cxl"):
+        assert fluid_res.bandwidth(w) == pytest.approx(r_fluid.bandwidth(w), rel=1e-6)
+        h, rh = fluid_res.stats[w].latency_hist, r_fluid.stats[w].latency_hist
+        assert h.n == pytest.approx(rh.n, rel=1e-6)
+        assert h.percentile(0.95) == pytest.approx(rh.percentile(0.95), rel=1 / 16)
+    for t in ("ddr", "cxl"):
+        assert fluid_res.tier_latency_hist[t].percentile(0.95) == pytest.approx(
+            r_fluid.tier_latency_hist[t].percentile(0.95), rel=1 / 16)
 
 
 def test_cuda_wrappers_reject_cpu_tensors_without_launching():

@@ -39,7 +39,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.launch.sweep, repro_torch.scenarios, "
             "repro_torch.memsim.batched, repro_torch.memsim.batched.fluid, "
             "repro_torch.kernels.fluid_solver, repro_torch.kernels.ssd_scan, "
-            "repro_torch.models.ssm, repro_torch.configs.mamba2_2p7b; "
+            "repro_torch.models.ssm, repro_torch.configs.mamba2_2p7b, "
+            "repro_torch.core.mva, repro_torch.memsim.batched.exact, "
+            "repro_torch.obs.histogram, repro_torch.scenarios.planner; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules, "
             "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -53,6 +55,9 @@ def test_entry_points_without_device_raise_on_cpu_only_machine():
         pytest.skip("a CUDA device is present: entry points run on it")
     from repro_torch import resolve_device
     from repro_torch.configs import get_arch
+    from repro_torch.core.device_model import platform_a
+    from repro_torch.core.littles_law import OpClass
+    from repro_torch.core.mva import analyze
     from repro_torch.launch.serve import build_cluster
     from repro_torch.memsim.batched import run_sweep_batched
     from repro_torch.models.transformer import TransformerLM
@@ -69,4 +74,8 @@ def test_entry_points_without_device_raise_on_cpu_only_machine():
         run_sweep_batched(jobs)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_scenario("corun_sweep_1k")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_scenario("fig11_llm")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        analyze(platform_a(), OpClass.LOAD, 16, 0)
     assert resolve_device("cpu").type == "cpu"

@@ -222,3 +222,37 @@ def test_split_count_fills_one_wave_and_never_splits_the_serve_cache():
     assert kernel_mod.split_count(4096, 2 * 8, resident) == 2
     assert kernel_mod.split_count(2048, 8, resident) == 1
     assert kernel_mod.split_count(32768, 1000, resident) == 1
+
+
+# -- head_dim 32: the smoke configs' (fig11, the serve CLI's default) ----------
+
+#: (case, (b, hq, hkv, dh, s), lengths, kwargs): the smoke serve shape (4
+#: slots, 4 q / 2 kv heads, max_len 96), then a longer cache with a window
+#: that starts off a tile boundary, a softcap, and both.
+DH32_CASES = [
+    ("smoke_serve", (4, 4, 2, 32, 96), [9, 96, 1, 40], {}),
+    ("window", (2, 8, 2, 32, 512), [512, 300], dict(window=100)),
+    ("softcap", (2, 8, 4, 32, 256), [256, 85], dict(softcap=30.0)),
+    ("window_softcap", (2, 8, 2, 32, 512), [512, 77], dict(window=64, softcap=50.0)),
+]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("case,shape,lengths,kw", DH32_CASES, ids=[c[0] for c in DH32_CASES])
+def test_split_plain_version_at_head_dim_32_matches_reference(dtype, n_split, case, shape,
+                                                              lengths, kw):
+    """The plain version of the kernel's split road at Dh 32, in the dtype's
+    road (bf16 rounds P as the value product's operand), against the
+    reference's oracle at tests/test_kernels.py's bounds."""
+    np_dt, _, t_dt, tol = DTYPES[dtype]
+    b, hq, hkv, dh, s = shape
+    q, k, v, lens = _inputs(7, b, hq, hkv, dh, s, np_dt, lengths=lengths)
+    out = decode_attention_split_ref(
+        _torch(q, t_dt).reshape(b, hkv, hq // hkv, dh), _torch(k, t_dt).transpose(1, 2),
+        _torch(v, t_dt).transpose(1, 2), torch.from_numpy(lens), n_split,
+        p_dtype=torch.bfloat16 if dtype == "bf16" else None, **kw)
+    want = _jax_oracle(q, k, v, lens, **kw)
+    np.testing.assert_allclose(out.float().reshape(b, hq, dh).numpy(), want,
+                               atol=tol, rtol=tol)
+
