@@ -66,8 +66,18 @@ Phases, each printed as one JSON line:
      wall, K3 launches, K3 instances and device busy share, and fig10's
      racing_ddr and miku_ddr;
  15. mva: core.mva.analyze on the card against the CPU on tests/test_mva.py's
-     inputs, rel 1e-5.
-They run in this order: 1-5, 12, 13, 6, 7, 9, 14, 15, 8, 10, 11.  Every
+     inputs, rel 1e-5;
+ 16. figures3: fig13, fig14 and the three-tier studies (corun3_switch,
+     corun3_pertier with the per-tier and merged laws, numa_remote) on the
+     card, held against the plain lane as in 14, with the merged law's
+     broadcast (equal mean caps of both slow tiers) and K3's <8, 8> instance
+     gated;
+ 17. k3_instance_timing: K3's <8, 8> instance at the largest group of 16
+     (its first window) and at a kilo-cell three-tier grid (C = 1024, W = 3,
+     S = 4), against its plain version, with call, kernel-alone, plain and
+     bound times and the instance's registers and spills from ptxas.
+The figures' plain lane runs in CPU worker processes from the build on.
+They run in this order: 1-5, 12, 13, 6, 7, 9, 14, 16, 17, 15, 8, 10, 11.  Every
 line carries ``elapsed_s``, the seconds since the script started.
 The line before the last lists every kernel's numbers; the last line is the
 device summary.  Any failed check exits non-zero; without CUDA (or without
@@ -137,11 +147,20 @@ FIGURES = ("fig3_bandwidth", "fig4_latency", "loaded_latency", "fig5_corun",
 #: the K1 sweep and the full-width decode check; fig10 (240 windows) alone.
 PLAIN_LANE_WORKERS = (("fig10_miku",),
                       ("loaded_latency", "fig5_corun", "fig3_bandwidth", "fig4_latency"),
-                      ("fig7_llc", "fig8_sync", "fig6_tor_correlation", "fig9_service"))
+                      ("fig7_llc", "fig8_sync", "fig6_tor_correlation", "fig9_service"),
+                      ("fig13_spark", "fig14_kv", "corun3_switch", "corun3_pertier",
+                       "numa_remote"))
 #: The figures' decision-flip jobs against the plain lane: the kilo grid's
 #: 12 in 1024 cells, scaled to the figures' 140 jobs and rounded down (63
 #: of them run on the fluid engine, 6 of those with MIKU).
 FIGURES_MAX_FLIPS = 1
+#: The figures3 phase's scenarios: fig13, fig14 and the three-tier studies
+#: (A-switch, A-numa; the merged law in corun3_pertier), the reference's
+#: declaration order.
+FIGURES3 = ("fig13_spark", "fig14_kv", "corun3_switch", "corun3_pertier", "numa_remote")
+#: Their decision-flip jobs against the plain lane, over all five (52 jobs,
+#: 24 on the fluid engine, 9 of them with MIKU).
+FIGURES3_MAX_FLIPS = 1
 #: (C, W, S, padded workloads, padded stations) of the random K3 windows.
 K3_RANDOM_CASES = ((1024, 2, 3, 0, 0), (256, 3, 4, 1, 0), (128, 8, 5, 2, 1),
                    (512, 5, 3, 0, 0))
@@ -436,7 +455,14 @@ def main() -> None:
     k2_row = k2_check(dev)
     k3_row = k3_check(dev)
     lane = sweep_phase(dev)
-    figures = figures_phase(dev, plain_lane)
+    plain, plain_wait_s = join_plain_lane(plain_lane)
+    emit("plain_lane", workers=len(PLAIN_LANE_WORKERS), wait_s=plain_wait_s,
+         scenarios=sorted(plain))
+    figures = figures_phase(dev, plain)
+    figures3 = figures3_phase(dev, plain)
+    k3_88 = k3_instance_timing(dev, figures3.pop("firsts"),
+                               next(lib for lib in libs if lib.name.startswith("fluid_solver"))
+                               .with_suffix(".ptxas.txt"))
     mva_phase(dev)
     k4_row = k4_sweep(dev)
     k4_launches = ssm_phases(dev)
@@ -493,6 +519,11 @@ def main() -> None:
         "launches": lane["k3_launches"],
         "figures_launches": figures["k3_launches"],
         "figures_instances": figures["k3_instances"],
+        # The three-tier figures: the <8, 8> instance on a main path, and its
+        # times at the largest group they stack and at a kilo-cell grid.
+        "figures3_launches": figures3["k3_launches"],
+        "figures3_instances": figures3["k3_instances"],
+        "instance_8x8": k3_88,
         **k3_row,
     }, {
         "name": "ssd_scan",
@@ -1098,13 +1129,15 @@ def join_plain_lane(plain_lane, timeout_s=600.0):
     return out, time.perf_counter() - t0
 
 
-def figures_phase(dev, plain_lane):
-    """Phase 14: the nine grid figures on the card, K3's count set to 0
+def grid_phase(phase, names, plain, capture_first=False):
+    """Run the grid scenarios ``names`` on the card, K3's count set to 0
     just before each and read just after, every job held against the plain
-    lane (the float64 solver, run on the CPU by the workers that started
-    after the build): exact-lane cells equal, fluid cells by the sweep
-    phase's gates over all nine.  Returns K3's launches and the instances
-    it ran."""
+    lane's results ``plain`` (the float64 solver, run on the CPU by the
+    workers that started after the build).  Emits one ``phase`` line per
+    scenario and returns the totals over them: K3 launches and instances,
+    exact jobs and mismatches, fluid jobs, decision-flip jobs, the aligned
+    relative bandwidth errors, each scenario's rows and, with
+    ``capture_first``, the first window's K3 inputs of each group shape."""
     import torch
 
     from repro_torch.kernels import fluid_solver as fs
@@ -1112,13 +1145,18 @@ def figures_phase(dev, plain_lane):
     from repro_torch.memsim.batched.stacking import plan_cell
     from repro_torch.scenarios import run_scenario
 
+    firsts = {}  # (C, W, S) -> the first window's ten input tensors
+
     def run(name):
         """Rows, jobs, results and counts of one run on the card."""
         shapes = set()
         solve = fluid.kernel.fused_window_solve
 
         def record_solve(*args):
-            shapes.add(tuple(args[3].shape))  # route: (C, W, S)
+            shape = tuple(args[3].shape)  # route: (C, W, S)
+            shapes.add(shape)
+            if capture_first and shape not in firsts:
+                firsts[shape] = [a.clone() for a in args[:10]]
             return solve(*args)
 
         got, restore = _record_sweep()
@@ -1146,10 +1184,9 @@ def figures_phase(dev, plain_lane):
                         and a.stats[w].latency_hist == b.stats[w].latency_hist
                         for w in a.stats))
 
-    plain, plain_wait_s = join_plain_lane(plain_lane)
-    errs, flips, total = [], 0, dict(k3_launches=0, instances=set(), exact_jobs=0,
-                                     exact_mismatches=0, fluid_jobs=0)
-    for name in FIGURES:
+    total = dict(k3_launches=0, instances=set(), exact_jobs=0, exact_mismatches=0,
+                 fluid_jobs=0, flips=0, errs=[], rows={}, firsts=firsts)
+    for name in names:
         rows, jobs, res, info = run(name)
         walls = []
 
@@ -1171,8 +1208,8 @@ def figures_phase(dev, plain_lane):
                     sum(d.restricted for d in p.decisions) > 0):
                 n_flip += 1
                 continue
-            errs.append(max(abs(k.bandwidth(w) - p.bandwidth(w)) / max(p.bandwidth(w), 1e-9)
-                            for w in k.stats))
+            total["errs"].append(max(abs(k.bandwidth(w) - p.bandwidth(w))
+                                     / max(p.bandwidth(w), 1e-9) for w in k.stats))
         instances = sorted({fs.window_solve_instance(W, S) for _, W, S in info["shapes"]})
         row = dict(scenario=name, rows=len(rows), jobs=len(jobs), exact_jobs=n_exact,
                    fluid_jobs=len(jobs) - n_exact, exact_mismatches=mism,
@@ -1185,32 +1222,163 @@ def figures_phase(dev, plain_lane):
         if name == "fig10_miku":
             row["fig10"] = [{k: r[k] for k in ("platform", "op", "racing_ddr", "miku_ddr")}
                             for r in rows]
-        emit("figures", **row)
+        if name == "corun3_pertier":
+            row["corun3_pertier"] = [{k: r[k] for k in (
+                "law", "ddr_pct_of_opt", "cxl_mean_cap", "cxl_sw_mean_cap",
+                "cxl_sw_restricted_windows")} for r in rows]
+        emit(phase, **row)
         check(info["k3_launches"] == info["windows"],
               f"{name}: {info['k3_launches']} K3 launches for {info['windows']} windows")
         check(all(_finite(v) for r in rows for v in r.values() if isinstance(v, float)),
               f"{name}: non-finite rows")
-        flips += n_flip
+        total["flips"] += n_flip
         total["k3_launches"] += info["k3_launches"]
         total["instances"].update(instances)
         total["exact_jobs"] += n_exact
         total["exact_mismatches"] += mism
         total["fluid_jobs"] += len(jobs) - n_exact
-    errs.sort()
-    p95 = errs[int(0.95 * (len(errs) - 1))] if errs else 0.0
-    instances = [f"<{w}, {s}>" for w, s in sorted(total["instances"])]
-    emit("figures", scenario="all", exact_jobs=total["exact_jobs"],
+        total["rows"][name] = rows
+    total["errs"].sort()
+    errs = total["errs"]
+    total["p95"] = errs[int(0.95 * (len(errs) - 1))] if errs else 0.0
+    total["worst"] = errs[-1] if errs else 0.0
+    total["instance_names"] = [f"<{w}, {s}>" for w, s in sorted(total["instances"])]
+    return total
+
+
+def emit_grid_totals(phase, total, max_flips, **extra):
+    """The ``all`` line of a grid phase, and its gates: exact-lane jobs equal
+    to the plain lane's, at most ``max_flips`` decision-flip jobs, the
+    aligned p95 relative bandwidth error within the kilo grid's bound."""
+    emit(phase, scenario="all", exact_jobs=total["exact_jobs"],
          exact_mismatches=total["exact_mismatches"], fluid_jobs=total["fluid_jobs"],
-         decision_flip_jobs=flips, max_flips=FIGURES_MAX_FLIPS, aligned_p95_rel_err=p95,
-         aligned_worst_rel_err=errs[-1] if errs else 0.0, p95_bound=SWEEP1K_P95_BOUND,
-         k3_launches=total["k3_launches"], k3_instances=instances,
-         plain_lane_workers=len(PLAIN_LANE_WORKERS), plain_lane_wait_s=plain_wait_s)
-    check(total["exact_mismatches"] == 0, "figures: exact-lane cells differ from the plain lane")
-    check(flips <= FIGURES_MAX_FLIPS and p95 <= SWEEP1K_P95_BOUND,
-          f"figures: {flips} decision-flip jobs, aligned p95 {p95}")
+         decision_flip_jobs=total["flips"], max_flips=max_flips,
+         aligned_p95_rel_err=total["p95"], aligned_worst_rel_err=total["worst"],
+         p95_bound=SWEEP1K_P95_BOUND, k3_launches=total["k3_launches"],
+         k3_instances=total["instance_names"], **extra)
+    check(total["exact_mismatches"] == 0,
+          f"{phase}: exact-lane cells differ from the plain lane")
+    check(total["flips"] <= max_flips and total["p95"] <= SWEEP1K_P95_BOUND,
+          f"{phase}: {total['flips']} decision-flip jobs, aligned p95 {total['p95']}")
+
+
+def figures_phase(dev, plain):
+    """Phase 14: the nine grid figures on the card (:func:`grid_phase`),
+    fluid cells by the sweep phase's gates over all nine; K3 runs only its
+    ``<2, 3>`` instance there.  Returns K3's launches and the instances it
+    ran."""
+    total = grid_phase("figures", FIGURES, plain)
+    emit_grid_totals("figures", total, FIGURES_MAX_FLIPS,
+                     plain_lane_workers=len(PLAIN_LANE_WORKERS))
     check(total["k3_launches"] > 0 and total["instances"] == {(2, 3)},
-          f"figures: K3 ran the instances {instances}")
-    return dict(k3_launches=total["k3_launches"], k3_instances=instances)
+          f"figures: K3 ran the instances {total['instance_names']}")
+    return dict(k3_launches=total["k3_launches"], k3_instances=total["instance_names"])
+
+
+def figures3_phase(dev, plain):
+    """Phase 16: fig13, fig14 and the three-tier scenarios on the card
+    (:func:`grid_phase`): the figures phase's gates over the five, the
+    merged law's broadcast in corun3_pertier's rows, and K3's ``<8, 8>``
+    instance among those it ran (W = 3-4 workloads or S = 4 stations).
+    Returns K3's launches and instances and the first window of each group
+    shape."""
+    total = grid_phase("figures3", FIGURES3, plain, capture_first=True)
+    rows = {r["law"]: r for r in total["rows"]["corun3_pertier"]}
+    emit_grid_totals("figures3", total, FIGURES3_MAX_FLIPS)
+    check(rows["merged"]["cxl_mean_cap"] == rows["merged"]["cxl_sw_mean_cap"],
+          f"figures3: the merged law's caps differ between the slow tiers: {rows['merged']}")
+    check(total["k3_launches"] > 0 and (8, 8) in total["instances"],
+          f"figures3: K3 ran the instances {total['instance_names']}, not <8, 8>")
+    return dict(k3_launches=total["k3_launches"], k3_instances=total["instance_names"],
+                firsts=total["firsts"])
+
+
+def k3_instance_timing(dev, firsts, ptxas_path):
+    """Phase 17: K3's ``<8, 8>`` instance timed at the largest group the
+    figures3 phase stacked (its first window, as the lane handed it over)
+    and at a kilo-cell three-tier grid (C = 1024, W = 3, S = 4: the first
+    window of corun3_switch's co-runs, tiled), each held against
+    fused_window_solve_ref (the random windows' rule: the same
+    isfinite(lam), finite y and Wq, at most 5% of cells beyond 2e-3), with
+    call, kernel-alone, plain and bound times and the instance's registers
+    and spills from ptxas."""
+    import torch
+
+    from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.kernels.ref import fused_window_solve_ref
+    from repro_torch.memsim.batched import fluid
+
+    n_outer, damp = fluid._N_OUTER, fluid._DAMP
+    ptxas = k3_ptxas(ptxas_path)
+    check("registers" in ptxas.get((8, 8), {}),
+          f"k3_instance_timing: no ptxas report of the <8, 8> instance in {ptxas_path}")
+    big = [sh for sh in firsts if fs.window_solve_instance(sh[1], sh[2]) == (8, 8)]
+    check(bool(big), f"k3_instance_timing: no <8, 8> group among {sorted(firsts)}")
+    largest = max(big, key=lambda sh: (sh[0], sh[1] * sh[2]))
+    tri = [sh for sh in big if sh[1:] == (3, 4)]
+    check(bool(tri), f"k3_instance_timing: no W=3, S=4 group among {sorted(firsts)}")
+    reps = -(-1024 // tri[0][0])
+    cases = [("largest_group", firsts[largest]),
+             ("kilo_three_tier", [torch.cat([a] * reps)[:1024] for a in firsts[tri[0]]])]
+    out = {}
+    for case, args in cases:
+        args = [a.to(torch.float32).to(torch.float64) for a in args]
+        C, W, S = args[3].shape
+        check(fs.window_solve_instance(W, S) == (8, 8), f"{case}: not the <8, 8> instance")
+        y, wq, lam = fs.fused_window_solve_cuda(*args, n_outer, damp)
+        torch.cuda.synchronize()
+        yr, wr, lr = fused_window_solve_ref(*args, n_outer, damp)
+        same = bool((torch.isfinite(lam) == torch.isfinite(lr)).all()
+                    and torch.isfinite(y).all() and torch.isfinite(wq).all())
+        err = torch.maximum(((y - yr).abs() / yr.abs().clamp(min=1e-12)).amax(dim=1),
+                            ((wq - wr).abs() / wr.abs().clamp(min=1e-12)).amax(dim=1))
+        beyond = int((~(err <= 2e-3)).sum())
+        row = dict(case=case, instance="<8, 8>", shape=dict(C=C, W=W, S=S),
+                   same_isfinite_lam_finite_y_wq=same, max_rel_err_y_wq=err.max().item(),
+                   cells_beyond_2e_3=beyond, max_abs_err=(y - yr).abs().max().item(),
+                   ms=time_ms(lambda: fs.fused_window_solve_cuda(*args, n_outer, damp), 20),
+                   plain_ms=time_ms(lambda: fused_window_solve_ref(*args, n_outer, damp), 1),
+                   kernel_device_ms=kernel_device_ms(
+                       lambda: fs.fused_window_solve_cuda(*args, n_outer, damp),
+                       "fused_window_solve_kernel", 10),
+                   library_ms=None, **ptxas.get((8, 8), {}))
+        nbytes = (3 * C * W + 3 * C * W * S + 2 * C * S + 2 * C + C * W + C * S + C) * 4
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, window_solve_ops(C, W, S, n_outer), H100_F32_FLOPS)
+        emit("k3_instance_timing", **row)
+        check(same and beyond <= K3_RANDOM_MAX_SHARE_BEYOND * C,
+              f"k3_instance_timing {case}: mask {same}, {beyond} of {C} cells beyond 2e-3")
+        out[case] = {k: row[k] for k in ("shape", "max_abs_err", "ms", "kernel_device_ms",
+                                         "plain_ms", "bound_ms", "bound_by", "registers",
+                                         "spill_stores_bytes", "spill_loads_bytes")
+                     if k in row}
+    out["ptxas_2x3"] = ptxas.get((2, 3), {})
+    return out
+
+
+def k3_ptxas(path):
+    """Registers and spill bytes of each fused_window_solve_kernel<W, S>
+    instance, by (W, S), from the build's ptxas report."""
+    import re
+
+    out, cur = {}, None
+    for line in open(path).read().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?( |$)",
+                      line)
+        if m:
+            k = re.search(r"fused_window_solve_kernelILi(\d+)ELi(\d+)E", m.group(1))
+            cur = (int(k.group(1)), int(k.group(2))) if k else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(cur, {}).update(spill_stores_bytes=int(m.group(1)),
+                                           spill_loads_bytes=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
 
 
 def mva_phase(dev):

@@ -5,8 +5,11 @@ estimator, throttle ladder and work-conserving promotion state per slow
 tier (:class:`SlowTierMiku`), run as an ensemble by :class:`MikuController`
 over per-tier windows (:class:`~repro_torch.core.littles_law.TierWindow`,
 fast tier first) and answering with tier-addressed :class:`TierDecisions`.
+:class:`MergedSlowPolicy` is the merged-slow law: one ladder fed the fold
+of every slow tier's window, its decision broadcast to each slow tier.
 :class:`VectorMikuLadder` is the same state machine over ``(cells, units)``
-tensors, for the batched sweep lane.
+tensors, for the batched sweep lane (a merged cell runs its one ladder as
+unit 0).
 
 Per slow tier: a backlog (smoothed ``T_slow`` above its mix-adjusted
 threshold) demotes the tier's traffic to the most restrictive concurrency
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -31,6 +35,7 @@ from repro_torch.core.littles_law import (
     OpClass,
     TierCounters,
     TierEstimate,
+    merge_tier_counters,
 )
 
 
@@ -100,6 +105,10 @@ class TierDecisions:
     def for_tier(self, tier: str) -> Decision:
         """The named slow tier's :class:`Decision` (ValueError if absent)."""
         return self.decisions[self.tiers.index(tier)]
+
+    def items(self) -> Tuple[Tuple[str, Decision], ...]:
+        """``(tier name, Decision)`` pairs in platform slow-tier order."""
+        return tuple(zip(self.tiers, self.decisions))
 
     @property
     def max_concurrency(self) -> Optional[int]:
@@ -277,6 +286,8 @@ class MikuController:
     Units are created when the first window reveals the slow tier count.
     """
 
+    _warned_pair = False  # process-wide: the deprecation warns once
+
     def __init__(
         self,
         config: Union[MikuConfig, Sequence[MikuConfig]],
@@ -304,7 +315,38 @@ class MikuController:
             for i in range(min(len(names), len(self.units))):
                 self.units[i].tier = names[i]
 
-    def window(self, deltas: Sequence[TierCounters]) -> TierDecisions:
+    def window(self, *deltas):
+        """``window(deltas)`` with one per-tier vector (fast tier first) ->
+        :class:`TierDecisions`.  The two-argument ``window(fast, slow)`` form
+        is deprecated: it runs unit 0 (:meth:`pair_window`) and returns that
+        unit's plain :class:`Decision`."""
+        if len(deltas) == 1 and not isinstance(deltas[0], TierCounters):
+            return self.window_vector(deltas[0])
+        if len(deltas) == 2:
+            if not MikuController._warned_pair:
+                MikuController._warned_pair = True
+                warnings.warn(
+                    "MikuController.window(fast_delta, slow_delta) is "
+                    "deprecated; pass one per-tier TierWindow "
+                    "(window(deltas)) instead",
+                    DeprecationWarning,
+                    stacklevel=2,
+                )
+            return self.pair_window(*deltas)
+        raise TypeError(
+            "MikuController.window expects one per-tier delta vector or "
+            f"the legacy (fast, slow) pair; got {len(deltas)} argument(s)"
+        )
+
+    def pair_window(self, fast_delta: TierCounters,
+                    slow_delta: TierCounters) -> Decision:
+        """Drive unit 0 with one merged ``(fast, slow)`` window (what
+        :class:`MergedSlowPolicy` runs)."""
+        decision = self.units[0].window(fast_delta, slow_delta)
+        self.decisions.append(decision)
+        return decision
+
+    def window_vector(self, deltas: Sequence[TierCounters]) -> TierDecisions:
         """One window: per-tier deltas in (fast first), one :class:`Decision`
         per slow tier out; each unit sees the shared fast delta and its own
         tier's delta."""
@@ -325,6 +367,24 @@ class MikuController:
         for unit in self.units:
             unit.reset()
         self.decisions.clear()
+
+
+class MergedSlowPolicy:
+    """The merged-slow law: each window folds tiers 1..n-1 of the per-tier
+    vector into one slow delta, runs the wrapped controller's unit 0 once
+    (:meth:`MikuController.pair_window`) and broadcasts its single decision
+    to every slow tier."""
+
+    def __init__(self, law: MikuController):
+        self.law = law
+        self.decisions: list = []
+
+    def window(self, deltas: Sequence[TierCounters]) -> TierDecisions:
+        fast, slows, slow_names = split_tier_window(deltas)
+        d = self.law.pair_window(fast, merge_tier_counters(slows))
+        decision = TierDecisions(tiers=slow_names, decisions=(d,) * len(slow_names))
+        self.decisions.append(decision)
+        return decision
 
 
 class VectorMikuLadder:

@@ -134,6 +134,9 @@ class SimResult:
     #: (:class:`~repro_torch.core.controller.TierDecisions`).
     decisions: list
     per_tier_occupancy_integral: Dict[str, float]
+    #: Per-window telemetry records (``window_record_jsonable``'s schema);
+    #: empty unless the job ran with ``record_windows=True``.
+    window_records: List[dict] = dataclasses.field(default_factory=list)
     #: Per-tier latency histograms (keyed by tier name); None unless the job
     #: ran with ``latency_hist=True``.
     tier_latency_hist: Optional[dict] = None

@@ -1,11 +1,12 @@
 """Memory-device service models of the simulated testbed.
 
 A copy of the part of ``repro.core.device_model`` the batched sweep lane
-uses: :class:`DeviceModel`, :class:`PlatformModel`, the paper's two
-platforms (Table 1) and a :data:`PLATFORMS` table of the entries the
-grid scenarios name (A, B and their one-DIMM, one-expander ``-1to1``
-variants).  The switch, NUMA-remote, TPU-unit and fabric platforms are not
-ported yet.
+uses: :class:`DeviceModel`, :class:`PlatformModel` (an ordered tier list,
+fast tier first), the paper's two platforms (Table 1), the three-tier
+variants of platform A (CXL behind a switch, the remote socket's DDR) and a
+:data:`PLATFORMS` table of the entries the grid scenarios name (A, B, their
+one-DIMM, one-expander ``-1to1`` variants, ``A-switch`` and ``A-numa``).
+The TPU-unit and fabric platforms are not ported yet.
 
 Every device is ``c`` deterministic servers with per-access service time
 ``s`` (64 B cachelines) plus a pipeline latency that holds no slot:
@@ -100,12 +101,38 @@ CXL_DEVICE = DeviceModel(
     pipeline_ns=255.0,
 )
 
+#: The same expander reached through a CXL switch: the device's own
+#: parallelism and service, plus the switch's store-and-forward hop each way
+#: (~90 ns a direction).
+CXL_SWITCH_DEVICE = DeviceModel(
+    name="cxl-sw-exp",
+    tier="cxl_sw",
+    parallelism=14,
+    read_service_ns=36.0,
+    write_service_ns=72.0,
+    pipeline_ns=435.0,
+)
+
+#: A DDR5 DIMM on the other socket: the local DIMM's service plus the
+#: cross-socket interconnect's flight (local 78 ns + ~87 ns round trip).
+DDR_REMOTE_DIMM = DeviceModel(
+    name="ddr5-remote-dimm",
+    tier="ddr_remote",
+    parallelism=16,
+    read_service_ns=32.0,
+    write_service_ns=44.0,
+    pipeline_ns=165.0,
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class PlatformModel:
     """A host platform: an ordered list of memory tiers (fast tier first)
     behind one shared request-tracking structure (the CHA's ToR).
 
+    The tiers are ``(ddr, cxl) + extra_tiers``: ``ddr`` is the fast tier
+    the control plane protects, every later one a slow tier it may
+    throttle, each keyed by its :attr:`DeviceModel.tier` name.
     ``tor_entries`` bounds tracked requests, ``irq_entries`` staged ones
     (both in cachelines); ``llc_service_ns``/``llc_slots`` model LLC hits,
     which also hold ToR entries (paper §4.3).
@@ -121,11 +148,17 @@ class PlatformModel:
     llc_service_ns: float
     llc_slots: int
     llc_capacity_mb: float
+    extra_tiers: Tuple[DeviceModel, ...] = ()
+
+    def __post_init__(self):
+        names = tuple(d.tier for d in self.tiers)
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate tier names in platform: {names}")
 
     @property
     def tiers(self) -> Tuple[DeviceModel, ...]:
         """Ordered tier devices, fast tier first."""
-        return (self.ddr, self.cxl)
+        return (self.ddr, self.cxl) + self.extra_tiers
 
     @property
     def tier_names(self) -> Tuple[str, ...]:
@@ -137,6 +170,10 @@ class PlatformModel:
         if tier not in names:
             raise UnknownTierError(tier, names)
         return self.tiers[names.index(tier)]
+
+    def with_extra_tiers(self, *devices: DeviceModel) -> "PlatformModel":
+        """A copy of this platform with ``devices`` appended as slow tiers."""
+        return dataclasses.replace(self, extra_tiers=self.extra_tiers + tuple(devices))
 
 
 def platform_a(ddr_dimms: int = 8, cxl_devices: int = 2) -> PlatformModel:
@@ -171,9 +208,39 @@ def platform_b(ddr_dimms: int = 12, cxl_devices: int = 4) -> PlatformModel:
     )
 
 
+def platform_a_switch(
+    ddr_dimms: int = 8, cxl_devices: int = 2, switch_devices: int = 2
+) -> PlatformModel:
+    """Platform A with a third tier, CXL expanders behind a switch:
+    (ddr, cxl, cxl_sw)."""
+    base = platform_a(ddr_dimms, cxl_devices)
+    return dataclasses.replace(
+        base,
+        name=f"{base.name}-{switch_devices}sw",
+        extra_tiers=(CXL_SWITCH_DEVICE.scaled(switch_devices,
+                                              name=f"cxlswx{switch_devices}"),),
+    )
+
+
+def platform_a_numa(
+    ddr_dimms: int = 8, cxl_devices: int = 2, remote_dimms: int = 8
+) -> PlatformModel:
+    """Platform A with the remote socket's DDR pool as a third tier:
+    (ddr, cxl, ddr_remote)."""
+    base = platform_a(ddr_dimms, cxl_devices)
+    return dataclasses.replace(
+        base,
+        name=f"{base.name}-{remote_dimms}rddr",
+        extra_tiers=(DDR_REMOTE_DIMM.scaled(remote_dimms,
+                                            name=f"rddr5x{remote_dimms}"),),
+    )
+
+
 PLATFORMS: Dict[str, PlatformModel] = {
     "A": platform_a(),
     "B": platform_b(),
     "A-1to1": platform_a(ddr_dimms=1, cxl_devices=1),
     "B-1to1": platform_b(ddr_dimms=1, cxl_devices=1),
+    "A-switch": platform_a_switch(),
+    "A-numa": platform_a_numa(),
 }

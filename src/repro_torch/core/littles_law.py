@@ -1,7 +1,8 @@
 """Little's-Law service-time estimation — MIKU's measurement half (§5.2, Eq. 1).
 
-A copy of the part of ``repro.core.littles_law`` the serving path uses
-(the port imports nothing from ``repro``).  The shared request-tracking
+A copy of the part of ``repro.core.littles_law`` the serving path and the
+batched lane use (the port imports nothing from ``repro``), with
+:func:`merge_tier_counters`, the fold the merged-slow law runs on.  The shared request-tracking
 structure the paper measures (the CHA's ToR) is, on the serving path, the
 transfer queue's per-tier counters:
 
@@ -57,6 +58,14 @@ class TierCounters:
         self.occupancy_time += residency
         self.class_counts[op] += 1
 
+    def merge(self, other: "TierCounters") -> None:
+        """Accumulate ``other``'s counts into this counter, in place."""
+        self.inserts += other.inserts
+        self.occupancy_time += other.occupancy_time
+        for c in OpClass:
+            self.class_counts[c] = (self.class_counts.get(c, 0)
+                                    + other.class_counts.get(c, 0))
+
     def snapshot(self) -> "TierCounters":
         """An independent copy, for later :meth:`delta` marks."""
         return TierCounters(
@@ -93,6 +102,16 @@ class TierCounters:
         if total == 0:
             return (1.0, 0.0)
         return (reads / total, writes / total)
+
+
+def merge_tier_counters(counters: "Sequence[TierCounters]") -> "TierCounters":
+    """Fold several per-tier window deltas into one merged delta (plain
+    sums, so the merged-slow window is recovered exactly from a per-tier
+    vector: :class:`~repro_torch.core.controller.MergedSlowPolicy`)."""
+    out = TierCounters()
+    for tc in counters:
+        out.merge(tc)
+    return out
 
 
 class TierWindow(tuple):

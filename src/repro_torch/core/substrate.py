@@ -5,10 +5,14 @@ substrate exposes ``clock_ns``, ``counters_delta()`` (a per-tier
 :class:`~repro_torch.core.littles_law.TierWindow`, consumed on read) and
 ``apply(decision)``; :class:`ControlLoop` owns *when*: window scheduling,
 feeding deltas to the decision law and recording its decisions.
+:class:`WindowRecord` and :func:`window_record_jsonable` define the
+per-window telemetry schema (the batched lane's ``record_windows``
+records are in it).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, List, Optional, Sequence, Tuple
 
 from repro_torch.core.littles_law import TierCounters, TierWindow
@@ -52,6 +56,62 @@ class TierSetWindowedCounters:
         ds = [t.delta(m) for t, m in zip(self.tiers, self._marks)]
         self._marks = [t.snapshot() for t in self.tiers]
         return TierWindow(ds, self.names)
+
+
+@dataclasses.dataclass
+class WindowRecord:
+    """Telemetry for one control window."""
+
+    index: int
+    t_ns: float
+    delta: Tuple[Any, ...]
+    decision: Any
+
+
+def _counters_jsonable(tc: TierCounters) -> dict:
+    return {
+        "inserts": tc.inserts,
+        "occupancy_time": tc.occupancy_time,
+        "class_counts": {c.value: n for c, n in tc.class_counts.items()},
+    }
+
+
+def _decision_jsonable(d: Any) -> Any:
+    """One tier's decision as plain JSON (best effort for foreign laws)."""
+    est = getattr(d, "estimate", None)
+    out = {
+        "max_concurrency": getattr(d, "max_concurrency", None),
+        "rate_factor": getattr(d, "rate_factor", None),
+        "phase": getattr(getattr(d, "phase", None), "value", None),
+    }
+    if est is not None:
+        out["t_slow"] = est.t_slow
+        out["t_slow_raw"] = est.t_slow_raw
+        out["threshold"] = est.threshold
+        out["backlogged"] = est.backlogged
+        out["valid"] = est.valid
+    return out
+
+
+def window_record_jsonable(rec: WindowRecord) -> dict:
+    """One :class:`WindowRecord` as a plain JSON-safe dict: the window's
+    per-tier counter deltas (named when the delta is a TierWindow) and its
+    per-tier decision(s)."""
+    out: dict = {"window": rec.index, "t_ns": rec.t_ns}
+    delta = rec.delta
+    if isinstance(delta, TierWindow):
+        out["tiers"] = {name: _counters_jsonable(tc)
+                        for name, tc in zip(delta.names, delta)}
+    elif isinstance(delta, tuple) and all(isinstance(tc, TierCounters) for tc in delta):
+        out["tiers"] = {f"tier{i}": _counters_jsonable(tc) for i, tc in enumerate(delta)}
+    else:
+        out["delta"] = repr(delta)
+    d = rec.decision
+    if hasattr(d, "items") and hasattr(d, "tiers"):  # TierDecisions
+        out["decision"] = {t: _decision_jsonable(td) for t, td in d.items()}
+    elif d is not None:
+        out["decision"] = _decision_jsonable(d)
+    return out
 
 
 class ControlLoop:

@@ -27,8 +27,15 @@ window's completion count) and per tier.  Those means and counts are
 computed on the device with the rest of the window and copied to the host
 with the final accumulators; the host only buckets them.
 
-Not ported yet: per-window telemetry (``record_windows``), vector tiering
-and the merged law; the lane refuses jobs that need them.
+Merged-law cells run their one ladder as unit 0: it is fed the fold of
+every slow tier's window deltas, and its cap, rate and :class:`Decision`
+are broadcast to each slow tier.  Cells that ask for ``record_windows`` get
+one record per fired window in the schema of
+:func:`~repro_torch.core.substrate.window_record_jsonable` (per-tier
+counter deltas, per-tier decisions and, with ``latency_hist``, the window's
+histogram entries); their per-window counters are gathered on the device
+for those cells only and copied with the final accumulators.  Vector
+tiering is not ported yet.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from repro_torch.core.controller import (
 )
 from repro_torch.core.des import SimResult, WorkloadStats
 from repro_torch.core.littles_law import OpClass, TierCounters, TierEstimate
+from repro_torch.core.substrate import _decision_jsonable
 from repro_torch.device import resolve_device
 from repro_torch.memsim.batched import kernel
 from repro_torch.memsim.batched.stacking import BatchGroup
@@ -112,8 +120,13 @@ def run_fluid(
     win = group.window_ns
     n_ops = len(_OPS)
     has_ctl = np.array([bool(p.units) for p in group.plans])
+    merged = np.array([p.merged for p in group.plans])
     hist_mask = np.array([p.job.latency_hist for p in group.plans])
     hist_on = bool(hist_mask.any())
+    # Cells whose fired windows leave a record (a controller-free cell
+    # without histograms records nothing, as the scalar ControlLoop).
+    rec_cells = np.flatnonzero(np.array([p.job.record_windows for p in group.plans])
+                               & (has_ctl | hist_mask))
     n_slow_cell = group.n_tiers_cell - 1
     U = max(1, T - 1)
     if ladder is None:
@@ -162,6 +175,13 @@ def run_fluid(
     # Throttle state written by the ladder (tier-addressed, like apply()).
     tier_cap = torch.full((C, U), inf, **f64)
     tier_rate = torch.ones((C, U), **f64)
+    if ladder is not None:
+        # The ladder unit behind each (cell, slow tier): the tier's own, or
+        # unit 0 for a merged cell (its decision is broadcast).
+        L = ladder.units
+        merged_dev = torch.as_tensor(merged).to(dev)
+        unit_of = torch.where(merged_dev[:, None], 0,
+                              torch.arange(U, device=dev).clamp(max=L - 1)[None, :])
     Wq = torch.zeros((C, S), **f64)  # station waits, warm-started
 
     bytes_w = torch.zeros((C, W), **f64)
@@ -179,6 +199,11 @@ def run_fluid(
     # Per window, for the histograms: (C, W) mean latency and count, (C, T)
     # the same per tier.
     hist_wins: List[List[torch.Tensor]] = [[], [], [], []]
+    # Per window with a recording cell firing: (window, the record cells'
+    # per-tier inserts, occupancy and class counts).
+    rec_idx = torch.as_tensor(rec_cells).to(dev)
+    rec_k: List[int] = []
+    rec_wins: List[torch.Tensor] = []
 
     for k in range(n_seg):
         active = active_all[k]
@@ -245,27 +270,40 @@ def run_fluid(
         llc_res = route[:, :, llc] * r_sta[:, :, llc]
         occ_int_t += (occ_dev + (ins_w * llc_res)[:, :, None] * frac).sum(dim=1)
 
+        if len(rec_cells) and fire[rec_cells].any():
+            rec_k.append(k)
+            rec_wins.append(torch.cat([ins_dev.sum(dim=1), occ_dev.sum(dim=1),
+                                       cls_w.reshape(C, T * n_ops)], dim=1)[rec_idx])
+
         # -- fire the control window (decisions apply to the next one) ----
         if not fire.any() or ladder is None:
             continue
-        n_avail = min(U, T - 1)
-        s_ins = torch.zeros((C, U), **f64)
-        s_occ = torch.zeros((C, U), **f64)
-        s_cls = torch.zeros((C, U, n_ops), **f64)
-        s_ins[:, :n_avail] = ins_dev.sum(dim=1)[:, 1:1 + n_avail]
-        s_occ[:, :n_avail] = occ_dev.sum(dim=1)[:, 1:1 + n_avail]
-        s_cls[:, :n_avail] = cls_w[:, 1:1 + n_avail]
+        # Slow-tier window deltas per ladder unit: each tier's own, or for
+        # a merged cell their fold in unit 0.
+        n_avail = min(L, T - 1)
+        slow = [ins_dev.sum(dim=1)[:, 1:], occ_dev.sum(dim=1)[:, 1:], cls_w[:, 1:]]
+        feed = []
+        for x in slow:
+            per = x.new_zeros((C, L) + x.shape[2:])
+            per[:, :n_avail] = x[:, :n_avail]
+            fold = x.new_zeros(per.shape)
+            fold[:, 0] = x.sum(dim=1)
+            feed.append(torch.where(merged_dev.view((C,) + (1,) * (per.dim() - 1)),
+                                    fold, per))
         out = ladder.window(ins_dev[:, :, 0].sum(dim=1), occ_dev[:, :, 0].sum(dim=1),
-                            cls_w[:, 0], s_ins, s_occ, s_cls)
+                            cls_w[:, 0], *feed)
         # Tier-addressed apply: per-tier caps/rates for the next window,
         # written once for every firing cell with a controller.
-        tier_cap = torch.where(apply_dev[k], out["cap"], tier_cap)
-        tier_rate = torch.where(apply_dev[k], out["rate"], tier_rate)
+        tier_cap = torch.where(apply_dev[k], out["cap"].gather(1, unit_of), tier_cap)
+        tier_rate = torch.where(apply_dev[k], out["rate"].gather(1, unit_of), tier_rate)
         host = dict(zip(_LADDER_FIELDS, _to_host(*(out[f] for f in _LADDER_FIELDS))))
         for ci in np.flatnonzero(fire & has_ctl):
             names = group.plans[ci].export["tier_names"][1:]
             ds = []
             for u in range(int(n_slow_cell[ci])):
+                if merged[ci] and u > 0:
+                    ds.append(ds[0])
+                    continue
                 cap_v = float(host["cap"][ci, u])
                 restricted = bool(host["restricted"][ci, u])
                 est = TierEstimate(
@@ -293,10 +331,14 @@ def run_fluid(
                 else torch.zeros((0, C, W), **f64))
     hists = [torch.stack(h) if h else torch.zeros((0, C, W if i < 2 else T), **f64)
              for i, h in enumerate(hist_wins)]
+    recs = (torch.stack(rec_wins) if rec_wins
+            else torch.zeros((0, len(rec_cells), T * (2 + n_ops)), **f64))
     (bytes_w, completed_w, latsum_w, ins_t, occ_t, cls_t, occ_int_t, tor_inserts,
-     tor_occ, tor_peak, timeline, *hists) = _to_host(
+     tor_occ, tor_peak, timeline, recs, *hists) = _to_host(
         bytes_w, completed_w, latsum_w, ins_t, occ_t, cls_t, occ_int_t,
-        tor_inserts, tor_occ, tor_peak, timeline, *hists)
+        tor_inserts, tor_occ, tor_peak, timeline, recs, *hists)
+    records = _window_records(group, rec_cells, rec_k, recs, fire_all, has_ctl,
+                              hist_mask, hists, decisions)
     results: List[SimResult] = []
     for ci, plan in enumerate(group.plans):
         e = plan.export
@@ -337,11 +379,60 @@ def run_fluid(
             per_tier_occupancy_integral={
                 names[t]: float(occ_int_t[ci, t]) for t in range(e["n_tiers"])
             },
+            window_records=records.get(ci, []),
             tier_latency_hist=(
                 {names[t]: _window_hist(hists[2][:, ci, t], hists[3][:, ci, t])
                  for t in range(e["n_tiers"])} if hist_mask[ci] else None),
         ))
     return results
+
+
+def _window_records(group: BatchGroup, rec_cells, rec_k, recs, fire_all, has_ctl,
+                    hist_mask, hists, decisions) -> dict:
+    """Each recording cell's per-window records (cell -> list), built on the
+    host from the windows gathered on the device: ``recs[j, r]`` holds
+    record cell ``r``'s per-tier inserts, occupancy and class counts of
+    window ``rec_k[j]``."""
+    T, n_ops = group.n_tiers, len(_OPS)
+    out = {int(ci): [] for ci in rec_cells}
+    fired = np.zeros(len(group.plans), np.int64)  # fired windows per cell so far
+    at = {k: j for j, k in enumerate(rec_k)}
+    for k in range(rec_k[-1] + 1 if rec_k else 0):
+        fired += fire_all[k]
+        j = at.get(k)
+        if j is None:
+            continue
+        ins, occ = recs[j, :, :T], recs[j, :, T:2 * T]
+        cls = recs[j, :, 2 * T:].reshape(-1, T, n_ops)
+        for r, ci in enumerate(rec_cells):
+            if not fire_all[k, ci]:
+                continue
+            e = group.plans[ci].export
+            rec: dict = {"window": int(fired[ci]), "t_ns": float((k + 1) * group.window_ns)}
+            if has_ctl[ci]:
+                names = e["tier_names"]
+                rec["tiers"] = {
+                    names[t]: {
+                        "inserts": int(round(ins[r, t])),
+                        "occupancy_time": float(occ[r, t]),
+                        "class_counts": {op.value: int(round(cls[r, t, o]))
+                                         for o, op in enumerate(_OPS)},
+                    }
+                    for t in range(e["n_tiers"])
+                }
+                td = decisions[ci][int(fired[ci]) - 1]
+                rec["decision"] = {t: _decision_jsonable(d) for t, d in td.items()}
+            if hist_mask[ci]:
+                # One weighted entry per workload: the window's analytic
+                # contribution to the workload's histogram.
+                lh = {}
+                for wi, nm in enumerate(e["w_names"]):
+                    h = LatencyHistogram()
+                    h.record_weighted(float(hists[0][k, ci, wi]), float(hists[1][k, ci, wi]))
+                    lh[nm] = h.to_jsonable()
+                rec["latency_hist"] = lh
+            out[int(ci)].append(rec)
+    return out
 
 
 def _window_hist(means: np.ndarray, counts: np.ndarray) -> LatencyHistogram:

@@ -5,11 +5,12 @@ the two closed-form regimes take the exact lane
 (:mod:`~repro_torch.memsim.batched.exact`, host numpy); the rest stack
 into window-lockstep fluid groups, one group per (window cadence, ladder
 rung table) pair, each chunked into blocks of at most ``block`` cells.
-The reference falls jobs it cannot stack back to the scalar DES; the port
-has no scalar DES yet, so :func:`run_sweep_batched` raises
-``NotImplementedError`` for them instead, naming each job and its reason.
-Not ported yet: vector tiering, per-window telemetry (``record_windows``)
-and the merged and per-edge laws.
+The per-tier and merged MIKU laws and per-window telemetry
+(``record_windows``) run here.  The reference falls jobs it cannot stack
+back to the scalar DES; the port has no scalar DES yet, so
+:func:`run_sweep_batched` raises ``NotImplementedError`` for them instead,
+naming each job and its reason: the per-edge law (it needs the fabric).
+Vector tiering is not ported yet (``SimJob`` carries no tiering spec).
 """
 
 from __future__ import annotations
@@ -31,10 +32,8 @@ _DEFAULT_BLOCK = 1024
 def can_batch(job) -> Optional[str]:
     """Static screen: why the port's batched lane cannot run ``job``, or
     None when it can."""
-    if job.miku and job.miku_law != "pertier":
-        return f"miku_law={job.miku_law!r} (only the per-tier law is ported)"
-    if job.record_windows:
-        return "record_windows (per-window telemetry is not ported)"
+    if job.miku and job.miku_law == "peredge":
+        return "miku_law='peredge' (the per-edge law needs the fabric, not ported)"
     return None
 
 

@@ -2,9 +2,11 @@
 ``repro.memsim.batched.stacking`` without the tiering hook).
 
 One :class:`CellPlan` per job: the job's exported static state
-(:func:`repro_torch.core.des.export_state`) plus its calibrated per-slow-tier
-MIKU units, built through :func:`repro_torch.memsim.calibration.default_miku`
-so the ladder is calibrated exactly as a scalar controller would be.
+(:func:`repro_torch.core.des.export_state`) plus its calibrated MIKU units,
+built through :func:`repro_torch.memsim.calibration.default_miku` (one unit
+per slow tier) or :func:`~repro_torch.memsim.calibration.merged_miku` (one
+merged unit) so the ladder is calibrated exactly as a scalar controller
+would be.
 :class:`BatchGroup` holds the padded float64 ``(cells, workloads,
 stations)`` arrays on the host.
 """
@@ -26,29 +28,39 @@ class CellPlan:
 
     job: SimJob
     export: dict
-    #: Per-slow-tier SlowTierMiku units (empty = no controller).
+    #: Per-slow-tier SlowTierMiku units (empty = no controller).  For a
+    #: merged-law cell this is the single merged ladder, and ``merged``
+    #: says that its decision broadcasts to every slow tier.
     units: list
+    merged: bool = False
 
 
 def plan_cell(job: SimJob) -> CellPlan:
     """Export the job's static state and build its controller units."""
-    if job.miku and job.miku_law != "pertier":
+    if job.miku and job.miku_law not in ("pertier", "merged"):
         raise NotImplementedError(
-            f"miku_law={job.miku_law!r} is not ported yet; only the per-tier "
-            "law runs on the batched lane"
+            f"miku_law={job.miku_law!r} is not ported yet; the per-tier and "
+            "merged laws run on the batched lane"
         )
     export = export_state(job.platform, job.workloads,
                           granularity=job.granularity,
                           window_ns=job.window_ns)
     units: list = []
+    merged = False
     if job.miku:
-        from repro_torch.memsim.calibration import default_miku
+        from repro_torch.memsim.calibration import default_miku, merged_miku
 
-        n_slow = export["n_tiers"] - 1
-        ctl = default_miku(job.platform, job.granularity, **job.miku_overrides)
-        ctl._ensure_units(n_slow, export["tier_names"][1:])
-        units = list(ctl.units[:n_slow])
-    return CellPlan(job=job, export=export, units=units)
+        if job.miku_law == "merged":
+            law = merged_miku(job.platform, job.granularity, **job.miku_overrides).law
+            law._ensure_units(1, ["slow"])
+            units = [law.units[0]]
+            merged = True
+        else:
+            n_slow = export["n_tiers"] - 1
+            ctl = default_miku(job.platform, job.granularity, **job.miku_overrides)
+            ctl._ensure_units(n_slow, export["tier_names"][1:])
+            units = list(ctl.units[:n_slow])
+    return CellPlan(job=job, export=export, units=units, merged=merged)
 
 
 class BatchGroup:

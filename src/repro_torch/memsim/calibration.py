@@ -1,9 +1,8 @@
 """Offline calibration of MIKU's estimator from device models (paper §5.2).
 
-A copy of ``repro.memsim.calibration``'s per-tier law:
-:func:`calibrate_estimator`, :func:`tier_class_caps` and
-:func:`default_miku`.  The merged-slow baseline (``merged_miku``) is not
-ported yet.
+A copy of ``repro.memsim.calibration``: :func:`calibrate_estimator`,
+:func:`tier_class_caps`, the per-tier law :func:`default_miku` and the
+merged-slow baseline :func:`merged_miku`.
 
 * ``t_fast`` is the fast tier's loaded ToR residency (pool size over
   service rate): the paper finds DDR never backlogs the ToR.
@@ -16,7 +15,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.core.controller import MikuConfig, MikuController
+from repro_torch.core.controller import MergedSlowPolicy, MikuConfig, MikuController
 from repro_torch.core.device_model import DeviceModel, PlatformModel
 from repro_torch.core.littles_law import EstimatorConfig, OpClass
 
@@ -70,6 +69,10 @@ _BASE_CLASS_CAPS = {
 }
 
 
+def _default_config() -> MikuConfig:
+    return MikuConfig(levels=(1, 2, 4, 8, 16), class_caps=dict(_BASE_CLASS_CAPS))
+
+
 def tier_class_caps(
     device: DeviceModel,
     reference: DeviceModel,
@@ -109,3 +112,15 @@ def default_miku(
         for dev in slow_devs
     ]
     return MikuController(cfgs, ests)
+
+
+def merged_miku(
+    platform: PlatformModel,
+    granularity: int = 4,
+    **est_overrides,
+) -> MergedSlowPolicy:
+    """The merged-slow MIKU: one CXL-calibrated ladder fed the fold of all
+    slow tiers' deltas, its decision broadcast to every slow tier (the
+    baseline ``corun3_pertier`` compares the per-tier law with)."""
+    est = calibrate_estimator(platform, granularity, **est_overrides)
+    return MergedSlowPolicy(MikuController(_default_config(), est))

@@ -30,11 +30,12 @@ class SimJob:
     miku: bool = False
     miku_overrides: Dict[str, float] = dataclasses.field(default_factory=dict)
     #: Which decision law ``miku=True`` builds: "pertier" (one ladder per
-    #: slow tier, the default), "merged" or "peredge".  Only "pertier" is
-    #: ported; the batched lane refuses the others.
+    #: slow tier, the default), "merged" (one ladder over the folded slow
+    #: tiers, its decision broadcast) or "peredge".  The batched lane
+    #: refuses "peredge" (it needs the fabric, not ported).
     miku_law: str = "pertier"
-    #: Per-window telemetry and analytic latency histograms; not ported
-    #: yet, the batched lane refuses jobs that ask for them.
+    #: Per-window telemetry records (``SimResult.window_records``) and
+    #: analytic latency histograms.
     record_windows: bool = False
     latency_hist: bool = False
 

@@ -1,7 +1,8 @@
 """Mergeable log-bucketed latency histograms: a copy of
 ``repro.obs.histogram.LatencyHistogram``, trimmed to what the batched
-lane's ``latency_hist`` cells record and what the scenarios read back
-(:meth:`LatencyHistogram.percentile`).
+lane's ``latency_hist`` cells record, what the scenarios read back
+(:meth:`LatencyHistogram.percentile`) and the per-window telemetry records
+(:meth:`LatencyHistogram.to_jsonable`).
 
 The bucket layout is fixed: each power-of-two octave ``[2^(e-1), 2^e)`` is
 split into 16 linear sub-buckets.  For ``v > 0`` with ``m, e =
@@ -116,3 +117,14 @@ class LatencyHistogram:
                 and (self.vmax == other.vmax or empty))
 
     __hash__ = None  # mutable
+
+    def to_jsonable(self) -> dict:
+        return {
+            "scheme": "log16",
+            "n": self.n,
+            "zero": self.zero,
+            "total": self.total,
+            "min": self.vmin if self.n else None,
+            "max": self.vmax if self.n else None,
+            "counts": {str(idx): c for idx, c in sorted(self.counts.items())},
+        }

@@ -4,7 +4,10 @@ Copies of the reference's scenarios (``repro/scenarios/library.py``), in
 its declaration order: the grid figures fig3-fig10 and ``loaded_latency``
 (their single-workload cells take the exact lane, the rest the fluid
 engine), the §6 case study ``fig11_llm`` (a ``run_cell`` scenario on the
-port's serving engines) and the co-run sweeps.  The port keeps its own
+port's serving engines), the big-data and hashmap figures fig13 and fig14,
+the three-tier co-runs on ``A-switch`` (``corun3_switch``, and
+``corun3_pertier`` with the per-tier and merged laws), the co-run sweeps and
+the NUMA-remote striping study on ``A-numa``.  The port keeps its own
 registry (:data:`SCENARIOS`) and registers nothing into the reference's;
 :data:`UNPORTED` names the reference's other scenarios and what each waits
 for.
@@ -384,6 +387,157 @@ def _fig11_run_cell(platform, cell, device) -> List[dict]:
     ]
 
 
+# -- Fig. 13: big-data (Spark/TPC-H) analog -----------------------------------
+
+
+def _spark_workload(name, tier, miku_managed=True):
+    # 16 executor threads with deep prefetched scan/shuffle streams.
+    return WorkloadSpec(name=name, op=OpClass.STORE, tier=tier, n_cores=16, mlp=160,
+                        phases=[(60_000.0, tier)] * 1, miku_managed=miku_managed)
+
+
+def _fig13_build(platform, cell) -> List[SimJob]:
+    sim_ns = cell["sim_ns"]
+    ddr = _spark_workload("ddr", "ddr", False)
+    cxl = _spark_workload("cxl", "cxl")
+    return [
+        _job(platform, [ddr], sim_ns, window_ns=20_000.0),
+        _job(platform, [cxl], sim_ns, window_ns=20_000.0),
+        _job(platform, [ddr, cxl], sim_ns, window_ns=20_000.0),
+        _job(platform, [ddr, cxl], sim_ns, window_ns=10_000.0, miku=True),
+    ]
+
+
+def _fig13_reduce(platform, cell, jobs, results) -> List[dict]:
+    opt_a, opt_b, racing, miku = results
+    opt = (opt_a.bandwidth("ddr"), opt_b.bandwidth("cxl"))
+
+    def row(variant, res):
+        return {
+            "platform": cell["platform"],
+            "variant": variant,
+            "ddr_gbps": res.bandwidth("ddr"),
+            "cxl_gbps": res.bandwidth("cxl"),
+            "ddr_pct_of_opt": 100.0 * res.bandwidth("ddr") / max(opt[0], 1e-9),
+            "cxl_pct_of_opt": 100.0 * res.bandwidth("cxl") / max(opt[1], 1e-9),
+        }
+
+    return [
+        {"platform": cell["platform"], "variant": "opt",
+         "ddr_gbps": opt[0], "cxl_gbps": opt[1],
+         "ddr_pct_of_opt": 100.0, "cxl_pct_of_opt": 100.0},
+        row("racing", racing),
+        row("miku", miku),
+    ]
+
+
+# -- Fig. 14: concurrent-hashmap (YCSB) analog --------------------------------
+
+
+def _kv_workloads(name, tier, ratio, managed) -> List[WorkloadSpec]:
+    # ``ratio`` reads per write: 16 cores split between get (load) and
+    # insert (store) streams; hash probing limits MLP.
+    total = 16
+    readers = round(total * ratio / (ratio + 1))
+    wls = []
+    if readers:
+        wls.append(WorkloadSpec(name=f"{name}-get", op=OpClass.LOAD, tier=tier,
+                                n_cores=readers, mlp=32, miku_managed=managed))
+    if total - readers:
+        wls.append(WorkloadSpec(name=f"{name}-ins", op=OpClass.STORE, tier=tier,
+                                n_cores=total - readers, mlp=128, miku_managed=managed))
+    return wls
+
+
+def _fig14_build(platform, cell) -> List[SimJob]:
+    sim_ns = cell["sim_ns"]
+    wls = (_kv_workloads("ddr", "ddr", cell["ratio"], False)
+           + _kv_workloads("cxl", "cxl", cell["ratio"], True))
+    return [
+        _job(platform, wls, sim_ns, window_ns=20_000.0),
+        _job(platform, wls, sim_ns, window_ns=10_000.0, miku=True),
+    ]
+
+
+def _fig14_reduce(platform, cell, jobs, results) -> List[dict]:
+    race, miku = results
+    ddr = [w for w in jobs[0].workloads if w.name.startswith("ddr")]
+    cxl = [w for w in jobs[0].workloads if w.name.startswith("cxl")]
+    race_ddr = sum(race.bandwidth(w.name) for w in ddr)
+    miku_ddr = sum(miku.bandwidth(w.name) for w in ddr)
+    miku_cxl = sum(miku.bandwidth(w.name) for w in cxl)
+    return [{
+        "platform": cell["platform"],
+        "ratio": cell["ratio"],
+        "racing_ddr_gbps": race_ddr,
+        "miku_ddr_gbps": miku_ddr,
+        "miku_cxl_gbps": miku_cxl,
+        "miku_gain": miku_ddr / max(race_ddr, 1e-9),
+    }]
+
+
+# -- Three-tier co-runs: DDR + local CXL + CXL behind a switch ---------------
+
+_CORUN3_TIERS = ("ddr", "cxl", "cxl_sw")
+_CORUN3P_SLOW = ("cxl", "cxl_sw")
+
+
+def _corun3_jobs(platform, cell, **miku) -> List[SimJob]:
+    """Each tier's bw-test alone, then the three co-running."""
+    op, n = cell["op"], cell["n_threads"]
+    wls = [bw_test(t, op, n, name=t, miku_managed=t != "ddr") for t in _CORUN3_TIERS]
+    return ([_job(platform, [w], _BW_SIM_NS) for w in wls]
+            + [_job(platform, wls, cell["sim_ns"], **miku)])
+
+
+def _corun3_build(platform, cell) -> List[SimJob]:
+    return _corun3_jobs(platform, cell, miku=cell["miku"])
+
+
+def _corun3_reduce(platform, cell, jobs, results) -> List[dict]:
+    *alone, corun = results
+    row = {"platform": cell["platform"], "op": cell["op"].value, "miku": cell["miku"]}
+    for tier, res in zip(_CORUN3_TIERS, alone):
+        row[f"{tier}_alone_gbps"] = res.bandwidth(tier)
+        row[f"{tier}_corun_gbps"] = corun.bandwidth(tier)
+        row[f"t_{tier}_corun_ns"] = corun.tier_counters[tier].mean_service_time
+    row["ddr_loss_pct"] = 100.0 * (1 - corun.bandwidth("ddr")
+                                   / max(alone[0].bandwidth("ddr"), 1e-9))
+    return [row]
+
+
+def _corun3p_build(platform, cell) -> List[SimJob]:
+    law = cell["law"]
+    return _corun3_jobs(platform, cell, miku=law != "racing",
+                        miku_law=law if law != "racing" else "pertier")
+
+
+def _corun3p_reduce(platform, cell, jobs, results) -> List[dict]:
+    *alone, corun = results
+    row = {"platform": cell["platform"], "op": cell["op"].value, "law": cell["law"]}
+    for tier, res in zip(_CORUN3_TIERS, alone):
+        row[f"{tier}_alone_gbps"] = res.bandwidth(tier)
+        row[f"{tier}_corun_gbps"] = corun.bandwidth(tier)
+    row["ddr_pct_of_opt"] = 100.0 * corun.bandwidth("ddr") / max(
+        alone[0].bandwidth("ddr"), 1e-9)
+    # Per-slow-tier ladder telemetry: the merged law's broadcast makes the
+    # two columns identical, the per-tier law's need not.
+    top = 16.0  # the ladder's ceiling stands in for "unrestricted" in the mean
+    for tier in _CORUN3P_SLOW:
+        if cell["law"] == "racing":
+            row[f"{tier}_restricted_windows"] = 0
+            row[f"{tier}_mean_cap"] = top
+            row[f"{tier}_mean_rate"] = 1.0
+            continue
+        ds = [d.for_tier(tier) for d in corun.decisions]
+        caps = [float(d.max_concurrency) if d.max_concurrency is not None else top
+                for d in ds]
+        row[f"{tier}_restricted_windows"] = sum(1 for d in ds if d.restricted)
+        row[f"{tier}_mean_cap"] = sum(caps) / max(len(caps), 1)
+        row[f"{tier}_mean_rate"] = sum(d.rate_factor for d in ds) / max(len(ds), 1)
+    return [row]
+
+
 # -- Sweep-scale co-run grids (the batched lane at scale) ---------------------
 
 
@@ -407,6 +561,35 @@ def _corun_sweep_reduce(platform, cell, jobs, results) -> List[dict]:
         "ddr_gbps": res.bandwidth("ddr"),
         "cxl_gbps": res.bandwidth("cxl"),
         "restricted_windows": sum(1 for d in res.decisions if d.restricted),
+    }]
+
+
+# -- NUMA-remote DDR striping under a CXL co-run ------------------------------
+
+
+def _numa_build(platform, cell) -> List[SimJob]:
+    op, n, f = cell["op"], cell["n_threads"], cell["remote_fraction"]
+    striped = WorkloadSpec(name="striped", op=op, tier="ddr", n_cores=n, mlp=160,
+                           miku_managed=False, placement={"ddr": 1.0 - f, "ddr_remote": f})
+    cxl_bg = bw_test("cxl", op, n, name="cxl")
+    return [
+        _job(platform, [striped], cell["sim_ns"]),
+        _job(platform, [striped, cxl_bg], cell["sim_ns"]),
+    ]
+
+
+def _numa_reduce(platform, cell, jobs, results) -> List[dict]:
+    alone, corun = results
+    return [{
+        "platform": cell["platform"],
+        "op": cell["op"].value,
+        "remote_fraction": cell["remote_fraction"],
+        "striped_alone_gbps": alone.bandwidth("striped"),
+        "striped_corun_gbps": corun.bandwidth("striped"),
+        "cxl_corun_gbps": corun.bandwidth("cxl"),
+        "striped_avg_lat_ns": alone.stats["striped"].mean_latency_ns(),
+        "local_inserts": alone.tier_counters["ddr"].inserts,
+        "remote_inserts": alone.tier_counters["ddr_remote"].inserts,
     }]
 
 
@@ -525,6 +708,55 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
         slow=True,
     ),
     Scenario(
+        name="fig13_spark",
+        title="Shuffle-heavy big-data phases co-running, racing vs MIKU",
+        axes=(
+            _platform_axis(),
+            Axis("sim_ns", 400_000.0, "simulated horizon"),
+        ),
+        build=_fig13_build,
+        reduce=_fig13_reduce,
+    ),
+    Scenario(
+        name="fig14_kv",
+        title="Concurrent hashmap (YCSB) read:write sweep, racing vs MIKU",
+        axes=(
+            _platform_axis(),
+            Axis("ratio", (0, 1, 4), "reads per write"),
+            Axis("sim_ns", 300_000.0, "simulated horizon"),
+        ),
+        build=_fig14_build,
+        reduce=_fig14_reduce,
+    ),
+    Scenario(
+        name="corun3_switch",
+        title="Three-tier co-run: DDR + local CXL + CXL-over-switch",
+        axes=(
+            _platform_axis("A-switch"),
+            _op_axis(),
+            Axis("n_threads", 16, "threads per co-running group"),
+            Axis("miku", (False, True), "enable the MIKU controller"),
+            Axis("sim_ns", 300_000.0, "co-run simulated horizon"),
+        ),
+        build=_corun3_build,
+        reduce=_corun3_reduce,
+    ),
+    Scenario(
+        name="corun3_pertier",
+        title="Per-tier vs merged MIKU ladders on the three-tier co-run",
+        axes=(
+            _platform_axis("A-switch"),
+            _op_axis(OpClass.STORE),
+            Axis("law", ("racing", "merged", "pertier"),
+                 "control law for the co-run (racing = no controller, merged = "
+                 "MergedSlowPolicy broadcast, pertier = per-slow-tier ensemble)"),
+            Axis("n_threads", 16, "threads per co-running group"),
+            Axis("sim_ns", 300_000.0, "co-run simulated horizon"),
+        ),
+        build=_corun3p_build,
+        reduce=_corun3p_reduce,
+    ),
+    Scenario(
         name="corun_sweep",
         title="Sweep-scale co-run grid (96 cells): threads x op x MIKU x platform",
         axes=(
@@ -556,6 +788,20 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
         reduce=_corun_sweep_reduce,
         slow=True,
     ),
+    Scenario(
+        name="numa_remote",
+        title="NUMA-remote DDR striping (placement vector) under CXL co-run",
+        axes=(
+            _platform_axis("A-numa"),
+            _op_axis(OpClass.LOAD),
+            Axis("remote_fraction", (0.0, 0.25, 0.5),
+                 "request fraction striped to the remote socket's DDR"),
+            Axis("n_threads", 16, "striped-workload thread count"),
+            Axis("sim_ns", 200_000.0, "simulated horizon"),
+        ),
+        build=_numa_build,
+        reduce=_numa_reduce,
+    ),
 )}
 
 #: The reference's other scenarios, each with what it waits for (ROADMAP
@@ -563,13 +809,8 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
 _SCALAR = "the scalar DES lane"
 UNPORTED: Dict[str, str] = {
     "fig2_tiering": f"a run_cell scenario pinned to {_SCALAR}",
-    "fig13_spark": "queued behind this slice's figures",
-    "fig14_kv": "queued behind this slice's figures",
-    "corun3_switch": "the A-switch platform",
-    "corun3_pertier": "the A-switch platform and the merged law",
     "migrate_interference": "vector tiering",
     "tiering_policies": "vector tiering",
-    "numa_remote": "the A-numa platform",
     "fabric_spine_congestion": "the fabric law",
     "fabric_port_overflow": "the fabric law",
     "fabric_miku": "the fabric law",

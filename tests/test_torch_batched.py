@@ -502,8 +502,10 @@ def test_run_scenario_rows_match_reference(monkeypatch):
 
 
 def test_lane_refuses_what_is_still_not_ported():
-    """The merged law, per-window telemetry and the scalar lane are not
-    ported: the lane names them instead of falling back."""
+    """The per-edge law (it needs the fabric) and the scalar lane are not
+    ported: the lane names them instead of falling back.  The merged law
+    and per-window telemetry now run (tests/test_torch_corun3.py and
+    tests/test_torch_fig13_14.py hold them to the reference)."""
     p = platform_a()
     two = [bw_test("ddr", OpClass.LOAD, 4, name="ddr", miku_managed=False),
            bw_test("cxl", OpClass.LOAD, 4, name="cxl")]
@@ -512,12 +514,14 @@ def test_lane_refuses_what_is_still_not_ported():
     merged = SimJob(platform=p, workloads=two, sim_ns=20_000.0, miku=True,
                     miku_law="merged")
     windows = SimJob(platform=p, workloads=two, sim_ns=20_000.0, record_windows=True)
-    _, refused = partition_jobs([single, merged, windows])
-    assert [i for i, _ in refused] == [1, 2]
-    assert "miku_law" in refused[0][1] and "record_windows" in refused[1][1]
-    for job in (merged, windows):
-        with pytest.raises(NotImplementedError):
-            run_sweep_batched([job], device="cpu")
+    peredge = SimJob(platform=p, workloads=two, sim_ns=20_000.0, miku=True,
+                     miku_law="peredge")
+    plans, refused = partition_jobs([single, merged, windows, peredge])
+    assert [i for i, _ in refused] == [3]
+    assert "miku_law" in refused[0][1] and "fabric" in refused[0][1]
+    assert plans[1].merged and len(plans[1].units) == 1 and plans[3] is None
+    with pytest.raises(NotImplementedError, match="peredge"):
+        run_sweep_batched([peredge], device="cpu")
     with pytest.raises(NotImplementedError, match="scalar DES"):
         run_sweep([single], lane="scalar", device="cpu")
     with pytest.raises(ValueError, match="miku_law"):
