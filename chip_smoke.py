@@ -75,9 +75,23 @@ Phases, each printed as one JSON line:
  17. k3_instance_timing: K3's <8, 8> instance at the largest group of 16
      (its first window) and at a kilo-cell three-tier grid (C = 1024, W = 3,
      S = 4), against its plain version, with call, kernel-alone, plain and
-     bound times and the instance's registers and spills from ptxas.
+     bound times and the instance's registers and spills from ptxas;
+ 18. tiering: migrate_interference and tiering_policies (vector tiering:
+     MIGRATE pseudo-workloads, routing and issue gating rewritten every
+     window) on the card, held against the plain lane as in 14, each
+     tiering job's pages promoted and demoted, deferrals, migrated bytes
+     and fast fraction beside the plain lane's, the reference's cross-lane
+     bounds on them, the naive/MIKU headline on the card's rows, and the
+     tiering pass's host ms, host copies and uploads per window;
+ 19. trace: run_scenario(trace=True) on the card: migrate_interference at
+     60 us (tiering blocks in every record of a tiering job, the schema of
+     the plain lane's traces, JSON) and corun3_pertier under the merged law
+     (a decision block for both slow tiers);
+ 20. serve_kv: serve_smoke's cluster with the host engine's KV stream split
+     by a KV PageMap, K1's launches read around it, its simulated tokens/s
+     and fast/slow KV bytes equal to the same run on the CPU.
 The figures' plain lane runs in CPU worker processes from the build on.
-They run in this order: 1-5, 12, 13, 6, 7, 9, 14, 16, 17, 15, 8, 10, 11.  Every
+They run in this order: 1-5, 12, 20, 13, 6, 7, 9, 14, 16, 18, 19, 17, 15, 8, 10, 11.  Every
 line carries ``elapsed_s``, the seconds since the script started.
 The line before the last lists every kernel's numbers; the last line is the
 device summary.  Any failed check exits non-zero; without CUDA (or without
@@ -149,7 +163,8 @@ PLAIN_LANE_WORKERS = (("fig10_miku",),
                       ("loaded_latency", "fig5_corun", "fig3_bandwidth", "fig4_latency"),
                       ("fig7_llc", "fig8_sync", "fig6_tor_correlation", "fig9_service"),
                       ("fig13_spark", "fig14_kv", "corun3_switch", "corun3_pertier",
-                       "numa_remote"))
+                       "numa_remote"),
+                      ("migrate_interference", "tiering_policies"))
 #: The figures' decision-flip jobs against the plain lane: the kilo grid's
 #: 12 in 1024 cells, scaled to the figures' 140 jobs and rounded down (63
 #: of them run on the fluid engine, 6 of those with MIKU).
@@ -161,6 +176,23 @@ FIGURES3 = ("fig13_spark", "fig14_kv", "corun3_switch", "corun3_pertier", "numa_
 #: Their decision-flip jobs against the plain lane, over all five (52 jobs,
 #: 24 on the fluid engine, 9 of them with MIKU).
 FIGURES3_MAX_FLIPS = 1
+#: The tiering phase's scenarios (the tiering subsystem on the batched
+#: lane), the reference's declaration order, and their decision-flip jobs
+#: against the plain lane over both (7 jobs, 3 with MIKU).
+TIERING = ("migrate_interference", "tiering_policies")
+TIERING_MAX_FLIPS = 1
+#: The reference's cross-lane bounds on the tiering counters
+#: (tests/test_batched_tiering.py:159-230), held between the card and the
+#: plain lane: hotness_lru's fast fraction within this of the plain lane's
+#: and above the floor, promotions and demotions at most the factor times
+#: the plain lane's and above the minimum.
+TIERING_FAST_FRACTION_TOL = 0.15
+TIERING_FAST_FRACTION_FLOOR = 0.6
+TIERING_COUNT_FACTOR = 2
+TIERING_MIN_PROMOTIONS = 200
+#: The per-window telemetry block of a tiering job's window record.
+TIERING_RECORD_KEYS = ("promoted", "demoted", "enqueued", "deferred", "backlog_pages",
+                       "migrated_bytes")
 #: (C, W, S, padded workloads, padded stations) of the random K3 windows.
 K3_RANDOM_CASES = ((1024, 2, 3, 0, 0), (256, 3, 4, 1, 0), (128, 8, 5, 2, 1),
                    (512, 5, 3, 0, 0))
@@ -450,6 +482,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     serve_smoke(dev)
+    kv = serve_kv(dev)
     fig11 = fig11_phase(dev)
 
     k2_row = k2_check(dev)
@@ -460,6 +493,8 @@ def main() -> None:
          scenarios=sorted(plain))
     figures = figures_phase(dev, plain)
     figures3 = figures3_phase(dev, plain)
+    tiering = tiering_phase(dev, plain)
+    traced = trace_phase(dev)
     k3_88 = k3_instance_timing(dev, figures3.pop("firsts"),
                                next(lib for lib in libs if lib.name.startswith("fluid_solver"))
                                .with_suffix(".ptxas.txt"))
@@ -499,6 +534,8 @@ def main() -> None:
         # head_dim 32 (the smoke configs'): its launches in fig11's run, and
         # its readings at the smoke serve shape and a long cache.
         "fig11_launches": fig11["k1_launches"],
+        # The smoke cluster with the host engine's KV split by a KV PageMap.
+        "serve_kv_launches": kv["k1_launches"],
         "dh32": {name[len("dh32_"):]: {k: sweep[name][k] for k in K1_FIELDS}
                  for name in sweep if name.startswith("dh32_")},
     }, {
@@ -524,6 +561,10 @@ def main() -> None:
         "figures3_launches": figures3["k3_launches"],
         "figures3_instances": figures3["k3_instances"],
         "instance_8x8": k3_88,
+        # The tiering subsystem's scenarios, and the traced runs.
+        "tiering_launches": tiering["k3_launches"],
+        "tiering_instances": tiering["k3_instances"],
+        "trace_launches": traced["k3_launches"],
         **k3_row,
     }, {
         "name": "ssd_scan",
@@ -1172,9 +1213,14 @@ def grid_phase(phase, names, plain, capture_first=False):
         finally:
             restore()
             fluid.kernel.fused_window_solve = solve
+        c = fluid.COUNTS
         return rows, got["jobs"], got["results"], dict(
             wall_s=wall, k3_launches=fs.WINDOW_SOLVE_LAUNCHES.count,
-            windows=fluid.COUNTS.windows, shapes=sorted(shapes))
+            windows=c.windows, shapes=sorted(shapes),
+            host_copies_per_window=c.host_copies / max(1, c.windows),
+            uploads_per_window=c.uploads / max(1, c.windows),
+            tiering_passes=c.tiering_steps,
+            tiering_host_ms_per_window=c.tiering_s * 1e3 / max(1, c.windows))
 
     def same_exact(a, b):
         return (a.tor_inserts == b.tor_inserts and a.tor_peak == b.tor_peak
@@ -1185,7 +1231,7 @@ def grid_phase(phase, names, plain, capture_first=False):
                         for w in a.stats))
 
     total = dict(k3_launches=0, instances=set(), exact_jobs=0, exact_mismatches=0,
-                 fluid_jobs=0, flips=0, errs=[], rows={}, firsts=firsts)
+                 fluid_jobs=0, flips=0, errs=[], rows={}, results={}, firsts=firsts)
     for name in names:
         rows, jobs, res, info = run(name)
         walls = []
@@ -1216,12 +1262,17 @@ def grid_phase(phase, names, plain, capture_first=False):
                    decision_flip_jobs=n_flip, wall_s=info["wall_s"],
                    plain_lane_cpu_wall_s=plain[name]["wall_s"], windows=info["windows"],
                    k3_launches=info["k3_launches"],
+                   host_copies_per_window=info["host_copies_per_window"],
+                   uploads_per_window=info["uploads_per_window"],
                    k3_groups=[dict(C=C, W=W, S=S) for C, W, S in info["shapes"]],
                    k3_instances=[f"<{w}, {s}>" for w, s in instances],
                    device_busy_share=dev_s / walls[0], wall_s_profiled=walls[0])
         if name == "fig10_miku":
             row["fig10"] = [{k: r[k] for k in ("platform", "op", "racing_ddr", "miku_ddr")}
                             for r in rows]
+        if info["tiering_passes"]:
+            row.update(tiering_passes=info["tiering_passes"],
+                       tiering_host_ms_per_window=info["tiering_host_ms_per_window"])
         if name == "corun3_pertier":
             row["corun3_pertier"] = [{k: r[k] for k in (
                 "law", "ddr_pct_of_opt", "cxl_mean_cap", "cxl_sw_mean_cap",
@@ -1238,6 +1289,7 @@ def grid_phase(phase, names, plain, capture_first=False):
         total["exact_mismatches"] += mism
         total["fluid_jobs"] += len(jobs) - n_exact
         total["rows"][name] = rows
+        total["results"][name] = res
     total["errs"].sort()
     errs = total["errs"]
     total["p95"] = errs[int(0.95 * (len(errs) - 1))] if errs else 0.0
@@ -1291,6 +1343,216 @@ def figures3_phase(dev, plain):
           f"figures3: K3 ran the instances {total['instance_names']}, not <8, 8>")
     return dict(k3_launches=total["k3_launches"], k3_instances=total["instance_names"],
                 firsts=total["firsts"])
+
+
+def tiering_phase(dev, plain):
+    """Phase 18: migrate_interference and tiering_policies (the tiering
+    subsystem: W = 3 groups whose third workload is a MIGRATE
+    pseudo-workload, routing and issue gating that change every window) on
+    the card (:func:`grid_phase`, the figures' gates over both), each
+    tiering job's counters beside the plain lane's, the reference's
+    cross-lane bounds on them, and the naive/MIKU headline on the card's
+    rows.  Returns K3's launches and instances."""
+    total = grid_phase("tiering", TIERING, plain)
+    emit_grid_totals("tiering", total, TIERING_MAX_FLIPS)
+    keys = ("pages_promoted", "pages_demoted", "deferred_jobs", "migrated_bytes")
+    jobs = []
+    for name in TIERING:
+        for i, (k, p) in enumerate(zip(total["results"][name], plain[name]["results"])):
+            if k.tiering is None:
+                continue
+            row = dict(scenario=name, job=i, policy=k.tiering["policy"])
+            for key in keys:
+                row[key], row[f"plain_{key}"] = k.tiering[key], p.tiering[key]
+                row[f"diff_{key}"] = k.tiering[key] - p.tiering[key]
+            ((region, frac),) = k.tiering["fast_fraction"].items()
+            row.update(region=region, fast_fraction=frac,
+                       plain_fast_fraction=p.tiering["fast_fraction"][region],
+                       diff_fast_fraction=frac - p.tiering["fast_fraction"][region])
+            jobs.append(row)
+    mig = {r["variant"]: r for r in total["rows"]["migrate_interference"]}
+    headline = {v: {k: mig[v][k] for k in ("ddr_pct_of_demand_only", "deferred_jobs",
+                                         "pages_promoted", "mig_gbps")} for v in mig}
+    emit("tiering", scenario="counters", jobs=jobs, headline=headline)
+    for k, p in zip(total["rows"]["tiering_policies"], plain["tiering_policies"]["rows"]):
+        where = f"tiering_policies {k['platform']} {k['policy']}"
+        if p["policy"] == "static":
+            check(k["pages_promoted"] == p["pages_promoted"] == 0,
+                  f"{where}: a static placement promoted pages")
+            continue
+        check(abs(k["app_fast_fraction"] - p["app_fast_fraction"]) <= TIERING_FAST_FRACTION_TOL
+              and k["app_fast_fraction"] > TIERING_FAST_FRACTION_FLOOR,
+              f"{where}: fast fraction {k['app_fast_fraction']}, plain lane "
+              f"{p['app_fast_fraction']}")
+        check(min(k["pages_promoted"], p["pages_promoted"]) > TIERING_MIN_PROMOTIONS
+              and k["pages_promoted"] <= TIERING_COUNT_FACTOR * p["pages_promoted"]
+              and k["pages_demoted"] <= TIERING_COUNT_FACTOR * p["pages_demoted"],
+              f"{where}: promoted/demoted {k['pages_promoted']}/{k['pages_demoted']}, "
+              f"plain lane {p['pages_promoted']}/{p['pages_demoted']}")
+    check(mig["naive"]["ddr_pct_of_demand_only"] < 90.0
+          and mig["miku"]["ddr_pct_of_demand_only"] > 97.0 and mig["miku"]["deferred_jobs"] > 0,
+          f"migrate_interference on the card: naive migration does not hurt DDR or MIKU "
+          f"does not restore it: {headline}")
+    check(total["k3_launches"] > 0, "tiering: no K3 launch")
+    return dict(k3_launches=total["k3_launches"], k3_instances=total["instance_names"])
+
+
+def trace_schema_mismatches(card, plain) -> list:
+    """Where the card's trace payload differs in schema from the plain
+    lane's, compared as the reference's cross-lane trace test does
+    (tests/test_batched_tiering.py:260-289): cells, jobs, workloads, window
+    counts and numbers, and the keys of every record and block."""
+    out = []
+    if len(card) != len(plain):
+        return [f"{len(card)} cells != {len(plain)}"]
+    for cc, cp in zip(card, plain):
+        if cc["cell"] != cp["cell"] or len(cc["jobs"]) != len(cp["jobs"]):
+            out.append(f"cell {cc['cell']}")
+            continue
+        for jc, jp in zip(cc["jobs"], cp["jobs"]):
+            if jc["workloads"] != jp["workloads"] or len(jc["windows"]) != len(jp["windows"]):
+                out.append(f"job {jc['job']}: workloads or window count")
+                continue
+            for rc, rp in zip(jc["windows"], jp["windows"]):
+                where = f"job {jc['job']} window {rp['window']}"
+                if set(rc) != set(rp) or rc["window"] != rp["window"]:
+                    out.append(f"{where}: keys {sorted(rc)} != {sorted(rp)}")
+                    continue
+                for block in ("tiers", "decision"):
+                    if block in rp and (set(rc[block]) != set(rp[block]) or any(
+                            set(rc[block][t]) != set(v) for t, v in rp[block].items())):
+                        out.append(f"{where}: {block}")
+                if "tiers" in rp and any(set(rc["tiers"][t]["class_counts"])
+                                         != set(v["class_counts"])
+                                         for t, v in rp["tiers"].items()):
+                    out.append(f"{where}: class_counts")
+                if "tiering" in rp and set(rc["tiering"]) != set(rp["tiering"]):
+                    out.append(f"{where}: tiering")
+    return out
+
+
+def trace_phase(dev):
+    """Phase 19: traced runs on the card, K3's count set to 0 just before
+    each and read just after.  migrate_interference at 60 µs with
+    ``trace=True``: every window record of a tiering job carries the tiering
+    block, the traces' schema equals the plain lane's (the CPU, in this
+    process) the way the reference's cross-lane trace test compares them,
+    and they serialize; corun3_pertier under the merged law, traced: its
+    records carry a decision block for both slow tiers, equal (the
+    broadcast)."""
+    import torch
+
+    from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.memsim.batched import fluid
+    from repro_torch.scenarios import run_scenario
+
+    def traced(name, overrides, device=None):
+        fs.WINDOW_SOLVE_LAUNCHES.reset()
+        fluid.COUNTS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows, traces = run_scenario(name, overrides, device=device, trace=True)
+        torch.cuda.synchronize()
+        return rows, traces, dict(wall_s=time.perf_counter() - t0,
+                                  k3_launches=fs.WINDOW_SOLVE_LAUNCHES.count,
+                                  windows=fluid.COUNTS.windows)
+
+    over = {"sim_ns": 60_000.0}
+    _, traces, info = traced("migrate_interference", over)
+    _, plain, _ = traced("migrate_interference", over, device="cpu")
+    mismatches = trace_schema_mismatches(traces, plain)
+    tiered = [j for c in traces for j in c["jobs"] if any("tiering" in w for w in j["windows"])]
+    missing = [(j["job"], w["window"]) for j in tiered for w in j["windows"]
+               if not set(TIERING_RECORD_KEYS) <= set(w.get("tiering", ()))]
+    payload = json.dumps(traces)
+    emit("trace", scenario="migrate_interference", overrides=over, **info,
+         jobs=sum(len(c["jobs"]) for c in traces), tiering_jobs=len(tiered),
+         records=sum(len(j["windows"]) for c in traces for j in c["jobs"]),
+         json_bytes=len(payload), schema_mismatches=mismatches[:10],
+         records_missing_tiering_keys=missing[:10],
+         last_tiering_block=tiered[-1]["windows"][-1]["tiering"] if tiered else None)
+    check(info["k3_launches"] == info["windows"] > 0,
+          f"trace: {info['k3_launches']} K3 launches for {info['windows']} windows")
+    check(len(tiered) == 2 and not missing, f"trace: tiering blocks missing: {missing[:5]}")
+    check(not mismatches, f"trace: the card's schema differs from the plain lane's: "
+          f"{mismatches[:5]}")
+
+    _, traces3, info3 = traced("corun3_pertier", {"law": "merged"})
+    recs = [w for c in traces3 for j in c["jobs"] for w in j["windows"] if "decision" in w]
+    bad = [w["window"] for w in recs if set(w["decision"]) != {"cxl", "cxl_sw"}
+           or w["decision"]["cxl"] != w["decision"]["cxl_sw"]]
+    json.dumps(traces3)
+    emit("trace", scenario="corun3_pertier", overrides={"law": "merged"}, **info3,
+         records_with_decisions=len(recs), bad_records=bad[:10],
+         first_decision=recs[0]["decision"] if recs else None)
+    check(info3["k3_launches"] == info3["windows"] > 0,
+          f"trace corun3_pertier: {info3['k3_launches']} K3 launches for "
+          f"{info3['windows']} windows")
+    check(recs and not bad, f"trace corun3_pertier: {len(recs)} records with decisions, "
+          f"these without both slow tiers' (equal) blocks: {bad[:5]}")
+    return dict(k3_launches=info["k3_launches"] + info3["k3_launches"])
+
+
+def serve_kv(dev):
+    """Phase 20: serve_smoke's cluster (the smoke config, MIKU) with the
+    host engine's KV stream split by a KV PageMap (a region named after the
+    engine, half its pages on each tier, a drifting hot set), on the card
+    with K1's count set to 0 just before and read just after, then on the
+    CPU: the simulated tokens/s and the fast/slow KV bytes must be equal."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.launch.serve import build_cluster
+    from repro_torch.tiering import HotSetPattern, PageMap
+
+    def run(device):
+        cluster = build_cluster(device=device)
+        host = cluster.engines[1]
+        n_pages = -(-host.cfg.max_slots * host.cfg.max_len * host.kv_bytes_per_token // 4096)
+        pm = PageMap(("hbm", "host"), fast_capacity_pages=n_pages // 2)
+        pm.add_region(host.cfg.name, n_pages, 4096, {"hbm": 0.5, "host": 0.5},
+                      HotSetPattern(drift_pages=1.0))
+        host.kv_pagemap = pm
+        kv = [0, 0]
+        split = host.kv_tier_bytes
+
+        def tally(kv_bytes):
+            fast, slow = split(kv_bytes)
+            kv[0] += fast
+            kv[1] += slow
+            return fast, slow
+
+        host.kv_tier_bytes = tally
+        k1.LAUNCHES.reset()
+        if device is None:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cluster.run(10_000)
+        if device is None:
+            torch.cuda.synchronize()
+        return dict(result=res, kv_fast_bytes=kv[0], kv_slow_bytes=kv[1], n_pages=n_pages,
+                    wall_s=time.perf_counter() - t0, k1_launches=k1.LAUNCHES.count,
+                    decode_steps=sum(e.decode_steps for e in cluster.engines),
+                    n_layers=host.cfg.model.n_layers)
+
+    card = run(None)
+    cpu = run("cpu")
+    same = (card["result"] == cpu["result"] and card["kv_fast_bytes"] == cpu["kv_fast_bytes"]
+            and card["kv_slow_bytes"] == cpu["kv_slow_bytes"])
+    emit("serve_kv", simulated_tokens_per_s={k: v["tokens_per_s"]
+                                             for k, v in card["result"].items()},
+         kv_fast_bytes=card["kv_fast_bytes"], kv_slow_bytes=card["kv_slow_bytes"],
+         kv_pages=card["n_pages"], equal_to_cpu=same, wall_s=card["wall_s"],
+         cpu_wall_s=cpu["wall_s"], decode_steps=card["decode_steps"],
+         k1_launches=card["k1_launches"],
+         layers_x_decode_steps=card["n_layers"] * card["decode_steps"],
+         simulated_note="tok/s on the queue clock with the reference's tier constants")
+    check(same, f"serve_kv: the card's run differs from the CPU's: {card} vs {cpu}")
+    check(card["kv_fast_bytes"] > 0 and card["kv_slow_bytes"] > 0,
+          "serve_kv: the KV PageMap split no bytes")
+    check(card["k1_launches"] == card["n_layers"] * card["decode_steps"] > 0,
+          f"serve_kv: K1 launches {card['k1_launches']} != layers x decode steps")
+    return dict(k1_launches=card["k1_launches"])
 
 
 def k3_instance_timing(dev, firsts, ptxas_path):

@@ -157,6 +157,18 @@ class SlowTierMiku:
         caps = [self.config.class_caps.get(c, 1) for c in slow_classes]
         return min(caps) if caps else max(self.config.levels)
 
+    def migration_budget(self) -> int:
+        """Concurrent migration streams this ladder tolerates on its tier:
+        the MIGRATE class cap while unrestricted, the current level (bounded
+        by that cap) while restricted, and zero once fine-grained rate
+        control has engaged (best-effort copies stand down)."""
+        cap = self.config.class_caps.get(OpClass.MIGRATE, 1)
+        if self.phase is Phase.UNRESTRICTED:
+            return cap
+        if self._rate < 1.0:
+            return 0
+        return min(cap, self._level_value())
+
     def _level_value(self) -> int:
         return self.config.levels[self._level_idx]
 
@@ -361,6 +373,11 @@ class MikuController:
         )
         self.decisions.append(decision)
         return decision
+
+    def migration_budgets(self) -> Dict[str, int]:
+        """Per-slow-tier migration budgets (tier name -> allowed concurrent
+        migration streams), what a MIKU-coordinated tiering policy consults."""
+        return {u.tier: u.migration_budget() for u in self.units}
 
     def reset(self) -> None:
         """Reset every per-tier unit and clear the decision history."""
@@ -613,3 +630,15 @@ class VectorMikuLadder:
             "backlogged": backlogged,
             "valid": valid,
         }
+
+    def migration_budgets(self) -> torch.Tensor:
+        """Per-(cell, unit) migration budgets (int64, on the ladder's device)
+        from the current ladder state, :meth:`SlowTierMiku.migration_budget`
+        vectorized: the MIGRATE class cap while unrestricted, zero once rate
+        control has engaged, else the current level bounded by that cap.
+        Read after :meth:`window`, the post-window state a policy sees."""
+        cap = self.class_caps[:, :, tuple(OpClass).index(OpClass.MIGRATE)]
+        lvl = self.levels_arr[self.level]
+        return torch.where(~self.restricted, cap,
+                           torch.where(self.rate < 1.0, 0.0,
+                                       torch.minimum(cap, lvl))).to(torch.int64)

@@ -10,7 +10,8 @@ and exports for array stacking.
 The event-driven DES itself (``TieredMemorySim.run``) is not ported: the
 port's sweeps run on the window-lockstep fluid engine
 (:mod:`repro_torch.memsim.batched`), which reads only these constants.
-Open-loop arrivals and fabric hosts are not ported either.
+Open-loop arrivals and fabric hosts are not ported either.  A tiering
+hook binds to the export instead of a live sim.
 """
 
 from __future__ import annotations
@@ -140,6 +141,9 @@ class SimResult:
     #: Per-tier latency histograms (keyed by tier name); None unless the job
     #: ran with ``latency_hist=True``.
     tier_latency_hist: Optional[dict] = None
+    #: Tiering summary (pages promoted/demoted, migrated bytes, deferrals,
+    #: final fast fractions); None unless the job carried a tiering spec.
+    tiering: Optional[dict] = None
 
     def bandwidth(self, name: str) -> float:
         return self.stats[name].bandwidth_gbps(self.sim_ns)
@@ -182,14 +186,18 @@ def export_state(
     workloads: Sequence[WorkloadSpec],
     granularity: int = 4,
     window_ns: float = 20_000.0,
+    tiering=None,
 ) -> dict:
     """The static per-sim state the batched lane stacks, as plain values.
 
     Equal to ``repro.core.des.TieredMemorySim(platform, workloads,
-    granularity=..., window_ns=...).export_state()`` for workloads without
-    a tiering hook, derived from the same per-workload loop of the
-    reference's constructor without building the event engine (which is
-    not ported).
+    granularity=..., window_ns=..., tiering=...).export_state()``, derived
+    from the same per-workload loop of the reference's constructor without
+    building the event engine (which is not ported).  A tiering hook
+    (:class:`repro_torch.tiering.hook.TieringHook`) appends its migration
+    workloads and is bound to the export, which then carries the tracked
+    workloads' PageMap-derived routing and the migration workloads gated
+    closed, as the reference's bound sim exports them.
 
     Keys: ``tier_names`` / ``st_slots`` / ``pipe`` (the stations are the
     tiers plus one trailing LLC station); ``tor_capacity`` /
@@ -199,6 +207,9 @@ def export_state(
     device), the static tier routing ``w_tier_frac`` and the phase schedule
     ``w_phases`` as (duration_ns, tier index) pairs.
     """
+    workloads = list(workloads)
+    if tiering is not None:
+        workloads += tiering.migration_workloads(platform)
     validate_workloads(platform, workloads)
     tiers = platform.tiers
     names = platform.tier_names
@@ -223,7 +234,7 @@ def export_state(
             [(dur, names.index(t)) for dur, t in w.phases] if w.phases
             else None
         )
-    return {
+    export = {
         "tier_names": list(names),
         "n_tiers": len(tiers),
         "granularity": g,
@@ -247,3 +258,6 @@ def export_state(
         "w_sync": [bool(w.sync) for w in workloads],
         "w_phases": w_phases,
     }
+    if tiering is not None:
+        tiering.bind(export, platform)
+    return export

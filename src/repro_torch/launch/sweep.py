@@ -5,10 +5,13 @@ its rows (counterpart of ``benchmarks/run.py --scenario X --lane batched``).
   PYTHONPATH=src python -m repro_torch.launch.sweep corun_sweep_1k
   PYTHONPATH=src python -m repro_torch.launch.sweep fig9_service --set tier=cxl --device cpu
   PYTHONPATH=src python -m repro_torch.launch.sweep fig11_llm --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.sweep migrate_interference --trace trace.json
 
 Grid scenarios run on the batched lane, ``fig11_llm`` on the serving
 engines (its tokens/s are the simulated queue clock's).  Runs on the card
-unless ``--device cpu``.  Prints one CSV row per row of the scenario.
+unless ``--device cpu``.  Prints one CSV row per row of the scenario;
+``--trace PATH`` (grid scenarios) also writes every job's per-window
+telemetry records to PATH as JSON.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import argparse
 import csv
 import enum
+import json
 import sys
 import time
 
@@ -39,6 +43,8 @@ def main(argv=None) -> None:
     ap.add_argument("--set", dest="sets", action="append", default=[],
                     metavar="AXIS=VALUE", help="override an axis (comma lists are grids)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="write each job's per-window records to PATH as JSON")
     args = ap.parse_args(argv)
     if args.list:
         for sc in SCENARIOS.values():
@@ -49,8 +55,15 @@ def main(argv=None) -> None:
         ap.error("a scenario name (or --list) is required")
     overrides = parse_set_args(args.scenario, args.sets)
     t0 = time.perf_counter()
-    rows = run_scenario(args.scenario, overrides, device=args.device)
+    if args.trace:
+        rows, traces = run_scenario(args.scenario, overrides, device=args.device,
+                                    trace=True)
+    else:
+        rows = run_scenario(args.scenario, overrides, device=args.device)
     wall = time.perf_counter() - t0
+    if args.trace:
+        with open(args.trace, "w") as f:
+            json.dump(traces, f)
     fields = list(dict.fromkeys(k for r in rows for k in r))
     writer = csv.DictWriter(sys.stdout, fieldnames=fields, restval="", lineterminator="\n")
     writer.writeheader()

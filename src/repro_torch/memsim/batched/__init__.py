@@ -7,6 +7,8 @@ computation (counterpart of ``repro.memsim.batched``).
   per-window equilibrium (:func:`.kernel.fused_window_solve`: the Hopper
   kernel on the card, its plain float64 version on the CPU) and the vector
   MIKU ladder, whose decisions throttle the next window;
+* :mod:`.tiering` — the vector twin of the tiering hook (host numpy): page
+  hotness, migration queues and policies stacked over a group's cells;
 * :mod:`.lane` — :func:`run_sweep_batched`, grouping cells by window
   cadence and rung table.
 """

@@ -33,14 +33,26 @@ are broadcast to each slow tier.  Cells that ask for ``record_windows`` get
 one record per fired window in the schema of
 :func:`~repro_torch.core.substrate.window_record_jsonable` (per-tier
 counter deltas, per-tier decisions and, with ``latency_hist``, the window's
-histogram entries); their per-window counters are gathered on the device
-for those cells only and copied with the final accumulators.  Vector
-tiering is not ported yet.
+histogram entries and the tiering block); their per-window counters are
+gathered on the device for those cells only and copied with the final
+accumulators.
+
+Cells with a tiering spec run the tiering pass after each fired window
+(:class:`~repro_torch.memsim.batched.tiering.VectorTiering`, host numpy):
+completed MIGRATE requests retire page copies, demand completions feed the
+hotness, the policy queues new copies under the ladder's migration budgets
+(or, for a merged cell, its broadcast restricted bit), and the routing and
+migration issue gating it writes apply to the next window.  The window's
+completions of those cells come to the host in the same transfer as the
+ladder's outputs and budgets (a transfer of their own in a group without a
+ladder), and the live routing and issue tables go back to the device only
+in windows where the pass changed them.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -58,6 +70,7 @@ from repro_torch.core.substrate import _decision_jsonable
 from repro_torch.device import resolve_device
 from repro_torch.memsim.batched import kernel
 from repro_torch.memsim.batched.stacking import BatchGroup
+from repro_torch.memsim.batched.tiering import VectorTiering, build_tiering
 from repro_torch.obs.histogram import LatencyHistogram
 
 _OPS = tuple(OpClass)
@@ -69,8 +82,9 @@ _LADDER_FIELDS = ("cap", "rate", "restricted", "t_avg", "alpha", "t_slow",
 
 
 class Counts:
-    """Windows advanced and device-to-host copies made by :func:`run_fluid`
-    since the last :meth:`reset`."""
+    """What :func:`run_fluid` did since the last :meth:`reset`: windows
+    advanced, device-to-host copies, host-to-device uploads inside the
+    window loop, and the tiering passes run with their host seconds."""
 
     def __init__(self) -> None:
         self.reset()
@@ -78,6 +92,9 @@ class Counts:
     def reset(self) -> None:
         self.windows = 0
         self.host_copies = 0
+        self.uploads = 0
+        self.tiering_steps = 0
+        self.tiering_s = 0.0
 
 
 COUNTS = Counts()
@@ -92,6 +109,19 @@ def _to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
     for t in tensors:
         out.append(host[at:at + t.numel()].reshape(tuple(t.shape)))
         at += t.numel()
+    return out
+
+
+def _to_device(dev: torch.device, *arrays: np.ndarray) -> List[torch.Tensor]:
+    """Copy host arrays to ``dev`` as float64 tensors in one transfer."""
+    flat = np.concatenate([np.asarray(a, dtype=np.float64).reshape(-1) for a in arrays])
+    COUNTS.uploads += 1
+    dev_flat = torch.from_numpy(flat).to(dev)
+    out, at = [], 0
+    for a in arrays:
+        n = int(np.prod(np.shape(a)))
+        out.append(dev_flat[at:at + n].reshape(np.shape(a)))
+        at += n
     return out
 
 
@@ -110,10 +140,13 @@ def run_fluid(
     group: BatchGroup,
     ladder: Optional[VectorMikuLadder] = None,
     device=None,
+    tiering: Optional[VectorTiering] = None,
 ) -> List[SimResult]:
     """Run one stacked cell group to its horizons on ``device`` (the card
-    unless ``"cpu"``); SimResults in group order.  ``ladder`` is the group's
-    pre-built :func:`build_ladder` result (built here when omitted)."""
+    unless ``"cpu"``); SimResults in group order.  ``ladder`` and
+    ``tiering`` are the group's pre-built :func:`build_ladder` and
+    :func:`~repro_torch.memsim.batched.tiering.build_tiering` results (built
+    here when omitted)."""
     dev = resolve_device(device)
     C, W, S, T = (len(group.plans), group.n_wl, group.n_st, group.n_tiers)
     llc = group.llc
@@ -123,14 +156,17 @@ def run_fluid(
     merged = np.array([p.merged for p in group.plans])
     hist_mask = np.array([p.job.latency_hist for p in group.plans])
     hist_on = bool(hist_mask.any())
-    # Cells whose fired windows leave a record (a controller-free cell
-    # without histograms records nothing, as the scalar ControlLoop).
-    rec_cells = np.flatnonzero(np.array([p.job.record_windows for p in group.plans])
-                               & (has_ctl | hist_mask))
     n_slow_cell = group.n_tiers_cell - 1
     U = max(1, T - 1)
     if ladder is None:
         ladder = build_ladder(group, dev)
+    vt = tiering if tiering is not None else build_tiering(group)
+    tier_cells = vt.cell_act if vt is not None else np.zeros(C, bool)
+    # Cells whose fired windows leave a record (a cell without a
+    # controller, histograms or tiering records nothing, as the scalar
+    # ControlLoop).
+    rec_cells = np.flatnonzero(np.array([p.job.record_windows for p in group.plans])
+                               & (has_ctl | hist_mask | tier_cells))
     inf = float("inf")
     f64 = dict(dtype=torch.float64, device=dev)
 
@@ -150,12 +186,21 @@ def run_fluid(
     managed = torch.as_tensor(group.managed).to(dev)
     active_w = torch.as_tensor(group.active_w).to(dev)
     cores = put(group.cores)
-    effmlp = put(group.effmlp)
     bytes_t = put(group.bytes_t)
     slots = put(group.slots)
     tor_cap = put(group.tor_cap)
     irq_cap = put(group.irq_cap)
-    tier_frac = put(group.tier_frac)
+    # Live issue tables: routing vectors and effective MLP, which the
+    # tiering pass rewrites on the host (placement re-resolution, migration
+    # issue gating); without tiering they never change.
+    tier_frac_live = group.tier_frac.copy()
+    effmlp_live = group.effmlp.copy()
+    tier_frac, effmlp = put(group.tier_frac), put(group.effmlp)
+    if vt is not None:
+        tier_idx = torch.as_tensor(np.flatnonzero(tier_cells)).to(dev)
+        ins_host = np.zeros((C, W))
+        live = (tier_frac_live, effmlp_live)
+        sent = (tier_frac_live.copy(), effmlp_live.copy())  # what the device holds
 
     # The window clock lives on the host (it decides which cells fire); the
     # per-window lengths go to the device once.
@@ -182,6 +227,7 @@ def run_fluid(
         merged_dev = torch.as_tensor(merged).to(dev)
         unit_of = torch.where(merged_dev[:, None], 0,
                               torch.arange(U, device=dev).clamp(max=L - 1)[None, :])
+        unit_of_host = unit_of.cpu().numpy()
     Wq = torch.zeros((C, S), **f64)  # station waits, warm-started
 
     bytes_w = torch.zeros((C, W), **f64)
@@ -213,8 +259,11 @@ def run_fluid(
         COUNTS.windows += 1
 
         # -- routing & throttles for this window --------------------------
-        frac = (put(group.window_fracs(t0_all[k], t1_all[k])) if has_phases
-                else tier_frac)  # (C, W, T)
+        if has_phases:
+            (frac,) = _to_device(dev, group.window_fracs(t0_all[k], t1_all[k],
+                                                         base=tier_frac_live))
+        else:
+            frac = tier_frac  # (C, W, T)
         route = torch.cat([frac * (1.0 - p_llc)[:, :, None], p_llc[:, :, None]],
                           dim=2)  # stations: tiers, then the LLC (S = T + 1)
         if T > 1:
@@ -276,54 +325,82 @@ def run_fluid(
                                        cls_w.reshape(C, T * n_ops)], dim=1)[rec_idx])
 
         # -- fire the control window (decisions apply to the next one) ----
-        if not fire.any() or ladder is None:
+        if not fire.any():
             continue
-        # Slow-tier window deltas per ladder unit: each tier's own, or for
-        # a merged cell their fold in unit 0.
-        n_avail = min(L, T - 1)
-        slow = [ins_dev.sum(dim=1)[:, 1:], occ_dev.sum(dim=1)[:, 1:], cls_w[:, 1:]]
-        feed = []
-        for x in slow:
-            per = x.new_zeros((C, L) + x.shape[2:])
-            per[:, :n_avail] = x[:, :n_avail]
-            fold = x.new_zeros(per.shape)
-            fold[:, 0] = x.sum(dim=1)
-            feed.append(torch.where(merged_dev.view((C,) + (1,) * (per.dim() - 1)),
-                                    fold, per))
-        out = ladder.window(ins_dev[:, :, 0].sum(dim=1), occ_dev[:, :, 0].sum(dim=1),
-                            cls_w[:, 0], *feed)
-        # Tier-addressed apply: per-tier caps/rates for the next window,
-        # written once for every firing cell with a controller.
-        tier_cap = torch.where(apply_dev[k], out["cap"].gather(1, unit_of), tier_cap)
-        tier_rate = torch.where(apply_dev[k], out["rate"].gather(1, unit_of), tier_rate)
-        host = dict(zip(_LADDER_FIELDS, _to_host(*(out[f] for f in _LADDER_FIELDS))))
-        for ci in np.flatnonzero(fire & has_ctl):
-            names = group.plans[ci].export["tier_names"][1:]
-            ds = []
-            for u in range(int(n_slow_cell[ci])):
-                if merged[ci] and u > 0:
-                    ds.append(ds[0])
-                    continue
-                cap_v = float(host["cap"][ci, u])
-                restricted = bool(host["restricted"][ci, u])
-                est = TierEstimate(
-                    t_avg=float(host["t_avg"][ci, u]),
-                    alpha=float(host["alpha"][ci, u]),
-                    t_slow=float(host["t_slow"][ci, u]),
-                    t_slow_raw=float(host["t_slow_raw"][ci, u]),
-                    threshold=float(host["threshold"][ci, u]),
-                    backlogged=bool(host["backlogged"][ci, u]),
-                    valid=bool(host["valid"][ci, u]),
-                )
-                ds.append(Decision(
-                    max_concurrency=(
-                        None if not restricted or math.isinf(cap_v) else int(cap_v)
-                    ),
-                    rate_factor=float(host["rate"][ci, u]),
-                    phase=Phase.RESTRICTED if restricted else Phase.UNRESTRICTED,
-                    estimate=est,
-                ))
-            decisions[ci].append(TierDecisions(tiers=tuple(names), decisions=tuple(ds)))
+        t_fire = fire & tier_cells
+        host = None
+        if ladder is not None:
+            # Slow-tier window deltas per ladder unit: each tier's own, or for
+            # a merged cell their fold in unit 0.
+            n_avail = min(L, T - 1)
+            slow = [ins_dev.sum(dim=1)[:, 1:], occ_dev.sum(dim=1)[:, 1:], cls_w[:, 1:]]
+            feed = []
+            for x in slow:
+                per = x.new_zeros((C, L) + x.shape[2:])
+                per[:, :n_avail] = x[:, :n_avail]
+                fold = x.new_zeros(per.shape)
+                fold[:, 0] = x.sum(dim=1)
+                feed.append(torch.where(merged_dev.view((C,) + (1,) * (per.dim() - 1)),
+                                        fold, per))
+            out = ladder.window(ins_dev[:, :, 0].sum(dim=1), occ_dev[:, :, 0].sum(dim=1),
+                                cls_w[:, 0], *feed)
+            # Tier-addressed apply: per-tier caps/rates for the next window,
+            # written once for every firing cell with a controller.
+            tier_cap = torch.where(apply_dev[k], out["cap"].gather(1, unit_of), tier_cap)
+            tier_rate = torch.where(apply_dev[k], out["rate"].gather(1, unit_of), tier_rate)
+            # One transfer: the ladder's outputs and, for a group with tiering,
+            # its migration budgets and the tiering cells' window completions.
+            extra = [ladder.migration_budgets(), ins_w[tier_idx]] if vt is not None else []
+            got = _to_host(*(out[f] for f in _LADDER_FIELDS), *extra)
+            host = dict(zip(_LADDER_FIELDS, got))
+            for ci in np.flatnonzero(fire & has_ctl):
+                names = group.plans[ci].export["tier_names"][1:]
+                ds = []
+                for u in range(int(n_slow_cell[ci])):
+                    if merged[ci] and u > 0:
+                        ds.append(ds[0])
+                        continue
+                    cap_v = float(host["cap"][ci, u])
+                    restricted = bool(host["restricted"][ci, u])
+                    est = TierEstimate(
+                        t_avg=float(host["t_avg"][ci, u]),
+                        alpha=float(host["alpha"][ci, u]),
+                        t_slow=float(host["t_slow"][ci, u]),
+                        t_slow_raw=float(host["t_slow_raw"][ci, u]),
+                        threshold=float(host["threshold"][ci, u]),
+                        backlogged=bool(host["backlogged"][ci, u]),
+                        valid=bool(host["valid"][ci, u]),
+                    )
+                    ds.append(Decision(
+                        max_concurrency=(
+                            None if not restricted or math.isinf(cap_v) else int(cap_v)
+                        ),
+                        rate_factor=float(host["rate"][ci, u]),
+                        phase=Phase.RESTRICTED if restricted else Phase.UNRESTRICTED,
+                        estimate=est,
+                    ))
+                decisions[ci].append(TierDecisions(tiers=tuple(names), decisions=tuple(ds)))
+
+        # -- tiering pass: migrations, hotness, placements (post-fire) ----
+        if t_fire.any():
+            if host is None:
+                budgets = restr = None
+                (ins_host[tier_cells],) = _to_host(ins_w[tier_idx])
+            else:
+                budgets, ins_host[tier_cells] = got[len(_LADDER_FIELDS):]
+                # Each slow tier's restricted bit: its own unit's, or a
+                # merged cell's unit 0 (the merged law broadcasts it).
+                restr = host["restricted"][np.arange(C)[:, None], unit_of_host] > 0.5
+            t0 = time.perf_counter()
+            vt.step(fire, ins_host, budgets, restr, has_ctl & ~merged, has_ctl,
+                    (k + 1) * win, tier_frac_live, effmlp_live)
+            COUNTS.tiering_s += time.perf_counter() - t0
+            COUNTS.tiering_steps += 1
+            if not all(np.array_equal(a, b) for a, b in zip(live, sent)):
+                # The pass moved routing or issue gating: send both again.
+                for a, b in zip(live, sent):
+                    b[...] = a
+                tier_frac, effmlp = _to_device(dev, *live)
 
     # -- materialize SimResults -------------------------------------------
     n_run = len(bytes_wins)
@@ -338,7 +415,7 @@ def run_fluid(
         bytes_w, completed_w, latsum_w, ins_t, occ_t, cls_t, occ_int_t,
         tor_inserts, tor_occ, tor_peak, timeline, recs, *hists)
     records = _window_records(group, rec_cells, rec_k, recs, fire_all, has_ctl,
-                              hist_mask, hists, decisions)
+                              hist_mask, hists, decisions, vt)
     results: List[SimResult] = []
     for ci, plan in enumerate(group.plans):
         e = plan.export
@@ -383,16 +460,18 @@ def run_fluid(
             tier_latency_hist=(
                 {names[t]: _window_hist(hists[2][:, ci, t], hists[3][:, ci, t])
                  for t in range(e["n_tiers"])} if hist_mask[ci] else None),
+            tiering=vt.summary(ci) if vt is not None else None,
         ))
     return results
 
 
 def _window_records(group: BatchGroup, rec_cells, rec_k, recs, fire_all, has_ctl,
-                    hist_mask, hists, decisions) -> dict:
+                    hist_mask, hists, decisions, vt) -> dict:
     """Each recording cell's per-window records (cell -> list), built on the
     host from the windows gathered on the device: ``recs[j, r]`` holds
     record cell ``r``'s per-tier inserts, occupancy and class counts of
-    window ``rec_k[j]``."""
+    window ``rec_k[j]``; a tiering cell's block is its tiering pass's log
+    entry of that window."""
     T, n_ops = group.n_tiers, len(_OPS)
     out = {int(ci): [] for ci in rec_cells}
     fired = np.zeros(len(group.plans), np.int64)  # fired windows per cell so far
@@ -422,6 +501,10 @@ def _window_records(group: BatchGroup, rec_cells, rec_k, recs, fire_all, has_ctl
                 }
                 td = decisions[ci][int(fired[ci]) - 1]
                 rec["decision"] = {t: _decision_jsonable(d) for t, d in td.items()}
+            if vt is not None and vt.cell_act[ci]:
+                entry = vt.window_log[ci][int(fired[ci]) - 1]
+                rec["tiering"] = {key: v for key, v in entry.items()
+                                  if key not in ("window", "t_ns")}
             if hist_mask[ci]:
                 # One weighted entry per workload: the window's analytic
                 # contribution to the workload's histogram.

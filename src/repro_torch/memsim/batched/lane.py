@@ -5,12 +5,15 @@ the two closed-form regimes take the exact lane
 (:mod:`~repro_torch.memsim.batched.exact`, host numpy); the rest stack
 into window-lockstep fluid groups, one group per (window cadence, ladder
 rung table) pair, each chunked into blocks of at most ``block`` cells.
-The per-tier and merged MIKU laws and per-window telemetry
-(``record_windows``) run here.  The reference falls jobs it cannot stack
-back to the scalar DES; the port has no scalar DES yet, so
-:func:`run_sweep_batched` raises ``NotImplementedError`` for them instead,
-naming each job and its reason: the per-edge law (it needs the fabric).
-Vector tiering is not ported yet (``SimJob`` carries no tiering spec).
+The per-tier and merged MIKU laws, per-window telemetry
+(``record_windows``) and vector tiering (a job's ``tiering`` spec, stacked
+per group by :func:`~repro_torch.memsim.batched.tiering.build_tiering`)
+run here.  The reference falls jobs it cannot stack back to the scalar DES;
+the port has no scalar DES yet, so :func:`run_sweep_batched` raises
+``NotImplementedError`` for them instead, naming each job and its reason:
+the per-edge law (it needs the fabric); and stacking a group raises it for
+a tiering policy outside ``static``, ``hotness_lru`` and
+``miku_coordinated``, naming the policy.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from repro_torch.core.des import SimResult
 from repro_torch.device import resolve_device
 from repro_torch.memsim.batched import exact
 from repro_torch.memsim.batched.stacking import BatchGroup, CellPlan, plan_cell
+from repro_torch.memsim.batched.tiering import build_tiering
 
 #: (plans aligned with the job list — None where the job cannot run here,
 #:  [(job_index, reason), ...] for those jobs)
@@ -86,7 +90,8 @@ def run_sweep_batched(
         for lo in range(0, len(cells), block):
             group = BatchGroup(cells[lo:lo + block])
             ladder = fluid_mod.build_ladder(group, dev)
+            tiering = build_tiering(group)
             for idx, res in zip(group.indices,
-                                fluid_mod.run_fluid(group, ladder, dev)):
+                                fluid_mod.run_fluid(group, ladder, dev, tiering)):
                 results[idx] = res
     return results  # type: ignore[return-value]

@@ -1,8 +1,10 @@
 """Stack SimJobs into the batched lane's array form (a copy of
-``repro.memsim.batched.stacking`` without the tiering hook).
+``repro.memsim.batched.stacking``).
 
 One :class:`CellPlan` per job: the job's exported static state
-(:func:`repro_torch.core.des.export_state`) plus its calibrated MIKU units,
+(:func:`repro_torch.core.des.export_state`; with a tiering spec, the
+migration workloads and the bound :class:`~repro_torch.tiering.TieringHook`
+included) plus its calibrated MIKU units,
 built through :func:`repro_torch.memsim.calibration.default_miku` (one unit
 per slow tier) or :func:`~repro_torch.memsim.calibration.merged_miku` (one
 merged unit) so the ladder is calibrated exactly as a scalar controller
@@ -33,18 +35,26 @@ class CellPlan:
     #: says that its decision broadcasts to every slow tier.
     units: list
     merged: bool = False
+    #: The job's bound :class:`~repro_torch.tiering.hook.TieringHook` (None
+    #: without a tiering spec): the PageMap, engine and policy state that
+    #: :class:`~repro_torch.memsim.batched.tiering.VectorTiering` stacks.
+    tiering: object = None
 
 
 def plan_cell(job: SimJob) -> CellPlan:
-    """Export the job's static state and build its controller units."""
+    """Export the job's static state and build its controller units; a job
+    with a tiering spec builds and binds its hook here, so the export
+    carries the migration workloads (gated closed) and the initial
+    PageMap-derived routing."""
     if job.miku and job.miku_law not in ("pertier", "merged"):
         raise NotImplementedError(
             f"miku_law={job.miku_law!r} is not ported yet; the per-tier and "
             "merged laws run on the batched lane"
         )
+    hook = job.tiering.build() if job.tiering is not None else None
     export = export_state(job.platform, job.workloads,
                           granularity=job.granularity,
-                          window_ns=job.window_ns)
+                          window_ns=job.window_ns, tiering=hook)
     units: list = []
     merged = False
     if job.miku:
@@ -60,7 +70,7 @@ def plan_cell(job: SimJob) -> CellPlan:
             ctl = default_miku(job.platform, job.granularity, **job.miku_overrides)
             ctl._ensure_units(n_slow, export["tier_names"][1:])
             units = list(ctl.units[:n_slow])
-    return CellPlan(job=job, export=export, units=units, merged=merged)
+    return CellPlan(job=job, export=export, units=units, merged=merged, tiering=hook)
 
 
 class BatchGroup:
@@ -121,11 +131,14 @@ class BatchGroup:
                 [e["w_phases"][wi] if wi < nw else None for wi in range(W)]
             )
 
-    def window_fracs(self, t0: np.ndarray, t1: np.ndarray) -> np.ndarray:
-        """Per-window tier-routing fractions ``(C, W, T)``: the static
-        routing, with phased workloads replaced by the time-weighted tier
-        occupancy of their (cycled) phase schedule over ``[t0, t1)``."""
-        out = self.tier_frac.copy()
+    def window_fracs(self, t0: np.ndarray, t1: np.ndarray,
+                     base: Optional[np.ndarray] = None) -> np.ndarray:
+        """Per-window tier-routing fractions ``(C, W, T)``: ``base`` (default
+        the static :attr:`tier_frac`; the fluid engine passes its live
+        routing, which tiering re-resolves every window), with phased
+        workloads replaced by the time-weighted tier occupancy of their
+        (cycled) phase schedule over ``[t0, t1)``."""
+        out = (self.tier_frac if base is None else base).copy()
         for ci, row in enumerate(self.phases):
             for wi, seq in enumerate(row):
                 if seq is None:

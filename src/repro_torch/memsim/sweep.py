@@ -38,6 +38,9 @@ class SimJob:
     #: analytic latency histograms.
     record_windows: bool = False
     latency_hist: bool = False
+    #: Optional :class:`repro_torch.tiering.TieringSpec`: the lane builds a
+    #: fresh hook from it per job (pages, migration engine, policy).
+    tiering: Optional[object] = None
 
     def __post_init__(self):
         validate_workloads(self.platform, self.workloads)

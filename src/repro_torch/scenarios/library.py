@@ -6,8 +6,11 @@ its declaration order: the grid figures fig3-fig10 and ``loaded_latency``
 engine), the §6 case study ``fig11_llm`` (a ``run_cell`` scenario on the
 port's serving engines), the big-data and hashmap figures fig13 and fig14,
 the three-tier co-runs on ``A-switch`` (``corun3_switch``, and
-``corun3_pertier`` with the per-tier and merged laws), the co-run sweeps and
-the NUMA-remote striping study on ``A-numa``.  The port keeps its own
+``corun3_pertier`` with the per-tier and merged laws), the co-run sweeps,
+the tiering subsystem's ``migrate_interference`` (page migration as a
+MIKU-governed request class) and ``tiering_policies`` (hot-set drift
+against the tiering policy), and the NUMA-remote striping study on
+``A-numa``.  The port keeps its own
 registry (:data:`SCENARIOS`) and registers nothing into the reference's;
 :data:`UNPORTED` names the reference's other scenarios and what each waits
 for.
@@ -22,7 +25,8 @@ from repro_torch.core.device_model import PlatformModel
 from repro_torch.core.littles_law import OpClass
 from repro_torch.memsim.sweep import SimJob
 from repro_torch.memsim.workloads import alternating_bw_pair, bw_test, lat_share, lat_test
-from repro_torch.scenarios.spec import Axis, Scenario
+from repro_torch.scenarios.spec import Axis, Metric, Scenario
+from repro_torch.tiering import HotSetPattern, RegionSpec, TieringSpec
 
 _BW_SIM_NS = 120_000.0
 _CORUN_SIM_NS = 300_000.0
@@ -45,9 +49,6 @@ def _job(
     latency_hist: bool = False,
     record_windows: bool = False,
 ) -> SimJob:
-    if tiering is not None:
-        raise NotImplementedError("tiering jobs need the vector tiering twin, "
-                                  "which is not ported yet")
     return SimJob(
         platform=platform,
         workloads=workloads,
@@ -59,6 +60,7 @@ def _job(
         miku_law=miku_law,
         latency_hist=latency_hist,
         record_windows=record_windows,
+        tiering=tiering,
     )
 
 
@@ -564,6 +566,118 @@ def _corun_sweep_reduce(platform, cell, jobs, results) -> List[dict]:
     }]
 
 
+# -- The tiering subsystem: migration as a request class, tiering policies ----
+
+
+def _mig_spec(policy: str, managed: bool, drift: float, mig_cores: int,
+              mig_mlp: int) -> TieringSpec:
+    """TieringSpec for the migrate_interference co-run: the CXL demand
+    workload's pages all start slow, with a drifting hot set that keeps the
+    promotion/demotion engine busy for the whole run."""
+    return TieringSpec(
+        regions=(RegionSpec(
+            workload="cxl",
+            n_pages=2048,
+            placement={"cxl": 1.0},
+            pattern=HotSetPattern(hot_fraction=0.125, hot_weight=0.9,
+                                  drift_pages=drift),
+        ),),
+        policy=policy,
+        fast_capacity_pages=384,
+        mig_cores=mig_cores,
+        mig_mlp=mig_mlp,
+        mig_miku_managed=managed,
+    )
+
+
+_MIGRATE_VARIANTS = ("demand_only", "naive", "miku")
+
+
+def _migif_build(platform, cell) -> List[SimJob]:
+    op, n, sim_ns = cell["op"], cell["n_threads"], cell["sim_ns"]
+    drift = cell["drift_pages"]
+    wls = [bw_test("ddr", op, n, name="ddr", miku_managed=False),
+           bw_test("cxl", op, n, name="cxl")]
+    # naive: the migration daemon races outside MIKU's reach (hotness_lru,
+    # unmanaged); miku: the same candidates, but migration is a
+    # MIKU-governed request class (managed workloads, coordinated deferral).
+    naive = _mig_spec("hotness_lru", managed=False, drift=drift,
+                      mig_cores=cell["mig_cores"], mig_mlp=cell["mig_mlp"])
+    coord = _mig_spec("miku_coordinated", managed=True, drift=drift,
+                      mig_cores=cell["mig_cores"], mig_mlp=cell["mig_mlp"])
+    return [
+        _job(platform, wls, sim_ns, miku=True),
+        _job(platform, wls, sim_ns, miku=True, tiering=naive),
+        _job(platform, wls, sim_ns, miku=True, tiering=coord),
+    ]
+
+
+def _migif_reduce(platform, cell, jobs, results) -> List[dict]:
+    baseline = results[0].bandwidth("ddr")
+    rows = []
+    for variant, res in zip(_MIGRATE_VARIANTS, results):
+        t = res.tiering
+        rows.append({
+            "platform": cell["platform"],
+            "op": cell["op"].value,
+            "variant": variant,
+            "ddr_gbps": res.bandwidth("ddr"),
+            "cxl_gbps": res.bandwidth("cxl"),
+            "ddr_pct_of_demand_only": 100.0 * res.bandwidth("ddr") / max(baseline, 1e-9),
+            "mig_gbps": res.bandwidth("mig-cxl") if t is not None else 0.0,
+            "pages_promoted": t["pages_promoted"] if t else 0,
+            "pages_demoted": t["pages_demoted"] if t else 0,
+            "deferred_jobs": t["deferred_jobs"] if t else 0,
+            "cxl_fast_fraction": t["fast_fraction"]["cxl"] if t else 0.0,
+        })
+    return rows
+
+
+def _tierpol_build(platform, cell) -> List[SimJob]:
+    op, n, sim_ns = cell["op"], cell["n_threads"], cell["sim_ns"]
+    n_pages = 1024
+    # A quarter of the region starts fast; the slow remainder is spread
+    # evenly over the platform's slow tiers (the three-tier A-switch cell
+    # promotes from two slow devices).
+    slow = platform.tier_names[1:]
+    placement = {"ddr": 0.25}
+    for t in slow:
+        placement[t] = 0.75 / len(slow)
+    # The hot set starts at page n/4, the first slow page of the contiguous
+    # initial placement: a static placement serves it from the slow tiers
+    # forever, a hotness policy promotes it and then chases its drift.
+    spec = TieringSpec(
+        regions=(RegionSpec(
+            workload="app",
+            n_pages=n_pages,
+            placement=placement,
+            pattern=HotSetPattern(hot_fraction=0.125, hot_weight=0.9,
+                                  drift_pages=cell["drift_pages"],
+                                  hot_start=n_pages // 4),
+        ),),
+        policy=cell["policy"],
+        fast_capacity_pages=320,
+        mig_cores=8,
+    )
+    app = bw_test("ddr", op, n, name="app", miku_managed=False)
+    return [_job(platform, [app], sim_ns, tiering=spec)]
+
+
+def _tierpol_reduce(platform, cell, jobs, results) -> List[dict]:
+    (res,) = results
+    t = res.tiering
+    return [{
+        "platform": cell["platform"],
+        "policy": cell["policy"],
+        "drift_pages": cell["drift_pages"],
+        "app_gbps": res.bandwidth("app"),
+        "app_fast_fraction": t["fast_fraction"]["app"],
+        "pages_promoted": t["pages_promoted"],
+        "pages_demoted": t["pages_demoted"],
+        "migrated_gb": t["migrated_bytes"] / 1e9,
+    }]
+
+
 # -- NUMA-remote DDR striping under a CXL co-run ------------------------------
 
 
@@ -789,6 +903,53 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
         slow=True,
     ),
     Scenario(
+        name="migrate_interference",
+        title="Migration traffic as a request class: naive vs MIKU-coordinated",
+        axes=(
+            _platform_axis(),
+            _op_axis(OpClass.LOAD),
+            Axis("n_threads", 16, "threads per demand group"),
+            Axis("drift_pages", 64.0, "hot-set drift per window (churn)"),
+            Axis("mig_cores", 8, "migration-daemon cores per slow tier"),
+            Axis("mig_mlp", 160, "migration-daemon MLP per core"),
+            Axis("sim_ns", 300_000.0, "co-run simulated horizon"),
+        ),
+        metrics=(
+            Metric("ddr_pct_of_demand_only", "%",
+                   "DDR demand bandwidth vs the no-migration co-run"),
+            Metric("mig_gbps", "GB/s", "migration-engine copy bandwidth"),
+            Metric("pages_promoted", "pages"),
+            Metric("deferred_jobs", "",
+                   "migrations MIKU coordination pushed past throttled windows"),
+        ),
+        build=_migif_build,
+        reduce=_migif_reduce,
+    ),
+    Scenario(
+        name="tiering_policies",
+        title="Hot-set drift vs tiering policy on 2- and 3-tier platforms",
+        axes=(
+            _platform_axis(("A", "A-switch")),
+            Axis("policy", ("static", "hotness_lru"),
+                 "tiering policy (repro_torch.tiering.policies registry)"),
+            _op_axis(OpClass.LOAD),
+            Axis("n_threads", 16, "app thread count"),
+            Axis("drift_pages", 4.0,
+                 "hot-set drift per window (fast drift outruns migration "
+                 "bandwidth and the copy tax wins — try 16)"),
+            Axis("sim_ns", 300_000.0, "simulated horizon"),
+        ),
+        metrics=(
+            Metric("app_gbps", "GB/s", "delivered app bandwidth"),
+            Metric("app_fast_fraction", "",
+                   "access-weighted share served by the fast tier at the end"),
+            Metric("pages_promoted", "pages"),
+            Metric("migrated_gb", "GB", "total migration copy traffic"),
+        ),
+        build=_tierpol_build,
+        reduce=_tierpol_reduce,
+    ),
+    Scenario(
         name="numa_remote",
         title="NUMA-remote DDR striping (placement vector) under CXL co-run",
         axes=(
@@ -809,8 +970,6 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
 _SCALAR = "the scalar DES lane"
 UNPORTED: Dict[str, str] = {
     "fig2_tiering": f"a run_cell scenario pinned to {_SCALAR}",
-    "migrate_interference": "vector tiering",
-    "tiering_policies": "vector tiering",
     "fabric_spine_congestion": "the fabric law",
     "fabric_port_overflow": "the fabric law",
     "fabric_miku": "the fabric law",

@@ -4,11 +4,14 @@
 Grid axes expand in declaration order, row-major, so the port's rows line
 up with ``repro.scenarios.run_scenario``'s.  A grid scenario's jobs run in
 one batched sweep on the port's device; a ``run_cell`` scenario runs cell
-by cell.
+by cell.  ``trace=True`` records every grid job's per-window telemetry and
+returns it beside the rows, in the reference's ``ResultTable.traces``
+schema.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -69,26 +72,46 @@ def plan(
 
 
 def run_scenario(
-    name: str, overrides: Optional[Dict[str, Any]] = None, device=None
-) -> List[Dict[str, Any]]:
+    name: str, overrides: Optional[Dict[str, Any]] = None, device=None, *,
+    trace: bool = False,
+):
     """Run a scenario on ``device`` (the card unless ``"cpu"``) and return
     its rows in cell order: a grid scenario on the batched lane, a
-    ``run_cell`` scenario cell by cell."""
+    ``run_cell`` scenario cell by cell.
+
+    ``trace=True`` (grid scenarios only; a ``run_cell`` scenario raises
+    ``ValueError``) sets ``record_windows`` on every job and returns
+    ``(rows, traces)``: one ``{"cell", "jobs": [{"job", "workloads",
+    "windows"}]}`` entry per cell, the reference's schema."""
     sc = _scenario(name)
     dev = resolve_device(device)
     rows: List[Dict[str, Any]] = []
     if sc.run_cell is not None:
+        if trace:
+            raise ValueError(f"scenario {sc.name!r} is multi-stage (run_cell); "
+                             "per-window decision tracing supports grid scenarios only")
         for cell, pm in _cells(sc, overrides):
             rows.extend(sc.run_cell(pm, cell, dev))
         return rows
     planned = plan(name, overrides)
+    if trace:
+        planned = [(cell, pm, [dataclasses.replace(j, record_windows=True) for j in js])
+                   for cell, pm, js in planned]
     jobs = [j for _, _, js in planned for j in js]
     results = run_sweep(jobs, lane="batched", device=dev)
+    traces: List[Dict[str, Any]] = []
     i = 0
     for cell, pm, cell_jobs in planned:
-        rows.extend(sc.reduce(pm, cell, cell_jobs, results[i:i + len(cell_jobs)]))
+        chunk = results[i:i + len(cell_jobs)]
         i += len(cell_jobs)
-    return rows
+        rows.extend(sc.reduce(pm, cell, cell_jobs, chunk))
+        traces.append({
+            "cell": {k: getattr(v, "value", v) for k, v in cell.items()},
+            "jobs": [{"job": j, "workloads": [w.name for w in job.workloads],
+                      "windows": res.window_records}
+                     for j, (job, res) in enumerate(zip(cell_jobs, chunk))],
+        })
+    return (rows, traces) if trace else rows
 
 
 def parse_set_args(name: str, pairs: Sequence[str]) -> Dict[str, Any]:

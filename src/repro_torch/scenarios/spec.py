@@ -1,8 +1,9 @@
-"""Scenario specs: :class:`Axis` and :class:`Scenario` (a copy of the part
-of ``repro.scenarios.spec`` the port's registry uses).
+"""Scenario specs: :class:`Axis`, :class:`Metric` and :class:`Scenario` (a
+copy of the part of ``repro.scenarios.spec`` the port's registry uses).
 
 A :class:`Scenario` describes one experiment family: its axes (grid axes
-expand into cells, scalar axes are knobs every cell shares) and either
+expand into cells, scalar axes are knobs every cell shares), the metrics
+its rows report, and either
 
 * ``build`` + ``reduce``: ``build(platform, cell)`` gives one cell's
   :class:`~repro_torch.memsim.sweep.SimJob` list and ``reduce(platform,
@@ -57,6 +58,15 @@ class Axis:
 
 
 @dataclasses.dataclass(frozen=True)
+class Metric:
+    """One column the scenario's result rows report."""
+
+    name: str
+    unit: str = ""
+    help: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
 class Scenario:
     """A named experiment: exactly one of ``build`` + ``reduce`` (a grid on
     the batched lane) or ``run_cell`` (a cell run whole).  ``slow`` marks
@@ -65,6 +75,8 @@ class Scenario:
     name: str
     title: str
     axes: Tuple[Axis, ...] = ()
+    #: The columns its rows report (declared by the scenarios that name them).
+    metrics: Tuple[Metric, ...] = ()
     #: (platform, cell) -> List[SimJob]
     build: Optional[Callable[..., List[Any]]] = None
     #: (platform, cell, jobs, results) -> rows

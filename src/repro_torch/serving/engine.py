@@ -10,7 +10,8 @@ control — port of ``repro/serving/engine.py`` (the paper's §6 case study).
 * :class:`TieredServingCluster` — engines sharing one transfer path
   (:class:`~repro_torch.core.offload.TransferQueue`).  Device steps charge
   fast-tier bytes; host steps submit their weight/KV stream as slow-link
-  transfers, which a MIKU controller throttles.
+  transfers, which a MIKU controller throttles.  An engine given a KV
+  PageMap keeps its region's hot KV share on the device path.
 
 The cluster's clock is the simulated queue clock with the reference's tier
 constants (so its ``tokens_per_s`` is simulated, not measured on the card);
@@ -70,15 +71,22 @@ def param_bytes(params: Any) -> int:
 
 class ServingEngine:
     """One model instance with continuous batching.  The device is that of
-    ``params``."""
+    ``params``.
+
+    ``kv_pagemap`` (optional) hands the KV stream's placement to the tiering
+    subsystem: a :class:`repro_torch.tiering.PageMap` with a region named
+    after this engine.  Instead of the all-or-nothing ``placement`` split,
+    each decode step's KV bytes divide between the device path and the host
+    link by the region's live access-weighted tier fractions
+    (:meth:`kv_tier_bytes`), and the engine feeds the region one access
+    sample per decoded token.
+    """
 
     def __init__(self, cfg: EngineConfig, params: Any, *,
                  generator: Optional[torch.Generator] = None,
                  kv_pagemap: Any = None):
-        if kv_pagemap is not None:
-            raise NotImplementedError("kv_pagemap needs the tiering subsystem, "
-                                      "which is not ported yet")
         self.cfg = cfg
+        self.kv_pagemap = kv_pagemap
         self.model = TransformerLM(cfg.model)
         self.device = params["embed"].device
         self.generator = generator
@@ -172,6 +180,21 @@ class ServingEngine:
         kvb = sum(lengths[i] * self.kv_bytes_per_token
                   for i in range(self.cfg.max_slots) if self._active[i])
         return wb, kvb
+
+    def kv_tier_bytes(self, kv_bytes: int) -> Tuple[int, int]:
+        """Split one step's KV stream into (fast_bytes, slow_bytes): by the
+        static placement without a PageMap region for this engine, else by
+        the region's access-weighted fast fraction (the fast share stays on
+        the device, only the rest crosses the host link)."""
+        if self.kv_pagemap is None or self.cfg.name not in getattr(
+                self.kv_pagemap, "regions", {}):
+            if self.cfg.placement == "host":
+                return 0, kv_bytes
+            return kv_bytes, 0
+        self.kv_pagemap.record_window(self.cfg.name, float(self.n_active))
+        fast = self.kv_pagemap.fast_fraction(self.cfg.name)
+        fast_bytes = int(kv_bytes * fast)
+        return fast_bytes, kv_bytes - fast_bytes
 
     def decode_once(self, now_ns: float) -> int:
         """One real decode step for all active slots.  Returns #tokens."""
@@ -272,8 +295,19 @@ class TieredServingCluster:
                         continue
                     wb, kvb = eng.step_bytes()
                     n_chunks = eng.cfg.stream_chunks or 2 * eng.cfg.model.n_layers
-                    done_t = q.submit_slow_stream(wb + kvb, n_chunks, OpClass.LOAD,
+                    # A KV PageMap keeps the hot share of the KV stream on
+                    # the device path, costed as a device engine's bytes
+                    # (fast_penalty included); only the rest crosses the
+                    # link, and the step completes when both paths have.
+                    kv_fast, kv_slow = eng.kv_tier_bytes(kvb)
+                    fast_dur = 0.0
+                    if kv_fast:
+                        fast_dur = kv_fast / self.hbm_bw * q.fast_penalty()
+                        q.account_fast(kv_fast, fast_dur, OpClass.LOAD)
+                        fast_time += fast_dur
+                    done_t = q.submit_slow_stream(wb + kv_slow, n_chunks, OpClass.LOAD,
                                                   tier="slow")
+                    done_t = max(done_t, q.now + fast_dur)
                     self._host_busy_until[name] = done_t
                     n = eng.decode_once(done_t)
                     finished_at[name] = done_t

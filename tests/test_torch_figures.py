@@ -204,7 +204,7 @@ def test_sweep_cli_lists_every_scenario(capsys):
 
     main(["--list"])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == len(SCENARIOS) == 17
+    assert len(lines) == len(SCENARIOS) == 19
     assert [line.split(":")[0] for line in lines] == list(SCENARIOS)
     assert "fig11_llm" in SCENARIOS and "arch=llama31-8b" in lines[9]
 

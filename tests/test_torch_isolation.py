@@ -41,7 +41,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.kernels.fluid_solver, repro_torch.kernels.ssd_scan, "
             "repro_torch.models.ssm, repro_torch.configs.mamba2_2p7b, "
             "repro_torch.core.mva, repro_torch.memsim.batched.exact, "
-            "repro_torch.obs.histogram, repro_torch.scenarios.planner; "
+            "repro_torch.obs.histogram, repro_torch.scenarios.planner, "
+            "repro_torch.tiering, repro_torch.tiering.hook, "
+            "repro_torch.memsim.batched.tiering; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules, "
             "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

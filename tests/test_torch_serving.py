@@ -52,7 +52,7 @@ JPARAMS32 = jax.tree.map(lambda x: x.astype(jnp.float32), JPARAMS)
 TPARAMS32 = params_from_numpy(jax.tree.map(np.asarray, JPARAMS32), TCFG32, "cpu")
 
 
-def mk(name, placement, n_req, max_new=8, *, port=True, f32=False):
+def mk(name, placement, n_req, max_new=8, *, port=True, f32=False, kv_pagemap=None):
     mod = teng if port else jeng
     if port:
         cfg, params = (TCFG32, TPARAMS32) if f32 else (TCFG, TPARAMS)
@@ -61,7 +61,7 @@ def mk(name, placement, n_req, max_new=8, *, port=True, f32=False):
     e = mod.ServingEngine(
         mod.EngineConfig(name=name, model=cfg, max_slots=2, max_len=64,
                          placement=placement, stream_chunks=64),
-        params,
+        params, kv_pagemap=kv_pagemap,
     )
     for i in range(n_req):
         e.submit(mod.Request(rid=i, prompt=[1, 2, 3, 4], max_new_tokens=max_new))
@@ -315,7 +315,33 @@ def test_build_cluster_serves_on_cpu(capsys):
     assert "simulated tok/s" in capsys.readouterr().out
 
 
-def test_kv_pagemap_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        teng.ServingEngine(teng.EngineConfig(name="e", model=TCFG), TPARAMS,
-                           kv_pagemap=object())
+def test_kv_pagemap_cluster_matches_reference():
+    """A MIKU smoke cluster whose host engine's KV stream is split by a KV
+    PageMap (half its pages on HBM, a drifting hot set): the reference's
+    simulated tokens/s, decisions and KV hotness, and a different clock than
+    the same cluster without the PageMap."""
+    import repro.tiering as rt
+    import repro_torch.tiering as pt
+
+    out = {}
+    for port in (False, True):
+        tier, mod = (pt, teng) if port else (rt, jeng)
+        pm = tier.PageMap(("hbm", "host"), fast_capacity_pages=64)
+        pm.add_region("h", 64, 4096, {"hbm": 0.5, "host": 0.5},
+                      tier.HotSetPattern(drift_pages=1.0))
+        host = mk("h", "host", 3, port=port, kv_pagemap=pm)
+        ctl = _miku(port, host.param_bytes)
+        cl = mod.TieredServingCluster([mk("d", "device", 6, port=port), host],
+                                      controller=ctl, window_ns=3e4)
+        res = cl.run(20000)
+        seq = [(d.restricted, d.max_concurrency, d.rate_factor) for d in ctl.decisions]
+        out[port] = (res, seq, pm.regions["h"].hotness.copy())
+    assert out[True][0] == out[False][0]
+    assert out[True][1] == out[False][1]
+    assert np.array_equal(out[True][2], out[False][2]) and out[True][2].sum() > 0
+    host = mk("h", "host", 3)
+    plain = teng.TieredServingCluster([mk("d", "device", 6), host],
+                                      controller=_miku(True, host.param_bytes),
+                                      window_ns=3e4).run(20000)
+    assert plain["h"]["tokens"] == out[True][0]["h"]["tokens"]
+    assert plain["h"]["tokens_per_s"] != out[True][0]["h"]["tokens_per_s"]
