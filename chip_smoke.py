@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Phases, each printed as one JSON line:
-  1. environment: card, power limit, torch/CUDA versions, kernel build time;
+  1. environment: card, power limit, torch/CUDA versions, kernel build time,
+     and the registers and spills of each K1 instance <f32|bf16, Dh>;
   2. kernel sweep: the flash-decode kernel against its plain PyTorch version
      (tests/test_kernels.py's cases and tolerances, the serve shape, a long
      cache, and in bf16 and f32 a ragged long cache, one long row and a row
@@ -13,7 +14,11 @@ Phases, each printed as one JSON line:
      (n_split, blocks), the device kernels a call enqueues (read from a
      CUDA graph of one call) and their profiled time; cases at head_dim 32
      (the smoke configs') at the smoke serve shape in f32 and bf16 and a
-     long cache;
+     long cache; cases at head_dim 80 (h2o-danube: a 5,248-position cache,
+     window 4096) and 160 (stablelm: the serve shape), each also with a
+     window off a tile boundary, a softcap and both, and gemma2-27b's decode
+     shape on its local (window 4096, softcap 50) and global (softcap 50)
+     layers, all in f32 and bf16;
   3. small-input check: a two-layer model (head_dim 64, f32) served on the
      card and on the CPU (the plain path the CPU tests hold against the JAX
      reference) must give the same greedy tokens and the same result dict;
@@ -89,10 +94,28 @@ Phases, each printed as one JSON line:
      (a decision block for both slow tiers);
  20. serve_kv: serve_smoke's cluster with the host engine's KV stream split
      by a KV PageMap, K1's launches read around it, its simulated tokens/s
-     and fast/slow KV bytes equal to the same run on the CPU.
+     and fast/slow KV bytes equal to the same run on the CPU;
+ 21. families_check: gemma2-27b (cut to 8 layers), h2o-danube-1.8b,
+     stablelm-12b (cut to 8 layers) and qwen2.5-3b at full width in f32:
+     a long slot (5,120 tokens for gemma2 and danube: past the 4,096 window,
+     in query blocks; 300 for the others) and an 8-token slot, the long
+     prefill's logits against the one-shot attention (2e-3), then 3 decode
+     steps through K1 against the plain attention (3e-3); the same weights
+     in bf16 printed, not gated;
+ 22. serve_gemma2, the gemma2 serve path: gemma2-27b at its published
+     widths and depth in bf16, one device engine (2 slots of 5,248) serving
+     a 5,120-token and an 8-token prompt, 16 new tokens each; K1 launches
+     must be 46 x decode steps, every token in vocab, every logit finite;
+     the prefill and decode walls, measured tokens/s, peak device memory
+     and a padded profile of one decode step;
+ 23. serve_families: ``python -m repro_torch.launch.serve --arch A`` at its
+     defaults for gemma2, h2o-danube, stablelm and qwen2.5 (smoke configs,
+     past their windows of 16), K1 launches = layers x decode steps, the
+     result dict equal to the CPU's; then gemma2's smoke config in f32
+     through phase 3's check (greedy streams equal).
 The figures' plain lane runs in CPU worker processes from the build on.
-They run in this order: 1-5, 12, 20, 13, 6, 7, 9, 14, 16, 18, 19, 17, 15, 8, 10, 11.  Every
-line carries ``elapsed_s``, the seconds since the script started.
+They run in this order: 1-5, 21, 22, 23, 12, 20, 13, 6, 7, 9, 14, 16, 18, 19, 17, 15, 8, 10,
+11.  Every line carries ``elapsed_s``, the seconds since the script started.
 The line before the last lists every kernel's numbers; the last line is the
 device summary.  Any failed check exits non-zero; without CUDA (or without
 the rest of the repository beside this file) it exits non-zero at once.
@@ -267,7 +290,6 @@ def main() -> None:
     from repro_torch.configs import get_arch
     from repro_torch.launch.serve import build_cluster
     from repro_torch.models.transformer import ModelConfig, TransformerLM
-    from repro_torch.serving import engine as eng_lib
 
     # Full-precision f32 products everywhere (the small check compares f32).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -287,11 +309,13 @@ def main() -> None:
     ptxas = {lib.name: [line.split("ptxas info    : ")[-1] for line in
                         lib.with_suffix(".ptxas.txt").read_text().splitlines()
                         if "registers" in line or "spill" in line] for lib in libs}
+    k1_instances = k1_ptxas(libs[0].with_suffix(".ptxas.txt"))
     emit("environment", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
          kernel_build_s=build_s, kernel_libraries=[lib.name for lib in libs],
-         ptxas=ptxas)
+         ptxas=ptxas, k1_instances=k1_instances)
+    check(len(k1_instances) == 10, f"K1 instances in the ptxas report: {k1_instances}")
 
     # -- 2. kernel sweep -------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -325,6 +349,30 @@ def main() -> None:
         cases.append((f"dh32_serve_{tag}", (4, 4, 2, 32, 96), dtype, tol, {}, serve_lengths))
     cases.append(("dh32_long_cache", (8, 4, 2, 32, 32768), torch.bfloat16, 2e-2, {},
                   [32768] * 8))
+    # head_dim 80 (h2o-danube) and 160 (stablelm) at full width: Dh 80 at a
+    # 5k cache with danube's window of 4096, Dh 160 at the serve shape; each
+    # with a window that starts off a tile boundary, a softcap, and both.
+    # Then gemma2-27b's decode shape (32 q / 16 kv heads, a 5,120-token and
+    # an 8-token slot, its query scale): local layers (window 4096, softcap
+    # 50) and global layers (softcap 50).
+    gemma2_scale = (4608 / 32) ** -0.5
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        cases.append((f"dh80_serve_{tag}", (4, 32, 8, 80, 5248), dtype, tol,
+                      dict(window=4096), [5121, 9, 4097, 300]))
+        cases.append((f"dh160_serve_{tag}", (4, 32, 8, 160, 96), dtype, tol, {},
+                      serve_lengths))
+        for dh in (80, 160):
+            cases.append((f"dh{dh}_window_{tag}", (2, 8, 2, dh, 512), dtype, tol,
+                          dict(window=100), [512, 300]))
+            cases.append((f"dh{dh}_softcap_{tag}", (2, 8, 4, dh, 256), dtype, tol,
+                          dict(softcap=30.0), [256, 85]))
+            cases.append((f"dh{dh}_window_softcap_{tag}", (2, 8, 2, dh, 512), dtype, tol,
+                          dict(window=64, softcap=50.0), [512, 77]))
+        cases.append((f"gemma2_local_{tag}", (2, 32, 16, 128, 5248), dtype, tol,
+                      dict(window=4096, softcap=50.0, scale=gemma2_scale), [5121, 9]))
+        cases.append((f"gemma2_global_{tag}", (2, 32, 16, 128, 5248), dtype, tol,
+                      dict(softcap=50.0, scale=gemma2_scale), [5121, 9]))
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         # Rows of very different lengths: most splits of the short rows are
@@ -376,7 +424,7 @@ def main() -> None:
 
             def library():
                 return F.scaled_dot_product_attention(qs, k, v, attn_mask=mask,
-                                                      enable_gqa=True)
+                                                      scale=kw.get("scale"), enable_gqa=True)
 
             row["library_ms"] = time_ms(library, iters)
             row["library_max_abs_err"] = (library().reshape(out.shape).float()
@@ -393,25 +441,7 @@ def main() -> None:
     small = ModelConfig(name="small-dh64", n_layers=2, d_model=256, n_q_heads=8,
                         n_kv_heads=2, head_dim=64, d_ff=512, vocab=512,
                         rope_theta=500_000.0, dtype=torch.float32)
-    params_cpu = TransformerLM(small).init(torch.Generator().manual_seed(0), "cpu")
-    results, streams = {}, {}
-    for where in ("cpu", "cuda"):
-        params = _to(params_cpu, torch.device(where))
-        engines = []
-        for i, placement in enumerate(("device", "host")):
-            e = eng_lib.ServingEngine(
-                eng_lib.EngineConfig(name=placement, model=small, max_slots=2, max_len=32,
-                                     placement=placement, stream_chunks=16), params)
-            for r in range(3 - i):
-                e.submit(eng_lib.Request(rid=r, prompt=[3 + r, 5, 7, 11], max_new_tokens=6))
-            engines.append(e)
-        results[where] = eng_lib.TieredServingCluster(engines).run(100_000)
-        streams[where] = [sorted((r.rid, r.output) for r in e.done) for e in engines]
-    same = results["cpu"] == results["cuda"] and streams["cpu"] == streams["cuda"]
-    emit("small_check", config=small.name, result_cuda=results["cuda"],
-         same_result_dict=results["cpu"] == results["cuda"],
-         same_greedy_tokens=streams["cpu"] == streams["cuda"])
-    check(same, "small model: card and CPU disagree")
+    small_check(small, prompt=[5, 7, 11], max_new=6, max_len=32)
 
     # -- 4. decode-step check at full width -------------------------------------
     full = get_arch("llama31-8b").config
@@ -481,6 +511,10 @@ def main() -> None:
     del cluster, hbm, host, e  # free the llama weights before the next paths
     torch.cuda.empty_cache()
 
+    families_check(dev)
+    gemma2 = serve_gemma2(dev)
+    torch.cuda.empty_cache()
+    families = serve_families(dev)
     serve_smoke(dev)
     kv = serve_kv(dev)
     fig11 = fig11_phase(dev)
@@ -538,6 +572,16 @@ def main() -> None:
         "serve_kv_launches": kv["k1_launches"],
         "dh32": {name[len("dh32_"):]: {k: sweep[name][k] for k in K1_FIELDS}
                  for name in sweep if name.startswith("dh32_")},
+        # The attention families: gemma2-27b at full width (its local and
+        # global layers' decode shape: window 4096 and softcap 50), the
+        # serve CLI of the four smoke configs, and head_dim 80 and 160.
+        "serve_gemma2_launches": gemma2["k1_launches"],
+        # Registers and spills of each <type, Dh> instance (ptxas).
+        "instances": k1_instances,
+        "serve_families_launches": families["k1_launches"],
+        **{group: {name[len(group) + 1:]: {k: sweep[name][k] for k in K1_FIELDS}
+                   for name in sweep if name.startswith(group + "_")}
+           for group in ("gemma2", "dh80", "dh160")},
     }, {
         "name": "global_lambda",
         "route": "cuda",
@@ -1621,6 +1665,21 @@ def k3_instance_timing(dev, firsts, ptxas_path):
 def k3_ptxas(path):
     """Registers and spill bytes of each fused_window_solve_kernel<W, S>
     instance, by (W, S), from the build's ptxas report."""
+    return ptxas_instances(path, r"fused_window_solve_kernelILi(\d+)ELi(\d+)E",
+                           lambda k: (int(k.group(1)), int(k.group(2))))
+
+
+def k1_ptxas(path):
+    """Registers and spill bytes of each decode_attention_kernel<T, Dh>
+    instance, by "<f32|bf16, Dh>", from the build's ptxas report."""
+    return ptxas_instances(
+        path, r"decode_attention_kernelI(13__nv_bfloat16|f)Li(\d+)E",
+        lambda k: f"<{'f32' if k.group(1) == 'f' else 'bf16'}, {k.group(2)}>")
+
+
+def ptxas_instances(path, pattern, key):
+    """Registers and spill bytes of each kernel whose mangled name matches
+    ``pattern``, by ``key(match)``, from a ptxas report."""
     import re
 
     out, cur = {}, None
@@ -1628,8 +1687,8 @@ def k3_ptxas(path):
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?( |$)",
                       line)
         if m:
-            k = re.search(r"fused_window_solve_kernelILi(\d+)ELi(\d+)E", m.group(1))
-            cur = (int(k.group(1)), int(k.group(2))) if k else None
+            k = re.search(pattern, m.group(1))
+            cur = key(k) if k else None
             continue
         if cur is None:
             continue
@@ -2063,6 +2122,285 @@ def ssm_phases(dev):
     return launches
 
 
+# -- the attention families: gemma2, h2o-danube, stablelm, qwen2.5 -------------
+
+#: families_check: (arch, layers kept or None for all, the long slot's
+#: prompt tokens, why the depth is cut).  f32 throughout; 5,120 tokens cross
+#: the 4,096 window and take the blocked prefill (Q_BLOCK = 1024).
+FAMILY_CHECKS = (
+    ("gemma2-27b", 8, 5120, "46 -> 8 layers (4 local, 4 global): f32 at 46 layers is "
+                            "about 109 GB"),
+    ("h2o-danube-1.8b", None, 5120, None),
+    ("stablelm-12b", 8, 300, "40 -> 8 layers: f32 at 40 layers is about 48 GB, and the "
+                             "check reads the same layers 8 times over"),
+    ("qwen2.5-3b", None, 300, None),
+)
+#: serve_families: the serve CLI's --arch ids run at its defaults.
+SERVE_FAMILIES = ("gemma2-27b", "h2o-danube-1.8b", "stablelm-12b", "qwen2.5-3b")
+
+
+def small_check(cfg, prompt, max_new, max_len):
+    """Phase 3's check: a device engine (3 requests) and a host engine (2) of
+    ``cfg`` sharing weights drawn on the CPU, served on the CPU (the plain
+    path the CPU tests hold against the JAX reference) and on the card;
+    request r's prompt is ``[3 + r] + prompt``.  The result dicts and the
+    greedy streams must be equal."""
+    import torch
+
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving import engine as eng_lib
+
+    params_cpu = TransformerLM(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    results, streams = {}, {}
+    for where in ("cpu", "cuda"):
+        params = _to(params_cpu, torch.device(where))
+        engines = []
+        for i, placement in enumerate(("device", "host")):
+            e = eng_lib.ServingEngine(
+                eng_lib.EngineConfig(name=placement, model=cfg, max_slots=2, max_len=max_len,
+                                     placement=placement, stream_chunks=16), params)
+            for r in range(3 - i):
+                e.submit(eng_lib.Request(rid=r, prompt=[3 + r] + list(prompt),
+                                         max_new_tokens=max_new))
+            engines.append(e)
+        results[where] = eng_lib.TieredServingCluster(engines).run(100_000)
+        streams[where] = [sorted((r.rid, r.output) for r in e.done) for e in engines]
+    same = results["cpu"] == results["cuda"] and streams["cpu"] == streams["cuda"]
+    emit("small_check", config=cfg.name, prompt_len=len(prompt) + 1, max_new=max_new,
+         result_cuda=results["cuda"], same_result_dict=results["cpu"] == results["cuda"],
+         same_greedy_tokens=streams["cpu"] == streams["cuda"])
+    check(same, f"{cfg.name}: card and CPU disagree")
+
+
+def family_check(model, params, gen, dev, prompt_len, steps=3):
+    """Slot 0 prefills a ``prompt_len``-token prompt (in query blocks when
+    the model's attention blocks it), slot 1 an 8-token one.  Slot 0's
+    prefill logits are held at the reference's prefill bound (2e-3) against
+    the same prefill with the attention in one shot; then ``steps`` decode
+    steps run through K1 and through the plain attention (3e-3)."""
+    import torch
+
+    from repro_torch.models import attention as attn
+
+    cfg = model.cfg
+    max_len = prompt_len + 128
+    st = model.init_decode_state(2, max_len, dev)
+    out = dict(prompt_lens=[prompt_len, 8],
+               blocked_prefill=prompt_len > attn.Q_BLOCK and prompt_len % attn.Q_BLOCK == 0)
+    first = []
+    for slot, plen in enumerate((prompt_len, 8)):
+        toks = torch.randint(1, cfg.vocab, (1, plen), generator=gen, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, st1 = model.prefill(params, toks, model.init_decode_state(1, max_len, dev))
+        torch.cuda.synchronize()
+        if slot == 0:
+            out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            blocked = attn.attend_full
+            attn.attend_full = lambda *a, **kw: blocked(*a, q_block=1 << 30, **kw)
+            try:
+                one_shot, _ = model.prefill(params, toks,
+                                            model.init_decode_state(1, max_len, dev))
+            finally:
+                attn.attend_full = blocked
+            lk, lp = logits.float(), one_shot.float()
+            diff = (lk - lp).abs().max().item()
+            out.update(prefill_max_abs_err=diff,
+                       prefill_max_rel_logit_err=diff / lp.abs().max().item(),
+                       prefill_allclose=torch.allclose(lk, lp, atol=2e-3, rtol=2e-3),
+                       prefill_finite=bool(torch.isfinite(lk).all()))
+            del one_shot
+        for name in st.kv:
+            st.kv[name][:, slot] = st1.kv[name][:, 0]
+        st.length[slot] = plen
+        first.append(int(logits.argmax(-1)[0]))
+        del st1
+    tok = torch.tensor(first, dtype=torch.int32, device=dev)
+    out.update(decode_compare(model, params, st, tok, steps))
+    return out
+
+
+def families_check(dev):
+    """Phase 21: each family at its published widths in f32 (depth cut where
+    FAMILY_CHECKS says), random weights from a seeded generator: the prefill
+    gate against the one-shot attention and 3 decode steps through K1
+    against the plain attention; then the same weights in bf16, printed but
+    not gated."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import TransformerLM
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for arch, n_layers, prompt_len, cut in FAMILY_CHECKS:
+        full = get_arch(arch).config
+        cfg32 = dataclasses.replace(full, dtype=torch.float32,
+                                    n_layers=n_layers or full.n_layers)
+        torch.cuda.reset_peak_memory_stats()
+        params = TransformerLM(cfg32).init(torch.Generator(device=dev).manual_seed(3), dev)
+        shape = dict(n_layers=cfg32.n_layers, published_layers=full.n_layers,
+                     cut=cut or "none", d_model=full.d_model, n_q_heads=full.n_q_heads,
+                     n_kv_heads=full.n_kv_heads, head_dim=full.head_dim, d_ff=full.d_ff,
+                     vocab=full.vocab, windows=sorted(set(cfg32.window_sizes())))
+        f32 = family_check(TransformerLM(cfg32), params, gen, dev, prompt_len)
+        emit("families_check", arch=arch, dtype="float32", tol_prefill=2e-3, tol_decode=3e-3,
+             peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **shape, **f32)
+        check(f32["prefill_allclose"] and f32["allclose"] and f32["finite"]
+              and f32["prefill_finite"], f"{arch}: full-width f32 logits differ: {f32}")
+        params = _to(params, torch.bfloat16)
+        torch.cuda.empty_cache()
+        bf16 = family_check(TransformerLM(dataclasses.replace(cfg32, dtype=torch.bfloat16)),
+                            params, gen, dev, prompt_len)
+        emit("families_check", arch=arch, dtype="bfloat16", gated=False, **shape, **bf16)
+        check(bf16["finite"] and bf16["prefill_finite"], f"{arch}: non-finite bf16 logits")
+        del params
+        torch.cuda.empty_cache()
+
+
+def serve_gemma2(dev):
+    """Phase 22, the gemma2 serve path: gemma2-27b at its published widths
+    and depth in bf16 (random weights from seed 0), one device engine in a
+    TieredServingCluster (2 slots of 5,248 positions) serving a seeded
+    5,120-token prompt and an 8-token prompt, 16 new tokens each, K1's
+    launch count set to 0 just before the run and read just after; then one
+    padded profile of a decode step on the served state."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving import engine as eng_lib
+
+    cfg = get_arch("gemma2-27b").config
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = TransformerLM(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = eng_lib.ServingEngine(
+        eng_lib.EngineConfig(name="hbm", model=cfg, max_slots=2, max_len=5248,
+                             placement="device"), params)
+    rng = np.random.default_rng(0)
+    for rid, plen in enumerate((5120, 8)):
+        eng.submit(eng_lib.Request(rid=rid, prompt=rng.integers(1, cfg.vocab, plen).tolist(),
+                                   max_new_tokens=16))
+    cluster = eng_lib.TieredServingCluster([eng])
+    walls = {"prefill": [], "decode": []}
+    finite = []
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            walls[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    sample = eng._sample
+
+    def checked(logits):
+        finite.append(bool(torch.isfinite(logits).all()))
+        return sample(logits)
+
+    eng.model.prefill = timed(eng.model.prefill, "prefill")
+    eng.decode_once = timed(eng.decode_once, "decode")
+    eng._sample = checked
+    # The main path: launches counted from here.
+    k1.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    res = cluster.run(max_ticks=10**9)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = k1.LAUNCHES.count
+    steps = eng.decode_steps
+    decode_tokens = sum(len(r.output) - 1 for r in eng.done)
+    lengths = eng.state.length.tolist()
+    prof = profile_decode(TransformerLM(cfg), params, dev, steps=1, state=eng.state,
+                          tok=eng._tokens)
+    # A decode step reads every weight once and each slot's K/V rows that
+    # its layers' windows keep.
+    kv_rows = sum(min(n + 1, w) for w in cfg.window_sizes() for n in lengths)
+    prof["bound_ms"], prof["bound_by"] = bound(
+        eng.param_bytes + 2 * kv_rows * cfg.n_kv_heads * cfg.head_dim * 2, 0, 1)
+    emit("serve_gemma2", config=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         n_q_heads=cfg.n_q_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+         d_ff=cfg.d_ff, vocab=cfg.vocab, windows=sorted(set(cfg.window_sizes())),
+         param_bytes=eng.param_bytes, init_s=init_s, max_slots=2, max_len=5248,
+         prompt_lens=[5120, 8], max_new_tokens=16,
+         note="one device engine: build_cluster's host engine is left out at this width, "
+              "its device staging copy would double the weights (serving/engine.py "
+              "_place_state)",
+         prefill_wall_s=walls["prefill"], decode_steps=steps,
+         decode_wall_s=sum(walls["decode"]), decode_step_ms=[w * 1e3 for w in walls["decode"]],
+         measured_decode_tokens_per_s=decode_tokens / sum(walls["decode"]),
+         wall_s=wall_s, result=res, k1_launches=launches,
+         layers_x_decode_steps=cfg.n_layers * steps,
+         peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         decode_profile=prof)
+    check(res["hbm"]["requests"] == 2 and len(eng.done) == 2,
+          f"serve_gemma2 did not finish its requests: {res}")
+    for r in eng.done:
+        check(len(r.output) == 16 and all(0 <= t < cfg.vocab for t in r.output),
+              f"serve_gemma2: bad output for request {r.rid}: {r.output}")
+    check(finite and all(finite), "serve_gemma2: non-finite logits")
+    check(launches == cfg.n_layers * steps and launches > 0,
+          f"serve_gemma2: K1 launches {launches} != layers x decode steps "
+          f"{cfg.n_layers * steps}")
+    return dict(k1_launches=launches, decode_steps=steps)
+
+
+def serve_families(dev):
+    """Phase 23: ``python -m repro_torch.launch.serve --arch A`` at its
+    defaults (the smoke config, both engines, MIKU, 8-token prompts and 24
+    new tokens: past the smoke windows of 16) for each family, in this
+    process on the card with K1's count set to 0 just before and read just
+    after, then on the CPU: the result dicts must be equal.  Then gemma2's
+    smoke config in f32 through phase 3's check (greedy streams equal)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.launch import serve
+
+    launches = {}
+    for arch in SERVE_FAMILIES:
+        cfg = get_arch(arch).smoke
+        out = io.StringIO()
+        with engines_built() as built, contextlib.redirect_stdout(out):
+            k1.LAUNCHES.reset()
+            t0 = time.perf_counter()
+            card = serve.main(["--arch", arch])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[arch] = k1.LAUNCHES.count
+        steps = sum(e.decode_steps for e in built.engines)
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            cpu = serve.main(["--arch", arch, "--device", "cpu"])
+            cpu_wall = time.perf_counter() - t0
+        emit("serve_families", arch=arch, command=f"python -m repro_torch.launch.serve "
+             f"--arch {arch}", output=out.getvalue().splitlines(), config=cfg.name,
+             n_layers=cfg.n_layers, head_dim=cfg.head_dim,
+             windows=sorted(set(cfg.window_sizes())), wall_s=wall, cpu_wall_s=cpu_wall,
+             engines={e.cfg.name: dict(requests=len(e.done), decode_steps=e.decode_steps)
+                      for e in built.engines},
+             k1_launches=launches[arch], layers_x_decode_steps=cfg.n_layers * steps,
+             equal_to_cpu=card == cpu,
+             simulated_note="tok/s on the queue clock with the reference's tier constants")
+        check(launches[arch] == cfg.n_layers * steps and launches[arch] > 0,
+              f"serve_families {arch}: K1 launches {launches[arch]} != layers x decode "
+              f"steps {cfg.n_layers * steps}")
+        check(card == cpu, f"serve_families {arch}: the card's result {card} != the CPU's {cpu}")
+    small_check(dataclasses.replace(get_arch("gemma2-27b").smoke, dtype=torch.float32),
+                prompt=[5, 7, 11, 13, 17, 19, 23], max_new=24, max_len=64)
+    return dict(k1_launches=launches)
+
+
 def _finite(x) -> bool:
     return x == x and abs(x) != float("inf")
 
@@ -2073,21 +2411,32 @@ def decode_check(model, params, gen, dev, steps):
     the same tokens feed both.  Returns the comparison."""
     import torch
 
+    cfg = model.cfg
+    prompt = torch.randint(1, cfg.vocab, (4, 8), generator=gen, device=dev)
+    st_k = model.init_decode_state(4, 96, dev)
+    logits, st_k = model.prefill(params, prompt, st_k)
+    out = dict(batch=4, prompt_len=8)
+    out.update(decode_compare(model, params, st_k, logits.argmax(-1).to(torch.int32), steps))
+    return out
+
+
+def decode_compare(model, params, st_k, tok, steps):
+    """``steps`` decode steps from state ``st_k`` and tokens ``tok`` through
+    the kernel and, from a copy of the state, through the plain attention;
+    the kernel path's greedy tokens feed both.  Logits are held at the
+    reference's decode bound (atol = rtol = 3e-3)."""
+    import torch
+
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import decode_attention_ref
 
     cfg = model.cfg
-    prompt = torch.randint(1, cfg.vocab, (4, 8), generator=gen, device=dev)
-    st_k = model.init_decode_state(4, 96, dev)
-    logits, st_k = model.prefill(params, prompt, st_k)
     st_p = type(st_k)(kv={n: t.clone() for n, t in st_k.kv.items()},
                       length=st_k.length.clone())
-    tok = logits.argmax(-1).to(torch.int32)
     launcher = ops.decode_attention_cuda
-    out = dict(steps=steps, batch=4, prompt_len=8, max_abs_err=0.0, max_rel_logit_err=0.0,
-               allclose=True, finite=True, argmax_agree=0, launches_per_step=[],
-               step_ms=[])
+    out = dict(steps=steps, max_abs_err=0.0, max_rel_logit_err=0.0, allclose=True,
+               finite=True, argmax_agree=0, launches_per_step=[], step_ms=[])
     for _ in range(steps):
         k1.LAUNCHES.reset()
         torch.cuda.synchronize()
@@ -2117,30 +2466,42 @@ def decode_check(model, params, gen, dev, steps):
     return out
 
 
-def profile_decode(model, params, dev, steps: int = 3):
-    """torch.profiler over ``steps`` decode steps at batch 4: wall time per
-    step, device kernel time per step, and the kernels that take it."""
+def profile_decode(model, params, dev, steps: int = 3, state=None, tok=None):
+    """torch.profiler over ``steps`` decode steps, at batch 4 from an
+    8-token prompt or from ``state`` with tokens ``tok``: wall time per
+    step, device kernel time per step, and the kernels that take it.  The
+    trace opens on the spin-kernel padding of :func:`profiled` (its
+    records left out, the ones it lost counted), finished before the
+    steps start."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     cfg = model.cfg
-    st = model.init_decode_state(4, 96, dev)
-    _, st = model.prefill(params, torch.ones(4, 8, dtype=torch.int64, device=dev), st)
-    tok = torch.ones(4, dtype=torch.int32, device=dev)
-    model.decode_step(params, st, tok)  # warm
+    st = state
+    if st is None:
+        st = model.init_decode_state(4, 96, dev)
+        _, st = model.prefill(params, torch.ones(4, 8, dtype=torch.int64, device=dev), st)
+        tok = torch.ones(4, dtype=torch.int32, device=dev)
+        model.decode_step(params, st, tok)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD_KERNELS):
+            torch.cuda._sleep(PROFILE_PAD_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             _, st = model.decode_step(params, st, tok)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    PROFILE_PADS_LOST.append(PROFILE_PAD_KERNELS - sum(
+        e.count for e in events if "spin_kernel" in e.key))
+    events = [e for e in events if "spin_kernel" not in e.key]
     dev_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
     return dict(
-        steps=steps, layers=cfg.n_layers, wall_ms_per_step=wall / steps * 1e3,
-        device_ms_per_step=dev_us / steps / 1e3,
+        steps=steps, layers=cfg.n_layers, batch=int(st.length.shape[0]),
+        wall_ms_per_step=wall / steps * 1e3, device_ms_per_step=dev_us / steps / 1e3,
         device_busy_share=dev_us / 1e6 / wall,
         kernel_launches_per_step=sum(e.count for e in events) / steps,
         top_kernels=[dict(name=e.key[:60], ms_per_step=e.self_device_time_total / steps / 1e3,

@@ -10,9 +10,17 @@ from typing import Dict, List
 
 from repro_torch.models.transformer import ModelConfig
 
-ARCH_IDS: List[str] = ["llama31-8b", "mamba2-2.7b"]
+ARCH_IDS: List[str] = ["llama31-8b", "mamba2-2.7b", "gemma2-27b", "h2o-danube-1.8b",
+                       "stablelm-12b", "qwen2.5-3b"]
 
-_MODULES: Dict[str, str] = {"llama31-8b": "llama31_8b", "mamba2-2.7b": "mamba2_2p7b"}
+_MODULES: Dict[str, str] = {
+    "llama31-8b": "llama31_8b",
+    "mamba2-2.7b": "mamba2_2p7b",
+    "gemma2-27b": "gemma2_27b",
+    "h2o-danube-1.8b": "h2o_danube_1p8b",
+    "stablelm-12b": "stablelm_12b",
+    "qwen2.5-3b": "qwen25_3b",
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -55,8 +55,14 @@
 // Only positions in the walked range are visited: a skipped masked score
 // contributes exp(NEG_INF - m) = 0 exactly.  K/V rows are addressed by
 // strides, so the model-layout cache [B, S, Hkv, Dh] is read in place.
-// Instantiated for Dh = 32, 64 and 128 (the smoke configs' 32, the full
-// widths' 64 and 128); Smem's static_asserts hold each one to the tiling.
+// Instantiated for Dh = 32, 64, 80, 128 and 160 (the smoke configs' 32; the
+// full widths' 64, 128, h2o-danube's 80 and stablelm's 160); Smem's
+// static_asserts hold each one to the tiling.  Every loop over Dh steps by
+// one 16-wide tile (kMt = 5 at Dh 80, 10 at 160) or by 4 f32 lanes, so an
+// odd tile count needs nothing more.  Shared memory a block (ring + q + P):
+// Dh 80 bf16 69,120 B, f32 91,264 B; Dh 160 bf16 130,560 B, f32 175,744 B,
+// so Dh 160 runs one block an SM in both types (as f32 Dh 128 does), and
+// the host's split plan reads that through decode_attention_blocks_per_sm.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -540,10 +546,14 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                        v_strides, scale, window, softcap, st)
   if (dtype == 0 && dh == 32) K1_LAUNCH(float, 32);
   if (dtype == 0 && dh == 64) K1_LAUNCH(float, 64);
+  if (dtype == 0 && dh == 80) K1_LAUNCH(float, 80);
   if (dtype == 0 && dh == 128) K1_LAUNCH(float, 128);
+  if (dtype == 0 && dh == 160) K1_LAUNCH(float, 160);
   if (dtype == 1 && dh == 32) K1_LAUNCH(__nv_bfloat16, 32);
   if (dtype == 1 && dh == 64) K1_LAUNCH(__nv_bfloat16, 64);
+  if (dtype == 1 && dh == 80) K1_LAUNCH(__nv_bfloat16, 80);
   if (dtype == 1 && dh == 128) K1_LAUNCH(__nv_bfloat16, 128);
+  if (dtype == 1 && dh == 160) K1_LAUNCH(__nv_bfloat16, 160);
 #undef K1_LAUNCH
   return cudaErrorInvalidValue;
 }
@@ -553,10 +563,14 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
 int decode_attention_blocks_per_sm(int dh, int dtype) {
   if (dtype == 0 && dh == 32) return blocks_per_sm<float, 32>();
   if (dtype == 0 && dh == 64) return blocks_per_sm<float, 64>();
+  if (dtype == 0 && dh == 80) return blocks_per_sm<float, 80>();
   if (dtype == 0 && dh == 128) return blocks_per_sm<float, 128>();
+  if (dtype == 0 && dh == 160) return blocks_per_sm<float, 160>();
   if (dtype == 1 && dh == 32) return blocks_per_sm<__nv_bfloat16, 32>();
   if (dtype == 1 && dh == 64) return blocks_per_sm<__nv_bfloat16, 64>();
+  if (dtype == 1 && dh == 80) return blocks_per_sm<__nv_bfloat16, 80>();
   if (dtype == 1 && dh == 128) return blocks_per_sm<__nv_bfloat16, 128>();
+  if (dtype == 1 && dh == 160) return blocks_per_sm<__nv_bfloat16, 160>();
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -30,7 +30,7 @@ from repro_torch.kernels._nvcc import LaunchCounter
 
 SOURCE = _nvcc.CudaSource("decode_attention")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 80, 128, 160)
 
 #: No split is cut shorter than this many positions (of the cache length S):
 #: each split pays the fill of its staging ring, its warps' merge and a
@@ -124,8 +124,8 @@ def decode_attention_cuda(
     require(q.dtype in _DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
             "decode-attention-dtype", "q, k, v must share float32 or bfloat16",
             dtypes=(q.dtype, k.dtype, v.dtype))
-    require(dh in _HEAD_DIMS, "decode-attention-shape", "head_dim must be 32, 64 or 128",
-            head_dim=dh)
+    require(dh in _HEAD_DIMS, "decode-attention-shape",
+            "head_dim must be 32, 64, 80, 128 or 160", head_dim=dh)
     require(tuple(k.shape) == (b, hkv, s, dh) and k.shape == v.shape
             and tuple(lengths.shape) == (b,), "decode-attention-shape",
             "expected q [B,Hkv,G,Dh], k/v [B,Hkv,S,Dh], lengths [B]",

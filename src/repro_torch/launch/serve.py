@@ -4,6 +4,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 24 --mode miku
   PYTHONPATH=src python -m repro_torch.launch.serve --full --requests 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b --device cpu
+
+``--arch`` takes the port's registry: llama31-8b, mamba2-2.7b, gemma2-27b,
+h2o-danube-1.8b, stablelm-12b and qwen2.5-3b.
 
 Modes: ``opt`` (each instance alone), ``racing`` (no control), ``miku``
 (dynamic control).  Runs on the card unless ``--device cpu``.  The tok/s
@@ -14,6 +18,7 @@ not a measurement of the device.
 from __future__ import annotations
 
 import argparse
+from typing import Dict
 
 import torch
 
@@ -66,7 +71,9 @@ def build_cluster(arch_id: str = "llama31-8b", *, full: bool = False,
     return TieredServingCluster(engines, controller=controller, window_ns=3e4)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> Dict[str, Dict[str, float]]:
+    """Run the CLI; returns the cluster's result dict (under ``opt``, each
+    instance's run alone)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama31-8b")
     ap.add_argument("--full", action="store_true",
@@ -77,18 +84,18 @@ def main(argv=None) -> None:
     ap.add_argument("--max-ticks", type=int, default=10_000)
     args = ap.parse_args(argv)
     kw = dict(full=args.full, n_requests=args.requests, device=args.device)
+    res: Dict[str, Dict[str, float]] = {}
     if args.mode == "opt":
         for placement in ("device", "host"):
             cl = build_cluster(args.arch, mode="racing", **kw)
             cl.engines = [e for e in cl.engines if e.cfg.placement == placement]
-            for k, v in cl.run(args.max_ticks).items():
-                print(f"[serve/opt] {k}: {v['tokens_per_s']:.0f} simulated tok/s "
-                      f"({v['requests']:.0f} requests)")
-        return
-    cl = build_cluster(args.arch, mode=args.mode, **kw)
-    for k, v in cl.run(args.max_ticks).items():
+            res.update(cl.run(args.max_ticks))
+    else:
+        res = build_cluster(args.arch, mode=args.mode, **kw).run(args.max_ticks)
+    for k, v in res.items():
         print(f"[serve/{args.mode}] {k}: {v['tokens_per_s']:.0f} simulated tok/s "
               f"({v['requests']:.0f} requests)")
+    return res
 
 
 if __name__ == "__main__":

@@ -1,9 +1,12 @@
 """Grouped-query attention with KV caches (port of ``repro/models/attention.py``,
-the dense path).
+the decoder path): GQA, optional QKV biases (qwen2.5) and per-head QK-norm
+(stablelm-2), per-layer windows (gemma2's local layers, SWA) and logit
+soft-capping (gemma2).
 
 * ``attend_full`` — training/prefill attention over the whole sequence:
   grouped score and value products with a causal window mask and f32
-  softmax, on plain tensors.
+  softmax, on plain tensors; above ``Q_BLOCK`` query rows it takes the
+  queries in blocks of ``Q_BLOCK`` against all keys, as the reference does.
 * ``attend_cached`` — one-token decode: writes the new K/V into the cache
   in place (the port's caches are mutable) and runs the flash-decode kernel
   through :func:`repro_torch.kernels.ops.decode_attention`, where the
@@ -17,9 +20,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Params, apply_rope, dense_init
+from repro_torch.models.layers import Params, apply_rope, dense_init, rmsnorm
 
 NEG_INF = -2.3819763e38  # large negative for masking (bf16-safe)
+
+#: Above this sequence length ``attend_full`` takes the queries in row
+#: blocks of this size, so live scores are [B, H, Q_BLOCK, S] (exact).
+Q_BLOCK = 1024
 
 
 def attention_init(
@@ -33,6 +40,7 @@ def attention_init(
     *,
     stacked: Optional[int] = None,
     qkv_bias: bool = False,
+    qk_norm: bool = False,
 ) -> Params:
     lead = (stacked,) if stacked else ()
     params: Params = {
@@ -45,6 +53,9 @@ def attention_init(
     if qkv_bias:
         for name, heads in (("bq", n_q), ("bk", n_kv), ("bv", n_kv)):
             params[name] = torch.zeros(lead + (heads, head_dim), dtype=dtype, device=device)
+    if qk_norm:
+        for name in ("q_norm", "k_norm"):
+            params[name] = torch.zeros(lead + (head_dim,), dtype=dtype, device=device)
     return params
 
 
@@ -60,7 +71,8 @@ def project_qkv(
     *,
     rope_theta: Optional[float],
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: [B, S, D] -> q [B,S,Hq,Dh], k/v [B,S,Hkv,Dh] (RoPE applied)."""
+    """x: [B, S, D] -> q [B,S,Hq,Dh], k/v [B,S,Hkv,Dh]: biases, then the
+    per-head QK-norm (RMSNorm whatever the model's norm), then RoPE."""
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
     v = _project(x, params["wv"])
@@ -68,6 +80,9 @@ def project_qkv(
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
+    if "q_norm" in params:
+        q = rmsnorm(q, params["q_norm"])
+        k = rmsnorm(k, params["k_norm"])
     if rope_theta is not None:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
@@ -98,6 +113,31 @@ def _out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
+def _attention_core(
+    q: torch.Tensor,  # [B,Sq,Hq,Dh] (pre-scaled)
+    k: torch.Tensor,  # [B,T,Hkv,Dh]
+    v: torch.Tensor,  # [B,T,Hkv,Dh]
+    qpos: torch.Tensor,  # [B,Sq]
+    tpos: torch.Tensor,  # [B,T]
+    *,
+    window: int,
+    softcap_value: Optional[float],
+    dtype: torch.dtype,
+) -> torch.Tensor:
+    """Causal windowed attention of a block of queries against all keys:
+    key t attends to query s iff 0 <= s - t < window.  Returns [B,Sq,Hq,Dh]."""
+    scores = _grouped_scores(q, k)  # [B,Hq,Sq,T]
+    if softcap_value is not None:
+        scores = softcap_value * torch.tanh(scores / softcap_value)
+    sp = qpos[:, :, None]
+    tp = tpos[:, None, :]
+    mask = (tp <= sp) & (sp - tp < window)
+    scores = torch.where(mask[:, None], scores, torch.tensor(NEG_INF, dtype=scores.dtype,
+                                                             device=scores.device))
+    probs = torch.softmax(scores.float(), dim=-1).to(dtype)
+    return _grouped_values(probs, v)
+
+
 def attend_full(
     params: Params,
     x: torch.Tensor,
@@ -107,23 +147,25 @@ def attend_full(
     window: int,
     softcap_value: Optional[float] = None,
     query_scale: Optional[float] = None,
+    q_block: int = Q_BLOCK,
 ) -> torch.Tensor:
     """Causal full-sequence attention (training / prefill): key t attends
-    to query s iff 0 <= s - t < window.  The whole [B, H, S, S] score
-    tensor is materialized (prompts on this path are short)."""
+    to query s iff 0 <= s - t < window.  When S > ``q_block`` and
+    ``q_block`` divides S, the queries go in blocks of ``q_block`` rows, so
+    the [B, H, S, S] score tensor never exists; otherwise in one shot."""
+    s = x.shape[1]
     dh = params["wq"].shape[-1]
     q, k, v = project_qkv(params, x, positions, rope_theta=rope_theta)
     scale = query_scale if query_scale is not None else dh**-0.5
-    scores = _grouped_scores(q * scale, k)  # [B,Hq,S,T]
-    if softcap_value is not None:
-        scores = softcap_value * torch.tanh(scores / softcap_value)
-    sp = positions[:, :, None]
-    tp = positions[:, None, :]
-    mask = (tp <= sp) & (sp - tp < window)
-    scores = torch.where(mask[:, None], scores, torch.tensor(NEG_INF, dtype=scores.dtype,
-                                                             device=scores.device))
-    probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-    return _out_project(_grouped_values(probs, v), params["wo"])
+    q = q * scale
+    kw = dict(window=window, softcap_value=softcap_value, dtype=x.dtype)
+    if s <= q_block or s % q_block != 0:
+        out = _attention_core(q, k, v, positions, positions, **kw)
+    else:
+        out = torch.cat([_attention_core(q[:, i:i + q_block], k, v,
+                                         positions[:, i:i + q_block], positions, **kw)
+                         for i in range(0, s, q_block)], dim=1)
+    return _out_project(out, params["wo"])
 
 
 def init_kv_cache(

@@ -3,12 +3,11 @@
 Port of ``repro/models/layers.py``.  Parameters are plain nested dicts of
 tensors with the reference's leaf names, so the weights bridge
 (:mod:`repro_torch.models.weights`) maps one tree onto the other.
-``layernorm`` is not ported yet (no model of this slice uses it).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +61,21 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     return (xf * (1.0 + scale.float())).to(dtype)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 with the same zero-centred ``1 + scale`` weight,
+    applied once, and an optional bias."""
+    dtype = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    xf = xf * (1.0 + scale.float())
+    if bias is not None:
+        xf = xf + bias.float()
+    return xf.to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -85,16 +99,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 # ---------------------------------------------------------------------------
-# Gated MLP (SwiGLU)
+# Gated MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
 
 
 def mlp_apply(params: Params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
-    if activation != "silu":
-        raise NotImplementedError(f"activation {activation!r} is not ported yet")
+    """``(act(x W_gate) * x W_up) W_down``; GELU is the tanh approximation
+    (the reference's ``jax.nn.gelu(approximate=True)``)."""
     gate = x @ params["w_gate"]
     up = x @ params["w_up"]
-    return (F.silu(gate) * up) @ params["w_down"]
+    if activation == "silu":
+        act = F.silu(gate)
+    elif activation == "gelu":
+        act = F.gelu(gate, approximate="tanh")
+    else:
+        raise ValueError(activation)
+    return (act * up) @ params["w_down"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """The decoder of the port (``TransformerLM``'s dense and pure-SSM paths
-from ``repro/models/transformer.py``).
+from ``repro/models/transformer.py``): the llama, gemma2, h2o-danube,
+stablelm and qwen2.5 attention families and mamba2.
 
 Parameters keep the reference's stacked ``[L, ...]`` leaves and names, so
 ``repro_torch.models.weights.params_from_numpy`` maps the reference's tree
@@ -24,6 +25,7 @@ from repro_torch.models.layers import (
     embed_init,
     embed_lookup,
     dense_init,
+    layernorm,
     mlp_apply,
     rmsnorm,
     softcap,
@@ -31,13 +33,18 @@ from repro_torch.models.layers import (
 )
 
 FULL_WINDOW = 1 << 30  # "window" larger than any sequence = dense attention
+#: Per-layer window patterns: all full; all sliding; gemma2's local (even)
+#: and global (odd) layers; hymba's full first, middle and last layers.
+WINDOW_PATTERNS = ("full", "swa", "gemma2", "hymba")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Copy of the reference's ``ModelConfig`` for the dense and pure-SSM
     families; ``dtype`` is a torch dtype.  Flags of families the port has
-    not reached yet raise ``NotImplementedError`` instead of being ignored."""
+    not reached yet (MoE, hybrid, encoder, frontend) raise
+    ``NotImplementedError`` instead of being ignored; an unknown window
+    pattern, norm or activation raises ``ValueError``."""
 
     name: str
     n_layers: int
@@ -77,11 +84,6 @@ class ModelConfig:
             "n_experts (MoE)": self.n_experts != 0,
             "n_encoder_layers (encoder)": self.n_encoder_layers != 0,
             "frontend": self.frontend is not None,
-            "window_pattern": self.window_pattern != "full",
-            "use_post_norms": self.use_post_norms,
-            "qk_norm": self.qk_norm,
-            "norm": self.norm != "rms",
-            "activation": self.activation != "silu",
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
@@ -89,6 +91,11 @@ class ModelConfig:
                 f"{self.name}: {', '.join(bad)} not ported yet "
                 "(dense and pure-SSM paths only)"
             )
+        for field, allowed in (("window_pattern", WINDOW_PATTERNS), ("norm", ("rms", "layernorm")),
+                               ("activation", ("silu", "gelu"))):
+            if getattr(self, field) not in allowed:
+                raise ValueError(f"{self.name}: {field}={getattr(self, field)!r} is not one of "
+                                 f"{allowed}")
         if self.uses_attention and self.n_q_heads % self.n_kv_heads:
             raise ValueError("n_q_heads must be a multiple of n_kv_heads")
 
@@ -107,8 +114,18 @@ class ModelConfig:
                                 n_groups=self.ssm_groups)
 
     def window_sizes(self) -> List[int]:
-        """Per-layer attention windows (all full on the ported paths)."""
-        return [FULL_WINDOW] * self.n_layers
+        """Per-layer attention windows: ``sliding_window`` (or full) on the
+        pattern's local layers, ``FULL_WINDOW`` on the others."""
+        w = self.sliding_window or FULL_WINDOW
+        n = self.n_layers
+        if self.window_pattern == "swa":
+            return [w] * n
+        if self.window_pattern == "gemma2":
+            return [w if i % 2 == 0 else FULL_WINDOW for i in range(n)]
+        if self.window_pattern == "hymba":
+            full_at = {0, n // 2, n - 1}
+            return [FULL_WINDOW if i in full_at else w for i in range(n)]
+        return [FULL_WINDOW] * n
 
 
 @dataclasses.dataclass
@@ -145,12 +162,15 @@ def _shapes(cfg: ModelConfig) -> Dict:
                        "wv": (L, d, hkv, dh), "wo": (L, hq, dh, d)}
         if cfg.qkv_bias:
             attn_shapes.update(bq=(L, hq, dh), bk=(L, hkv, dh), bv=(L, hkv, dh))
-        layers = {
-            "attn": attn_shapes,
-            "pre_attn_norm": (L, d),
-            "mlp": {"w_gate": (L, d, f), "w_up": (L, d, f), "w_down": (L, f, d)},
-            "pre_mlp_norm": (L, d),
-        }
+        if cfg.qk_norm:
+            attn_shapes.update(q_norm=(L, dh), k_norm=(L, dh))
+        layers = {"attn": attn_shapes, "pre_attn_norm": (L, d)}
+        if cfg.use_post_norms:
+            layers["post_attn_norm"] = (L, d)
+        layers["mlp"] = {"w_gate": (L, d, f), "w_up": (L, d, f), "w_down": (L, f, d)}
+        layers["pre_mlp_norm"] = (L, d)
+        if cfg.use_post_norms:
+            layers["post_mlp_norm"] = (L, d)
     shapes = {"embed": (cfg.vocab, d), "layers": layers, "final_norm": (d,)}
     if not cfg.tied_embeddings:
         shapes["lm_head"] = (cfg.vocab, d)
@@ -174,7 +194,8 @@ class TransformerLM:
     def init(self, generator: torch.Generator, device=None) -> Params:
         """Random weights from ``generator`` (which must live on ``device``):
         truncated-normal dense and embedding leaves, zero norms and biases,
-        and the SSM's fixed ``A_log``, ``D`` and ``dt_bias``."""
+        and the SSM's fixed ``A_log``, ``D`` and ``dt_bias``.  Leaves come in
+        the reference's order."""
         cfg = self.cfg
         dev = resolve_device(device)
         dt = cfg.dtype
@@ -191,17 +212,23 @@ class TransformerLM:
                 "pre_ssm_norm": zeros(L, d),
             }
         else:
-            params["layers"] = {
+            layers = {
                 "attn": attn.attention_init(d, hq, cfg.n_kv_heads, dh, dt, generator, dev,
-                                            stacked=L, qkv_bias=cfg.qkv_bias),
+                                            stacked=L, qkv_bias=cfg.qkv_bias,
+                                            qk_norm=cfg.qk_norm),
                 "pre_attn_norm": zeros(L, d),
-                "mlp": {
-                    "w_gate": dense_init(d, (L, d, f), dt, generator, dev),
-                    "w_up": dense_init(d, (L, d, f), dt, generator, dev),
-                    "w_down": dense_init(f, (L, f, d), dt, generator, dev),
-                },
-                "pre_mlp_norm": zeros(L, d),
             }
+            if cfg.use_post_norms:
+                layers["post_attn_norm"] = zeros(L, d)
+            layers["mlp"] = {
+                "w_gate": dense_init(d, (L, d, f), dt, generator, dev),
+                "w_up": dense_init(d, (L, d, f), dt, generator, dev),
+                "w_down": dense_init(f, (L, f, d), dt, generator, dev),
+            }
+            layers["pre_mlp_norm"] = zeros(L, d)
+            if cfg.use_post_norms:
+                layers["post_mlp_norm"] = zeros(L, d)
+            params["layers"] = layers
         params["final_norm"] = zeros(d)
         if not cfg.tied_embeddings:
             params["lm_head"] = embed_init((cfg.vocab, d), dt, generator, dev)
@@ -214,13 +241,28 @@ class TransformerLM:
             x = x * torch.tensor(self.cfg.d_model**0.5, dtype=x.dtype)
         return x
 
+    def _norm(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        """The residual stream's norm: RMSNorm or LayerNorm (``cfg.norm``)."""
+        if self.cfg.norm == "rms":
+            return rmsnorm(x, scale)
+        return layernorm(x, scale)
+
     def _ffn(self, layer: Params, x: torch.Tensor) -> torch.Tensor:
         """The layer's MLP sub-block; the identity for a layer without one
         (the SSM block: d_ff = 0)."""
         if "mlp" not in layer:
             return x
-        h = rmsnorm(x, layer["pre_mlp_norm"])
-        return x + mlp_apply(layer["mlp"], h, activation=self.cfg.activation)
+        h = self._norm(x, layer["pre_mlp_norm"])
+        m = mlp_apply(layer["mlp"], h, activation=self.cfg.activation)
+        if self.cfg.use_post_norms:
+            m = self._norm(m, layer["post_mlp_norm"])
+        return x + m
+
+    def _attn_out(self, layer: Params, a: torch.Tensor) -> torch.Tensor:
+        """The attention sub-block's output before the residual add."""
+        if self.cfg.use_post_norms:
+            return self._norm(a, layer["post_attn_norm"])
+        return a
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -246,7 +288,7 @@ class TransformerLM:
         for i, window in enumerate(cfg.window_sizes()):
             layer = _layer(params["layers"], i)
             if "attn" not in layer:  # pure SSM block
-                h = rmsnorm(x, layer["pre_ssm_norm"])
+                h = self._norm(x, layer["pre_ssm_norm"])
                 out, st = ssm_lib.ssm_branch(layer["ssm"], h, cfg.ssm_dims,
                                              chunk=cfg.ssm_chunk)
                 if ssm is not None:
@@ -254,19 +296,19 @@ class TransformerLM:
                     ssm["conv"][i] = st["conv"]
                 x = self._ffn(layer, x + out)
                 continue
-            h = rmsnorm(x, layer["pre_attn_norm"])
+            h = self._norm(x, layer["pre_attn_norm"])
             if kv is not None:
                 _, k, v = attn.project_qkv(layer["attn"], h, positions,
                                            rope_theta=cfg.rope_theta)
                 kv["k"][i, :, :s] = k.to(kv["k"].dtype)
                 kv["v"][i, :, :s] = v.to(kv["v"].dtype)
-            x = x + attn.attend_full(
+            x = x + self._attn_out(layer, attn.attend_full(
                 layer["attn"], h, positions, rope_theta=cfg.rope_theta,
                 window=window, softcap_value=cfg.attn_softcap,
                 query_scale=cfg.query_scale,
-            )
+            ))
             x = self._ffn(layer, x)
-        return rmsnorm(x, params["final_norm"])
+        return self._norm(x, params["final_norm"])
 
     def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         """Full-sequence forward: hidden states [B, S, D] after the final norm."""
@@ -306,7 +348,7 @@ class TransformerLM:
         for i, window in enumerate(cfg.window_sizes()):
             layer = _layer(params["layers"], i)
             if "attn" not in layer:  # pure SSM block: the recurrence
-                h = rmsnorm(x, layer["pre_ssm_norm"])
+                h = self._norm(x, layer["pre_ssm_norm"])
                 y, new = ssm_lib.ssm_step(
                     layer["ssm"], h, {"h": state.ssm["h"][i], "conv": state.ssm["conv"][i]},
                     cfg.ssm_dims)
@@ -314,15 +356,15 @@ class TransformerLM:
                 state.ssm["conv"][i] = new["conv"]
                 x = self._ffn(layer, x + y)
                 continue
-            h = rmsnorm(x, layer["pre_attn_norm"])
+            h = self._norm(x, layer["pre_attn_norm"])
             cache = {"k": state.kv["k"][i], "v": state.kv["v"][i]}
-            x = x + attn.attend_cached(
+            x = x + self._attn_out(layer, attn.attend_cached(
                 layer["attn"], h, cache, length, rope_theta=cfg.rope_theta,
                 window=window, softcap_value=cfg.attn_softcap,
                 query_scale=cfg.query_scale,
-            )
+            ))
             x = self._ffn(layer, x)
-        x = rmsnorm(x, params["final_norm"])
+        x = self._norm(x, params["final_norm"])
         logits = self._logits(params, x)[:, 0, :]
         return logits, DecodeState(kv=state.kv, ssm=state.ssm, length=length + 1)
 

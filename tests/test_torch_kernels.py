@@ -256,3 +256,58 @@ def test_split_plain_version_at_head_dim_32_matches_reference(dtype, n_split, ca
     np.testing.assert_allclose(out.float().reshape(b, hq, dh).numpy(), want,
                                atol=tol, rtol=tol)
 
+
+
+# -- head_dim 80 (h2o-danube) and 160 (stablelm) at full width ----------------
+
+#: (case, (b, hq, hkv, dh, s), lengths, kwargs): a window whose first valid
+#: position is not a tile boundary, a softcap, and both, at each head dim.
+DH80_160_CASES = [
+    (f"dh{dh}_{name}", (b, hq, hkv, dh, s), lengths, kw)
+    for dh in (80, 160)
+    for name, (b, hq, hkv, s), lengths, kw in (
+        ("window", (2, 8, 2, 512), [512, 300], dict(window=100)),
+        ("softcap", (2, 8, 4, 256), [256, 85], dict(softcap=30.0)),
+        ("window_softcap", (2, 8, 2, 512), [512, 77], dict(window=64, softcap=50.0)),
+    )
+]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case,shape,lengths,kw", DH80_160_CASES,
+                         ids=[c[0] for c in DH80_160_CASES])
+def test_plain_versions_at_head_dim_80_and_160_match_pallas_kernel(dtype, case, shape,
+                                                                    lengths, kw):
+    """decode_attention_ref (the wrapper's CPU path) and the split road's
+    plain version (n_split 1 and 3, bf16 rounding P where the kernel does)
+    against the reference's K1 run in interpret mode, at
+    tests/test_kernels.py's bounds."""
+    np_dt, jnp_dt, t_dt, tol = DTYPES[dtype]
+    b, hq, hkv, dh, s = shape
+    q, k, v, lens = _inputs(8, b, hq, hkv, dh, s, np_dt, lengths=lengths)
+    want = np.asarray(pallas_decode_attention(
+        jnp.asarray(q, jnp_dt), jnp.asarray(k, jnp_dt), jnp.asarray(v, jnp_dt),
+        jnp.asarray(lens), block_s=128, **kw).astype(jnp.float32))
+    np.testing.assert_allclose(_port(q, k, v, lens, t_dt, **kw), want, atol=tol, rtol=tol)
+    for n_split in (1, 3):
+        out = decode_attention_split_ref(
+            _torch(q, t_dt).reshape(b, hkv, hq // hkv, dh), _torch(k, t_dt).transpose(1, 2),
+            _torch(v, t_dt).transpose(1, 2), torch.from_numpy(lens), n_split,
+            p_dtype=torch.bfloat16 if dtype == "bf16" else None, **kw)
+        np.testing.assert_allclose(out.float().reshape(b, hq, dh).numpy(), want,
+                                   atol=tol, rtol=tol)
+
+
+def test_kernel_takes_every_ported_head_dim():
+    """Each head dim of the port's configs, full and smoke, is one the
+    kernel is instantiated for; no other is."""
+    from repro_torch.configs import ARCH_IDS, get_arch
+
+    dims = {cfg.head_dim for a in ARCH_IDS for cfg in (get_arch(a).config, get_arch(a).smoke)
+            if cfg.uses_attention}
+    assert dims == {32, 80, 128, 160}
+    assert dims <= set(kernel_mod._HEAD_DIMS) == {32, 64, 80, 128, 160}
+    src = kernel_mod.SOURCE.path.read_text()
+    for dh in kernel_mod._HEAD_DIMS:
+        for t in ("float", "__nv_bfloat16"):
+            assert f"K1_LAUNCH({t}, {dh})" in src and f"blocks_per_sm<{t}, {dh}>" in src

@@ -134,10 +134,13 @@ def test_decode_step_matches_forward():
 @pytest.mark.parametrize("flag", [dict(block="moe"), dict(n_experts=8),
                                   dict(block="hybrid", ssm_state=16),
                                   dict(n_encoder_layers=2),
-                                  dict(frontend="vision"), dict(window_pattern="swa"),
-                                  dict(use_post_norms=True), dict(norm="layernorm")])
+                                  dict(frontend="vision"), dict(window_pattern="bogus"),
+                                  dict(norm="bogus"), dict(activation="relu")])
 def test_unported_families_raise(flag):
-    with pytest.raises(NotImplementedError):
+    """Families not ported yet raise NotImplementedError; an unknown window
+    pattern, norm or activation raises ValueError."""
+    unknown = {"window_pattern", "norm", "activation"} & set(flag)
+    with pytest.raises(ValueError if unknown else NotImplementedError):
         ModelConfig(name="x", n_layers=1, d_model=8, n_q_heads=2, n_kv_heads=1,
                     head_dim=4, d_ff=8, vocab=16, **flag)
 
