@@ -18,7 +18,9 @@ Phases, each printed as one JSON line:
      window 4096) and 160 (stablelm: the serve shape), each also with a
      window off a tile boundary, a softcap and both, and gemma2-27b's decode
      shape on its local (window 4096, softcap 50) and global (softcap 50)
-     layers, all in f32 and bf16;
+     layers, whisper-large-v3's cross-attention (G = 1, 1,500 memory rows)
+     and hymba-1.5b's decode shape (G = 5, window 1024 and full), all in
+     f32 and bf16;
   3. small-input check: a two-layer model (head_dim 64, f32) served on the
      card and on the CPU (the plain path the CPU tests hold against the JAX
      reference) must give the same greedy tokens and the same result dict;
@@ -40,7 +42,9 @@ Phases, each printed as one JSON line:
      staged plain version with the kernels' roundings, on
      tests/test_kernels.py's cases, chunk invariance, and the mamba2 shapes
      (S = 2048, a ragged S = 200, the serve prompt, S = 8192, B = 4 at
-     S = 2048), each with call, kernel-alone (profiled), plain and bound
+     S = 2048), hymba's (N = 16: the serve prompt and S = 2048 at H = 50,
+     P = 64; its smoke config's P = 32, chunk 16), each with call,
+     kernel-alone (profiled), plain and bound
      times, heads per block, chunks and the device kernels a call enqueues
      (read from a CUDA graph of one call);
   9. sweep: run_scenario("corun_sweep_1k") and run_scenario("corun_sweep")
@@ -96,12 +100,16 @@ Phases, each printed as one JSON line:
      by a KV PageMap, K1's launches read around it, its simulated tokens/s
      and fast/slow KV bytes equal to the same run on the CPU;
  21. families_check: gemma2-27b (cut to 8 layers), h2o-danube-1.8b,
-     stablelm-12b (cut to 8 layers) and qwen2.5-3b at full width in f32:
-     a long slot (5,120 tokens for gemma2 and danube: past the 4,096 window,
-     in query blocks; 300 for the others) and an 8-token slot, the long
-     prefill's logits against the one-shot attention (2e-3), then 3 decode
-     steps through K1 against the plain attention (3e-3); the same weights
-     in bf16 printed, not gated;
+     stablelm-12b (cut to 8 layers), qwen2.5-3b, hymba-1.5b, internvl2-2b
+     and whisper-large-v3 at full width in f32: a long slot (5,120 tokens
+     for gemma2 and danube: past the 4,096 window, in query blocks; 2,048
+     for hymba; 300 for the others, internvl2's with 256 patch embeddings;
+     8 for whisper, against 1,500 frames) and an 8-token slot, the long
+     prefill's logits against the one-shot attention (2e-3) and, for
+     hymba, against K4's plain version, then 3 decode steps through K1
+     (twice a layer for whisper) against the plain attention (3e-3), the
+     SSM state and the cross K/V in the slots; the same weights in bf16
+     printed, not gated, with a 16-token greedy decode of whisper;
  22. serve_gemma2, the gemma2 serve path: gemma2-27b at its published
      widths and depth in bf16, one device engine (2 slots of 5,248) serving
      a 5,120-token and an 8-token prompt, 16 new tokens each; K1 launches
@@ -109,13 +117,22 @@ Phases, each printed as one JSON line:
      the prefill and decode walls, measured tokens/s, peak device memory
      and a padded profile of one decode step;
  23. serve_families: ``python -m repro_torch.launch.serve --arch A`` at its
-     defaults for gemma2, h2o-danube, stablelm and qwen2.5 (smoke configs,
-     past their windows of 16), K1 launches = layers x decode steps, the
-     result dict equal to the CPU's; then gemma2's smoke config in f32
-     through phase 3's check (greedy streams equal).
+     defaults for gemma2, h2o-danube, stablelm, qwen2.5, hymba and internvl2
+     (smoke configs, past their windows of 16), K1 launches = layers x
+     decode steps, K4 = layers x prefills for hymba, the result dict equal
+     to the CPU's; then gemma2's and hymba's smoke configs in f32 through
+     phase 3's check (greedy streams equal);
+ 24. serve_hymba, the hymba serve path: hymba-1.5b at its published widths
+     and depth in bf16, first build_cluster(full=True, mode="miku") with its
+     device and host engines, then one device engine (2 slots of 2,112)
+     serving a 2,048-token and an 8-token prompt, 16 new tokens each; K1
+     launches must be 32 x decode steps and K4 32 x prefills in each run,
+     every token in vocab, every logit finite; the prefill and decode walls,
+     measured tokens/s, peak device memory and a padded profile of one
+     decode step beside its bound.
 The figures' plain lane runs in CPU worker processes from the build on.
-They run in this order: 1-5, 21, 22, 23, 12, 20, 13, 6, 7, 9, 14, 16, 18, 19, 17, 15, 8, 10,
-11.  Every line carries ``elapsed_s``, the seconds since the script started.
+They run in this order: 1-5, 21, 22, 24, 23, 12, 20, 13, 6, 7, 9, 14, 16, 18, 19, 17, 15, 8,
+10, 11.  Every line carries ``elapsed_s``, the seconds since the script started.
 The line before the last lists every kernel's numbers; the last line is the
 device summary.  Any failed check exits non-zero; without CUDA (or without
 the rest of the repository beside this file) it exits non-zero at once.
@@ -373,6 +390,18 @@ def main() -> None:
                       dict(window=4096, softcap=50.0, scale=gemma2_scale), [5121, 9]))
         cases.append((f"gemma2_global_{tag}", (2, 32, 16, 128, 5248), dtype, tol,
                       dict(softcap=50.0, scale=gemma2_scale), [5121, 9]))
+    # The last dense-path families at full width: whisper-large-v3's
+    # cross-attention (MHA, G = 1, every one of the 1,500 memory rows valid:
+    # off the tile and under MIN_SPLIT), and hymba-1.5b's decode shape (G = 5
+    # over 2 slots of 2,112, the served lengths of its last step) on the
+    # SWA-1024 layers and on its full layers.
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        cases.append((f"whisper_cross_{tag}", (2, 20, 20, 64, 1500), dtype, tol, {},
+                      [1500, 1500]))
+        cases.append((f"hymba_window_{tag}", (2, 25, 5, 64, 2112), dtype, tol,
+                      dict(window=1024), [2063, 23]))
+        cases.append((f"hymba_full_{tag}", (2, 25, 5, 64, 2112), dtype, tol, {}, [2063, 23]))
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         # Rows of very different lengths: most splits of the short rows are
@@ -426,6 +455,8 @@ def main() -> None:
                 return F.scaled_dot_product_attention(qs, k, v, attn_mask=mask,
                                                       scale=kw.get("scale"), enable_gqa=True)
 
+            row["library_call"] = ("scaled_dot_product_attention(attn_mask=bool [B, 1, 1, S] "
+                                   "length and window mask, enable_gqa=True)")
             row["library_ms"] = time_ms(library, iters)
             row["library_max_abs_err"] = (library().reshape(out.shape).float()
                                           - ref.float()).abs().max().item()
@@ -514,6 +545,8 @@ def main() -> None:
     families_check(dev)
     gemma2 = serve_gemma2(dev)
     torch.cuda.empty_cache()
+    hymba = serve_hymba(dev)
+    torch.cuda.empty_cache()
     families = serve_families(dev)
     serve_smoke(dev)
     kv = serve_kv(dev)
@@ -579,9 +612,14 @@ def main() -> None:
         # Registers and spills of each <type, Dh> instance (ptxas).
         "instances": k1_instances,
         "serve_families_launches": families["k1_launches"],
+        # The dense-path families: hymba-1.5b at full width (its tiered
+        # cluster, then 2 slots of 2,112 positions), whisper's cross shape
+        # and hymba's decode shape on its windowed and full layers.
+        "serve_hymba_launches": hymba["k1_launches"],
+        "serve_hymba_cluster_launches": hymba["cluster_k1_launches"],
         **{group: {name[len(group) + 1:]: {k: sweep[name][k] for k in K1_FIELDS}
                    for name in sweep if name.startswith(group + "_")}
-           for group in ("gemma2", "dh80", "dh160")},
+           for group in ("gemma2", "dh80", "dh160", "whisper", "hymba")},
     }, {
         "name": "global_lambda",
         "route": "cuda",
@@ -616,6 +654,11 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:89",
         "launches": k4_launches,
+        # hymba-1.5b's SSM heads (N = 16): its serve path, its tiered
+        # cluster, and the serve CLI on its smoke config.
+        "serve_hymba_launches": hymba["k4_launches"],
+        "serve_hymba_cluster_launches": hymba["cluster_k4_launches"],
+        "serve_families_launches": families["k4_launches"]["hymba-1.5b"],
         **k4_row,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1751,6 +1794,16 @@ K4_CASES += [
     ("serve", (1, 8, 80, 64, 128), 128, "bfloat16", 5e-2),
     ("mamba2_s8192_bf16", (1, 8192, 80, 64, 128), 128, "bfloat16", 5e-2),
     ("mamba2_b4_s2048_bf16", (4, 2048, 80, 64, 128), 128, "bfloat16", 5e-2),
+    # hymba-1.5b's SSM heads (H 50, P 64, N 16): the serve CLI's 8-token
+    # prompt and serve_hymba's 2,048-token one; its smoke config (H 8, P 32,
+    # N 16, chunk 16) at the serve CLI's prompt and across a ragged chunk.
+    ("hymba_serve_bf16", (1, 8, 50, 64, 16), 128, "bfloat16", 5e-2),
+    ("hymba_serve_f32", (1, 8, 50, 64, 16), 128, "float32", 1e-4),
+    ("hymba_s2048_bf16", (1, 2048, 50, 64, 16), 128, "bfloat16", 5e-2),
+    ("hymba_s2048_f32", (1, 2048, 50, 64, 16), 128, "float32", 1e-4),
+    ("hymba_smoke_s8_f32", (1, 8, 8, 32, 16), 16, "float32", 1e-4),
+    ("hymba_smoke_s24_f32", (1, 24, 8, 32, 16), 16, "float32", 1e-4),
+    ("hymba_smoke_s24_bf16", (1, 24, 8, 32, 16), 16, "bfloat16", 5e-2),
 ]
 #: K4 against ssd_scan_staged_ref with the kernels' own roundings: in f32
 #: the two differ in summation order only (the gate of the other plain
@@ -1811,7 +1864,7 @@ def k4_sweep(dev):
     chunks), the device kernels one call enqueues (read from a CUDA graph)
     and their profiled time; then chunk 32 against chunk 128.  Returns the
     serve shape's row for the kernels line, with the 2k prompt's as
-    ``long_prompt_*``."""
+    ``long_prompt_*`` and hymba's cases under ``hymba``."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1903,6 +1956,11 @@ def k4_sweep(dev):
     for k in ("ms", "kernel_device_ms", "bound_ms", "plain_ms", "max_abs_err",
               "device_kernels_per_call"):
         out[f"long_prompt_{k}"] = long_row[k]
+    # hymba-1.5b's shapes (N = 16) and its smoke config's.
+    out["hymba"] = {name[len("hymba_"):]: {k: rows[name][k] for k in (
+        "ms", "kernel_device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err", "heads_per_block", "n_chunks", "device_kernels_per_call")}
+        for name in rows if name.startswith("hymba_")}
     return out
 
 
@@ -1914,7 +1972,6 @@ def ssm_check(model, params, gen, dev, prompt_len=300, steps=3):
     import torch
 
     from repro_torch.kernels import ssd_scan as k4
-    from repro_torch.models import ssm as ssm_lib
 
     cfg = model.cfg
     prompt = torch.randint(1, cfg.vocab, (1, prompt_len), generator=gen, device=dev)
@@ -1925,17 +1982,12 @@ def ssm_check(model, params, gen, dev, prompt_len=300, steps=3):
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     launches = k4.LAUNCHES.count
-    kernel_ssd = ssm_lib.ssd
-    ssm_lib.ssd = lambda xs, bm, cm, dt, a, *, chunk: ssm_lib.ssd_chunked(
-        xs, bm, cm, dt, a, chunk=chunk)
-    try:
+    with plain_kernels(k1=False, k4=True):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lp, st_p = model.prefill(params, prompt, model.init_decode_state(1, 1, dev))
         torch.cuda.synchronize()
         plain_prefill_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        ssm_lib.ssd = kernel_ssd
     lk, lp = lk.float(), lp.float()
     out = dict(prompt_len=prompt_len, chunk=cfg.ssm_chunk, steps=steps,
                k4_launches_in_prefill=launches, prefill_ms=prefill_ms,
@@ -1973,7 +2025,6 @@ def prefill_long(model, params, gen, dev, prompt_len=2048):
     import torch
 
     from repro_torch.kernels import ssd_scan as k4
-    from repro_torch.models import ssm as ssm_lib
 
     cfg = model.cfg
     prompt = torch.randint(1, cfg.vocab, (1, prompt_len), generator=gen, device=dev)
@@ -2006,18 +2057,13 @@ def prefill_long(model, params, gen, dev, prompt_len=2048):
     dev_us = sum(e.self_device_time_total for e in events)
     k4_us = sum(e.self_device_time_total for e in k4_events)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
-    kernel_ssd = ssm_lib.ssd
-    ssm_lib.ssd = lambda xs, bm, cm, dt, a, *, chunk: ssm_lib.ssd_chunked(
-        xs, bm, cm, dt, a, chunk=chunk)
-    try:
+    with plain_kernels(k1=False, k4=True):
         prefill()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lp = prefill()
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        ssm_lib.ssd = kernel_ssd
     lk, lp = lk.float(), lp.float()
     check(launches == cfg.n_layers, f"a long prefill launched K4 {launches} times")
     check(bool(torch.isfinite(lk).all()), "non-finite logits of the long prefill")
@@ -2122,11 +2168,15 @@ def ssm_phases(dev):
     return launches
 
 
-# -- the attention families: gemma2, h2o-danube, stablelm, qwen2.5 -------------
+# -- the attention families: gemma2, h2o-danube, stablelm, qwen2.5; the
+# -- dense-path families: hymba, internvl2, whisper ---------------------------
 
 #: families_check: (arch, layers kept or None for all, the long slot's
 #: prompt tokens, why the depth is cut).  f32 throughout; 5,120 tokens cross
-#: the 4,096 window and take the blocked prefill (Q_BLOCK = 1024).
+#: the 4,096 window and take the blocked prefill (Q_BLOCK = 1024), as do
+#: hymba's 2,048 (its window is 1,024); internvl2's 300 tokens hold its 256
+#: patch embeddings; whisper prefills an 8-token prompt into each slot, each
+#: against its own 1,500 frames.
 FAMILY_CHECKS = (
     ("gemma2-27b", 8, 5120, "46 -> 8 layers (4 local, 4 global): f32 at 46 layers is "
                             "about 109 GB"),
@@ -2134,9 +2184,57 @@ FAMILY_CHECKS = (
     ("stablelm-12b", 8, 300, "40 -> 8 layers: f32 at 40 layers is about 48 GB, and the "
                              "check reads the same layers 8 times over"),
     ("qwen2.5-3b", None, 300, None),
+    ("hymba-1.5b", None, 2048, None),
+    ("internvl2-2b", None, 300, None),
+    ("whisper-large-v3", None, 8, None),
 )
 #: serve_families: the serve CLI's --arch ids run at its defaults.
-SERVE_FAMILIES = ("gemma2-27b", "h2o-danube-1.8b", "stablelm-12b", "qwen2.5-3b")
+SERVE_FAMILIES = ("gemma2-27b", "h2o-danube-1.8b", "stablelm-12b", "qwen2.5-3b",
+                  "hymba-1.5b", "internvl2-2b")
+#: The parts of a DecodeState that a slot owns beside its length.
+STATE_PARTS = ("kv", "ssm", "cross_kv")
+
+
+class plain_kernels:
+    """Within it, the model's kernels run their plain versions on the card:
+    K1's launcher (``ops.decode_attention_cuda``) and, with ``k4``, the
+    model's scan (``models.ssm.ssd``, the plain ``ssd_chunked`` that a CPU
+    tensor takes)."""
+
+    def __init__(self, k1: bool = True, k4: bool = False):
+        self.k1, self.k4 = k1, k4
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.ref import decode_attention_ref
+        from repro_torch.models import ssm as ssm_lib
+
+        self._saved = (ops.decode_attention_cuda, ssm_lib.ssd)
+        if self.k1:
+            ops.decode_attention_cuda = (lambda q, k, v, lengths, **kw:
+                                         decode_attention_ref(q, k, v, lengths, **kw))
+        if self.k4:
+            ssm_lib.ssd = lambda xs, bm, cm, dt, a, *, chunk: ssm_lib.ssd_chunked(
+                xs, bm, cm, dt, a, chunk=chunk)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        from repro_torch.models import ssm as ssm_lib
+
+        ops.decode_attention_cuda, ssm_lib.ssd = self._saved
+
+
+def frontend_embeds(cfg, gen, dev, plen):
+    """Seeded frontend embeddings [1, n, d_model] for a ``plen``-token
+    prompt: whisper's 1,500 encoder frames, or internvl2's 256 patch
+    embeddings where the prompt holds them (else a text prompt, None)."""
+    import torch
+
+    n = {"audio": cfg.encoder_seq, "vision": cfg.frontend_seq}.get(cfg.frontend)
+    if n is None or (cfg.frontend == "vision" and plen < n):
+        return None
+    return torch.randn(1, n, cfg.d_model, generator=gen, device=dev)
 
 
 def small_check(cfg, prompt, max_new, max_len):
@@ -2174,10 +2272,14 @@ def small_check(cfg, prompt, max_new, max_len):
 
 def family_check(model, params, gen, dev, prompt_len, steps=3):
     """Slot 0 prefills a ``prompt_len``-token prompt (in query blocks when
-    the model's attention blocks it), slot 1 an 8-token one.  Slot 0's
-    prefill logits are held at the reference's prefill bound (2e-3) against
-    the same prefill with the attention in one shot; then ``steps`` decode
-    steps run through K1 and through the plain attention (3e-3)."""
+    the model's attention blocks it), slot 1 an 8-token one, each with its
+    own frontend embeddings (frames, or patches where the prompt holds
+    them).  Slot 0's prefill logits are held at the reference's prefill
+    bound (2e-3) against the same prefill with the attention in one shot,
+    and, for a model with SSM heads, against the prefill through K4's plain
+    version; then ``steps`` decode steps run through K1 and through the
+    plain attention (3e-3).  Each slot's K/V, SSM state and cross K/V go
+    into the two-slot state."""
     import torch
 
     from repro_torch.models import attention as attn
@@ -2190,17 +2292,23 @@ def family_check(model, params, gen, dev, prompt_len, steps=3):
     first = []
     for slot, plen in enumerate((prompt_len, 8)):
         toks = torch.randint(1, cfg.vocab, (1, plen), generator=gen, device=dev)
+        fe = frontend_embeds(cfg, gen, dev, plen)
+
+        def prefill():
+            return model.prefill(params, toks, model.init_decode_state(1, max_len, dev),
+                                 frontend_embeds=fe)
+
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, st1 = model.prefill(params, toks, model.init_decode_state(1, max_len, dev))
+        logits, st1 = prefill()
         torch.cuda.synchronize()
         if slot == 0:
             out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            out["frontend_embeds"] = None if fe is None else list(fe.shape)
             blocked = attn.attend_full
             attn.attend_full = lambda *a, **kw: blocked(*a, q_block=1 << 30, **kw)
             try:
-                one_shot, _ = model.prefill(params, toks,
-                                            model.init_decode_state(1, max_len, dev))
+                one_shot = prefill()[0]
             finally:
                 attn.attend_full = blocked
             lk, lp = logits.float(), one_shot.float()
@@ -2209,9 +2317,18 @@ def family_check(model, params, gen, dev, prompt_len, steps=3):
                        prefill_max_rel_logit_err=diff / lp.abs().max().item(),
                        prefill_allclose=torch.allclose(lk, lp, atol=2e-3, rtol=2e-3),
                        prefill_finite=bool(torch.isfinite(lk).all()))
-            del one_shot
-        for name in st.kv:
-            st.kv[name][:, slot] = st1.kv[name][:, 0]
+            if cfg.uses_ssm:
+                with plain_kernels(k1=False, k4=True):
+                    lp = prefill()[0].float()
+                diff = (lk - lp).abs().max().item()
+                out.update(prefill_plain_scan_max_abs_err=diff,
+                           prefill_plain_scan_max_rel_logit_err=diff / lp.abs().max().item())
+                out["prefill_allclose"] &= torch.allclose(lk, lp, atol=2e-3, rtol=2e-3)
+            del one_shot, lp
+        for part in STATE_PARTS:
+            if getattr(st, part) is not None:
+                for name, buf in getattr(st, part).items():
+                    buf[:, slot] = getattr(st1, part)[name][:, 0]
         st.length[slot] = plen
         first.append(int(logits.argmax(-1)[0]))
         del st1
@@ -2220,16 +2337,52 @@ def family_check(model, params, gen, dev, prompt_len, steps=3):
     return out
 
 
+def whisper_greedy(model, params, gen, dev, max_new=16):
+    """A 16-token greedy decode of whisper from an 8-token prompt over 1,500
+    seeded frames (K1 on self and cross attention): the encoder's wall
+    alone, the prefill's (which encodes again), and each step's."""
+    import torch
+
+    cfg = model.cfg
+    toks = torch.randint(1, cfg.vocab, (1, 8), generator=gen, device=dev)
+    frames = frontend_embeds(cfg, gen, dev, 8)
+    walls = {}
+    model.encode(params, frames)  # warm: cuBLAS plans, allocator
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    timed("encode_ms", lambda: model.encode(params, frames))
+    logits, st = timed("prefill_ms", lambda: model.prefill(
+        params, toks, model.init_decode_state(1, 8 + max_new, dev), frontend_embeds=frames))
+    out, finite = [int(logits.argmax(-1)[0])], bool(torch.isfinite(logits).all())
+    for _ in range(max_new - 1):
+        logits, st = timed("step_ms", lambda: model.decode_step(
+            params, st, torch.tensor(out[-1:], dtype=torch.int32, device=dev)))
+        finite &= bool(torch.isfinite(logits).all())
+        out.append(int(logits.argmax(-1)[0]))
+    check(finite and all(0 <= t < cfg.vocab for t in out),
+          f"whisper greedy decode: tokens {out}, finite {finite}")
+    return dict(greedy_tokens=out, encode_ms=walls["encode_ms"][0],
+                prefill_ms=walls["prefill_ms"][0], step_ms=walls["step_ms"],
+                measured_decode_tokens_per_s=len(walls["step_ms"]) / sum(walls["step_ms"]) * 1e3)
+
+
 def families_check(dev):
     """Phase 21: each family at its published widths in f32 (depth cut where
     FAMILY_CHECKS says), random weights from a seeded generator: the prefill
-    gate against the one-shot attention and 3 decode steps through K1
-    against the plain attention; then the same weights in bf16, printed but
-    not gated."""
+    gate against the one-shot attention (and for hymba the plain scan) and
+    3 decode steps through K1 against the plain attention; then the same
+    weights in bf16, printed but not gated, with whisper's greedy decode."""
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.models.transformer import TransformerLM, param_shapes
 
     gen = torch.Generator(device=dev).manual_seed(19)
     for arch, n_layers, prompt_len, cut in FAMILY_CHECKS:
@@ -2242,15 +2395,24 @@ def families_check(dev):
                      cut=cut or "none", d_model=full.d_model, n_q_heads=full.n_q_heads,
                      n_kv_heads=full.n_kv_heads, head_dim=full.head_dim, d_ff=full.d_ff,
                      vocab=full.vocab, windows=sorted(set(cfg32.window_sizes())))
+        if full.uses_ssm:
+            shape["ssm_dims"] = full.ssm_dims
+        if full.n_encoder_layers:
+            shape.update(n_encoder_layers=full.n_encoder_layers, encoder_seq=full.encoder_seq)
+        if full.frontend == "vision":
+            shape["frontend_seq"] = full.frontend_seq
         f32 = family_check(TransformerLM(cfg32), params, gen, dev, prompt_len)
         emit("families_check", arch=arch, dtype="float32", tol_prefill=2e-3, tol_decode=3e-3,
              peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **shape, **f32)
         check(f32["prefill_allclose"] and f32["allclose"] and f32["finite"]
               and f32["prefill_finite"], f"{arch}: full-width f32 logits differ: {f32}")
-        params = _to(params, torch.bfloat16)
+        cfg16 = dataclasses.replace(cfg32, dtype=torch.bfloat16)
+        params = _cast(params, param_shapes(cfg16))
         torch.cuda.empty_cache()
-        bf16 = family_check(TransformerLM(dataclasses.replace(cfg32, dtype=torch.bfloat16)),
-                            params, gen, dev, prompt_len)
+        model16 = TransformerLM(cfg16)
+        bf16 = family_check(model16, params, gen, dev, prompt_len)
+        if full.n_encoder_layers:
+            bf16["greedy"] = whisper_greedy(model16, params, gen, dev)
         emit("families_check", arch=arch, dtype="bfloat16", gated=False, **shape, **bf16)
         check(bf16["finite"] and bf16["prefill_finite"], f"{arch}: non-finite bf16 logits")
         del params
@@ -2351,13 +2513,172 @@ def serve_gemma2(dev):
     return dict(k1_launches=launches, decode_steps=steps)
 
 
+def serve_hymba(dev):
+    """Phase 24, the hymba serve path: hymba-1.5b at its
+    published widths and depth in bf16 (random weights from seed 0).  First
+    build_cluster("hymba-1.5b", full=True) under MIKU with its device and
+    host engines, as phase 5 runs llama; then one device engine (2 slots of
+    2,112 positions) serving a seeded 2,048-token prompt (2 query blocks, 16
+    scan chunks) and an 8-token prompt, 16 new tokens each, past the window
+    of 1,024 on 29 layers.  K1's and K4's launch counts are set to 0 just
+    before each run and read just after: K1 = 32 x decode steps, K4 = 32 x
+    prefills.  Then one padded profile of a decode step on the served
+    state, and its bound."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.launch.serve import build_cluster
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving import engine as eng_lib
+
+    cfg = get_arch("hymba-1.5b").config
+    dims = cfg.ssm_dims
+    # An earlier phase's engine whose methods were wrapped holds its
+    # weights in a reference cycle until the collector runs.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cluster = build_cluster("hymba-1.5b", full=True, n_requests=4, max_new=8, mode="miku",
+                            seed=0, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    hbm, host = cluster.engines
+    # The tiered cluster: launches counted from here.
+    k1.LAUNCHES.reset()
+    k4.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    res = cluster.run(max_ticks=10**9)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    k1_cluster, k4_cluster = k1.LAUNCHES.count, k4.LAUNCHES.count
+    steps = hbm.decode_steps + host.decode_steps
+    prefills = sum(len(e.done) for e in cluster.engines)
+    tel = cluster.control.telemetry()
+    emit("serve_hymba_cluster", mode="miku", config=cfg.name, n_layers=cfg.n_layers,
+         param_bytes=hbm.param_bytes, setup_s=setup_s,
+         engines={e.cfg.name: dict(placement=e.cfg.placement, requests=res[e.cfg.name]
+                                   ["requests"], tokens=res[e.cfg.name]["tokens"],
+                                   decode_steps=e.decode_steps) for e in cluster.engines},
+         simulated_tokens_per_s={k: v["tokens_per_s"] for k, v in res.items()},
+         simulated_note="queue clock with the reference's tier constants, not measured",
+         wall_s=wall_s, miku_windows=tel["windows"],
+         miku_restricted_windows=tel["restricted_windows"],
+         h2d_bytes=host.offloader.bytes_to_device, k1_launches=k1_cluster,
+         layers_x_decode_steps=cfg.n_layers * steps, k4_launches=k4_cluster,
+         layers_x_prefills=cfg.n_layers * prefills,
+         peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(res["hbm"]["requests"] == 4 and res["host"]["requests"] == 1,
+          f"serve_hymba: the cluster did not finish its requests: {res}")
+    for e in cluster.engines:
+        for r in e.done:
+            check(len(r.output) == 8 and all(0 <= t < cfg.vocab for t in r.output),
+                  f"serve_hymba: bad output for request {r.rid} of {e.cfg.name}: {r.output}")
+    check(k1_cluster == cfg.n_layers * steps and k1_cluster > 0,
+          f"serve_hymba: K1 launches {k1_cluster} != layers x decode steps "
+          f"{cfg.n_layers * steps}")
+    check(k4_cluster == cfg.n_layers * prefills and k4_cluster > 0,
+          f"serve_hymba: K4 launches {k4_cluster} != layers x prefills "
+          f"{cfg.n_layers * prefills}")
+    params = hbm.params
+    del cluster, hbm, host, e  # the host engine's pinned copy and staging set
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = eng_lib.ServingEngine(
+        eng_lib.EngineConfig(name="hbm", model=cfg, max_slots=2, max_len=2112,
+                             placement="device"), params)
+    rng = np.random.default_rng(0)
+    for rid, plen in enumerate((2048, 8)):
+        eng.submit(eng_lib.Request(rid=rid, prompt=rng.integers(1, cfg.vocab, plen).tolist(),
+                                   max_new_tokens=16))
+    cluster = eng_lib.TieredServingCluster([eng])
+    walls = {"prefill": [], "decode": []}
+    finite = []
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            walls[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    sample = eng._sample
+
+    def checked(logits):
+        finite.append(bool(torch.isfinite(logits).all()))
+        return sample(logits)
+
+    eng.model.prefill = timed(eng.model.prefill, "prefill")
+    eng.decode_once = timed(eng.decode_once, "decode")
+    eng._sample = checked
+    # The main path: launches counted from here.
+    k1.LAUNCHES.reset()
+    k4.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    res = cluster.run(max_ticks=10**9)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, k4_launches = k1.LAUNCHES.count, k4.LAUNCHES.count
+    steps = eng.decode_steps
+    decode_tokens = sum(len(r.output) - 1 for r in eng.done)
+    lengths = eng.state.length.tolist()
+    prof = profile_decode(TransformerLM(cfg), params, dev, steps=1, state=eng.state,
+                          tok=eng._tokens)
+    # A decode step reads every weight once, each slot's K/V rows that its
+    # layers' windows keep, and reads and writes each slot's SSM and conv
+    # states.
+    kv_rows = sum(min(n + 1, w) for w in cfg.window_sizes() for n in lengths)
+    state_bytes = cfg.n_layers * 2 * (dims["n_heads"] * dims["head_dim"] * dims["d_state"] * 4
+                                      + (dims["d_conv"] - 1) * dims["conv_dim"] * 2)
+    prof["bound_ms"], prof["bound_by"] = bound(
+        eng.param_bytes + 2 * kv_rows * cfg.n_kv_heads * cfg.head_dim * 2 + 2 * state_bytes,
+        0, 1)
+    emit("serve_hymba", config=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         n_q_heads=cfg.n_q_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+         d_ff=cfg.d_ff, vocab=cfg.vocab, ssm_dims=dims, windows=sorted(set(cfg.window_sizes())),
+         param_bytes=eng.param_bytes, max_slots=2, max_len=2112, prompt_lens=[2048, 8],
+         max_new_tokens=16, prefill_wall_s=walls["prefill"], decode_steps=steps,
+         decode_wall_s=sum(walls["decode"]), decode_step_ms=[w * 1e3 for w in walls["decode"]],
+         measured_decode_tokens_per_s=decode_tokens / sum(walls["decode"]),
+         wall_s=wall_s, result=res, k1_launches=launches,
+         layers_x_decode_steps=cfg.n_layers * steps, k4_launches=k4_launches,
+         layers_x_prefills=cfg.n_layers * len(eng.done),
+         peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         decode_profile=prof)
+    check(res["hbm"]["requests"] == 2 and len(eng.done) == 2,
+          f"serve_hymba did not finish its requests: {res}")
+    for r in eng.done:
+        check(len(r.output) == 16 and all(0 <= t < cfg.vocab for t in r.output),
+              f"serve_hymba: bad output for request {r.rid}: {r.output}")
+    check(finite and all(finite), "serve_hymba: non-finite logits")
+    check(launches == cfg.n_layers * steps and launches > 0,
+          f"serve_hymba: K1 launches {launches} != layers x decode steps "
+          f"{cfg.n_layers * steps}")
+    check(k4_launches == cfg.n_layers * len(eng.done),
+          f"serve_hymba: K4 launches {k4_launches} != layers x prefills "
+          f"{cfg.n_layers * len(eng.done)}")
+    return dict(k1_launches=launches, k4_launches=k4_launches, decode_steps=steps,
+                cluster_k1_launches=k1_cluster, cluster_k4_launches=k4_cluster)
+
+
 def serve_families(dev):
     """Phase 23: ``python -m repro_torch.launch.serve --arch A`` at its
     defaults (the smoke config, both engines, MIKU, 8-token prompts and 24
     new tokens: past the smoke windows of 16) for each family, in this
-    process on the card with K1's count set to 0 just before and read just
-    after, then on the CPU: the result dicts must be equal.  Then gemma2's
-    smoke config in f32 through phase 3's check (greedy streams equal)."""
+    process on the card with K1's and K4's counts set to 0 just before and
+    read just after (K4 = layers x prefills for hymba, 0 for the others),
+    then on the CPU: the result dicts must be equal.  Then gemma2's and
+    hymba's smoke configs in f32 through phase 3's check (greedy streams
+    equal)."""
     import contextlib
     import io
 
@@ -2365,20 +2686,23 @@ def serve_families(dev):
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import ssd_scan as k4
     from repro_torch.launch import serve
 
-    launches = {}
+    launches, k4_launches = {}, {}
     for arch in SERVE_FAMILIES:
         cfg = get_arch(arch).smoke
         out = io.StringIO()
         with engines_built() as built, contextlib.redirect_stdout(out):
             k1.LAUNCHES.reset()
+            k4.LAUNCHES.reset()
             t0 = time.perf_counter()
             card = serve.main(["--arch", arch])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches[arch] = k1.LAUNCHES.count
+            launches[arch], k4_launches[arch] = k1.LAUNCHES.count, k4.LAUNCHES.count
         steps = sum(e.decode_steps for e in built.engines)
+        prefills = sum(len(e.done) for e in built.engines)
         with contextlib.redirect_stdout(io.StringIO()):
             t0 = time.perf_counter()
             cpu = serve.main(["--arch", arch, "--device", "cpu"])
@@ -2390,15 +2714,20 @@ def serve_families(dev):
              engines={e.cfg.name: dict(requests=len(e.done), decode_steps=e.decode_steps)
                       for e in built.engines},
              k1_launches=launches[arch], layers_x_decode_steps=cfg.n_layers * steps,
+             k4_launches=k4_launches[arch], layers_x_prefills=cfg.n_layers * prefills,
              equal_to_cpu=card == cpu,
              simulated_note="tok/s on the queue clock with the reference's tier constants")
         check(launches[arch] == cfg.n_layers * steps and launches[arch] > 0,
               f"serve_families {arch}: K1 launches {launches[arch]} != layers x decode "
               f"steps {cfg.n_layers * steps}")
+        want_k4 = cfg.n_layers * prefills if cfg.uses_ssm else 0
+        check(k4_launches[arch] == want_k4,
+              f"serve_families {arch}: K4 launches {k4_launches[arch]} != {want_k4}")
         check(card == cpu, f"serve_families {arch}: the card's result {card} != the CPU's {cpu}")
-    small_check(dataclasses.replace(get_arch("gemma2-27b").smoke, dtype=torch.float32),
-                prompt=[5, 7, 11, 13, 17, 19, 23], max_new=24, max_len=64)
-    return dict(k1_launches=launches)
+    for arch in ("gemma2-27b", "hymba-1.5b"):
+        small_check(dataclasses.replace(get_arch(arch).smoke, dtype=torch.float32),
+                    prompt=[5, 7, 11, 13, 17, 19, 23], max_new=24, max_len=64)
+    return dict(k1_launches=launches, k4_launches=k4_launches)
 
 
 def _finite(x) -> bool:
@@ -2422,19 +2751,19 @@ def decode_check(model, params, gen, dev, steps):
 
 def decode_compare(model, params, st_k, tok, steps):
     """``steps`` decode steps from state ``st_k`` and tokens ``tok`` through
-    the kernel and, from a copy of the state, through the plain attention;
-    the kernel path's greedy tokens feed both.  Logits are held at the
-    reference's decode bound (atol = rtol = 3e-3)."""
+    the kernel and, from a copy of the state (K/V, SSM state, cross K/V),
+    through the plain attention; the kernel path's greedy tokens feed both.
+    Logits are held at the reference's decode bound (atol = rtol = 3e-3).
+    A step launches K1 once per layer, twice with cross-attention."""
     import torch
 
     from repro_torch.kernels import decode_attention as k1
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import decode_attention_ref
 
     cfg = model.cfg
-    st_p = type(st_k)(kv={n: t.clone() for n, t in st_k.kv.items()},
-                      length=st_k.length.clone())
-    launcher = ops.decode_attention_cuda
+    st_p = dataclasses.replace(st_k, length=st_k.length.clone(), **{
+        part: {n: t.clone() for n, t in getattr(st_k, part).items()}
+        for part in STATE_PARTS if getattr(st_k, part) is not None})
+    per_step = cfg.n_layers * (2 if cfg.n_encoder_layers else 1)
     out = dict(steps=steps, max_abs_err=0.0, max_rel_logit_err=0.0, allclose=True,
                finite=True, argmax_agree=0, launches_per_step=[], step_ms=[])
     for _ in range(steps):
@@ -2445,12 +2774,8 @@ def decode_compare(model, params, st_k, tok, steps):
         torch.cuda.synchronize()
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         out["launches_per_step"].append(k1.LAUNCHES.count)
-        ops.decode_attention_cuda = lambda q, k, v, lengths, **kw: decode_attention_ref(
-            q, k, v, lengths, **kw)
-        try:
+        with plain_kernels():
             lp, st_p = model.decode_step(params, st_p, tok)
-        finally:
-            ops.decode_attention_cuda = launcher
         lk, lp = lk.float(), lp.float()
         diff = (lk - lp).abs().max().item()
         out["max_abs_err"] = max(out["max_abs_err"], diff)
@@ -2461,8 +2786,9 @@ def decode_compare(model, params, st_k, tok, steps):
         out["argmax_agree"] += int((lk.argmax(-1) == lp.argmax(-1)).sum())
         tok = lk.argmax(-1).to(torch.int32)
     out["logits_shape"] = list(lk.shape)
-    check(out["launches_per_step"] == [cfg.n_layers] * steps,
-          "a decode step did not launch the kernel once per layer")
+    check(out["launches_per_step"] == [per_step] * steps,
+          f"a decode step did not launch the kernel {per_step} times: "
+          f"{out['launches_per_step']}")
     return out
 
 
@@ -2513,6 +2839,13 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def _cast(tree, leaves):
+    """``tree`` with each leaf cast to its dtype in ``leaves`` (a
+    ``param_shapes`` tree): the SSM's f32 leaves stay f32."""
+    return {k: _cast(v, leaves[k]) if isinstance(v, dict) else v.to(leaves[k][1])
+            for k, v in tree.items()}
 
 
 if __name__ == "__main__":

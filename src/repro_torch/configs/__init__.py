@@ -11,7 +11,8 @@ from typing import Dict, List
 from repro_torch.models.transformer import ModelConfig
 
 ARCH_IDS: List[str] = ["llama31-8b", "mamba2-2.7b", "gemma2-27b", "h2o-danube-1.8b",
-                       "stablelm-12b", "qwen2.5-3b"]
+                       "stablelm-12b", "qwen2.5-3b", "hymba-1.5b", "internvl2-2b",
+                       "whisper-large-v3"]
 
 _MODULES: Dict[str, str] = {
     "llama31-8b": "llama31_8b",
@@ -20,6 +21,9 @@ _MODULES: Dict[str, str] = {
     "h2o-danube-1.8b": "h2o_danube_1p8b",
     "stablelm-12b": "stablelm_12b",
     "qwen2.5-3b": "qwen25_3b",
+    "hymba-1.5b": "hymba_1p5b",
+    "internvl2-2b": "internvl2_2b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 

@@ -1,16 +1,20 @@
-"""Grouped-query attention with KV caches (port of ``repro/models/attention.py``,
-the decoder path): GQA, optional QKV biases (qwen2.5) and per-head QK-norm
-(stablelm-2), per-layer windows (gemma2's local layers, SWA) and logit
-soft-capping (gemma2).
+"""Grouped-query attention with KV caches (port of ``repro/models/attention.py``):
+GQA, optional QKV biases (qwen2.5) and per-head QK-norm (stablelm-2),
+per-layer windows (gemma2's local layers, SWA), logit soft-capping
+(gemma2) and whisper's non-causal encoder and cross-attention.
 
 * ``attend_full`` — training/prefill attention over the whole sequence:
-  grouped score and value products with a causal window mask and f32
-  softmax, on plain tensors; above ``Q_BLOCK`` query rows it takes the
-  queries in blocks of ``Q_BLOCK`` against all keys, as the reference does.
+  grouped score and value products with a causal (or, for an encoder,
+  symmetric) window mask and f32 softmax, on plain tensors; above
+  ``Q_BLOCK`` query rows it takes the queries in blocks of ``Q_BLOCK``
+  against all keys, as the reference does.
 * ``attend_cached`` — one-token decode: writes the new K/V into the cache
   in place (the port's caches are mutable) and runs the flash-decode kernel
   through :func:`repro_torch.kernels.ops.decode_attention`, where the
   reference computed the same attention with einsums.
+* ``attend_cross`` — attention against the encoder memory's K/V, unmasked
+  and without RoPE: plain tensors for a prompt, the flash-decode kernel for
+  one decode token (every memory row valid).
 """
 
 from __future__ import annotations
@@ -122,20 +126,36 @@ def _attention_core(
     *,
     window: int,
     softcap_value: Optional[float],
+    causal: bool,
     dtype: torch.dtype,
 ) -> torch.Tensor:
-    """Causal windowed attention of a block of queries against all keys:
-    key t attends to query s iff 0 <= s - t < window.  Returns [B,Sq,Hq,Dh]."""
+    """Windowed attention of a block of queries against all keys: key t
+    attends to query s iff 0 <= s - t < window (causal), else iff
+    |s - t| < window.  Returns [B,Sq,Hq,Dh]."""
     scores = _grouped_scores(q, k)  # [B,Hq,Sq,T]
     if softcap_value is not None:
         scores = softcap_value * torch.tanh(scores / softcap_value)
     sp = qpos[:, :, None]
     tp = tpos[:, None, :]
-    mask = (tp <= sp) & (sp - tp < window)
+    if causal:
+        mask = (tp <= sp) & (sp - tp < window)
+    else:
+        mask = (sp - tp).abs() < window
     scores = torch.where(mask[:, None], scores, torch.tensor(NEG_INF, dtype=scores.dtype,
                                                              device=scores.device))
     probs = torch.softmax(scores.float(), dim=-1).to(dtype)
     return _grouped_values(probs, v)
+
+
+def _blocked(core, q: torch.Tensor, q_block: int, *args) -> torch.Tensor:
+    """``core(q rows, *row args)`` in row blocks of ``q_block`` when S >
+    ``q_block`` and ``q_block`` divides S (so the [B, H, S, T] score tensor
+    never exists), else in one shot; ``args`` are [B, S] position rows."""
+    s = q.shape[1]
+    if s <= q_block or s % q_block != 0:
+        return core(q, *args)
+    return torch.cat([core(q[:, i:i + q_block], *(a[:, i:i + q_block] for a in args))
+                      for i in range(0, s, q_block)], dim=1)
 
 
 def attend_full(
@@ -146,26 +166,66 @@ def attend_full(
     rope_theta: Optional[float],
     window: int,
     softcap_value: Optional[float] = None,
+    causal: bool = True,
     query_scale: Optional[float] = None,
     q_block: int = Q_BLOCK,
 ) -> torch.Tensor:
-    """Causal full-sequence attention (training / prefill): key t attends
-    to query s iff 0 <= s - t < window.  When S > ``q_block`` and
-    ``q_block`` divides S, the queries go in blocks of ``q_block`` rows, so
-    the [B, H, S, S] score tensor never exists; otherwise in one shot."""
-    s = x.shape[1]
+    """Full-sequence attention (training / prefill): key t attends to query
+    s iff 0 <= s - t < window (causal), or iff |s - t| < window (the
+    encoder's ``causal=False``).  Queries go in blocks of ``q_block`` rows
+    when S > ``q_block`` and ``q_block`` divides S; otherwise in one shot."""
     dh = params["wq"].shape[-1]
     q, k, v = project_qkv(params, x, positions, rope_theta=rope_theta)
     scale = query_scale if query_scale is not None else dh**-0.5
     q = q * scale
-    kw = dict(window=window, softcap_value=softcap_value, dtype=x.dtype)
-    if s <= q_block or s % q_block != 0:
-        out = _attention_core(q, k, v, positions, positions, **kw)
-    else:
-        out = torch.cat([_attention_core(q[:, i:i + q_block], k, v,
-                                         positions[:, i:i + q_block], positions, **kw)
-                         for i in range(0, s, q_block)], dim=1)
-    return _out_project(out, params["wo"])
+
+    def core(qc, pc):
+        return _attention_core(qc, k, v, pc, positions, window=window,
+                               softcap_value=softcap_value, causal=causal, dtype=x.dtype)
+
+    return _out_project(_blocked(core, q, q_block, positions), params["wo"])
+
+
+def attend_cross(
+    params: Params,
+    x: torch.Tensor,
+    memory_k: torch.Tensor,  # [B, T, Hkv, Dh]
+    memory_v: torch.Tensor,  # [B, T, Hkv, Dh]
+    *,
+    q_block: int = 0,
+) -> torch.Tensor:
+    """Cross-attention against precomputed encoder K/V (whisper's decoder):
+    no RoPE, no mask, scale ``Dh**-0.5``.  One query row (decode) runs the
+    flash-decode kernel with every one of the T memory rows valid; a
+    prompt takes the plain grouped products, in blocks of ``q_block`` (0:
+    ``Q_BLOCK``) rows as :func:`attend_full` does.  Returns [B, S, D]."""
+    q = _project(x, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"]
+    b, s, _, dh = q.shape
+    if s == 1:
+        lengths = torch.full((b,), memory_k.shape[1], dtype=torch.int32, device=x.device)
+        out = ops.decode_attention(q[:, 0], memory_k, memory_v, lengths, scale=dh**-0.5)
+        return _out_project(out[:, None].to(x.dtype), params["wo"])
+    q = q * dh**-0.5
+
+    def core(qc):
+        probs = torch.softmax(_grouped_scores(qc, memory_k).float(), dim=-1).to(x.dtype)
+        return _grouped_values(probs, memory_v)
+
+    return _out_project(_blocked(core, q, q_block or Q_BLOCK), params["wo"])
+
+
+def project_memory_kv(params: Params, memory: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder memory [B, T, D] -> its K and V [B, T, Hkv, Dh] under one
+    layer's cross-attention weights (and biases, where it has them)."""
+    k = _project(memory, params["wk"])
+    v = _project(memory, params["wv"])
+    if "bk" in params:
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return k, v
 
 
 def init_kv_cache(

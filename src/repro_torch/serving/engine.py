@@ -85,6 +85,11 @@ class ServingEngine:
     def __init__(self, cfg: EngineConfig, params: Any, *,
                  generator: Optional[torch.Generator] = None,
                  kv_pagemap: Any = None):
+        if cfg.model.n_encoder_layers:
+            # The reference's engine cannot serve one either: its prefill
+            # passes no frames and its slots never receive the cross K/V.
+            raise ValueError(f"{cfg.model.name}: the serving engine takes text prompts; an "
+                             "encoder-decoder model needs frames for every request")
         self.cfg = cfg
         self.kv_pagemap = kv_pagemap
         self.model = TransformerLM(cfg.model)

@@ -15,7 +15,7 @@ from repro.configs import get_arch
 from repro.models.transformer import DecodeState as JaxDecodeState
 from repro.models.transformer import TransformerLM as JaxLM
 from repro_torch.configs import get_arch as port_arch
-from repro_torch.models.transformer import ModelConfig, TransformerLM
+from repro_torch.models.transformer import ModelConfig, TransformerLM, param_shapes
 from repro_torch.models.weights import params_from_numpy
 
 # Tiny shapes: one intra-op thread is fastest and keeps parallel test
@@ -135,14 +135,26 @@ def test_decode_step_matches_forward():
                                   dict(block="hybrid", ssm_state=16),
                                   dict(n_encoder_layers=2),
                                   dict(frontend="vision"), dict(window_pattern="bogus"),
-                                  dict(norm="bogus"), dict(activation="relu")])
+                                  dict(norm="bogus"), dict(activation="relu"),
+                                  dict(frontend="bogus")])
 def test_unported_families_raise(flag):
-    """Families not ported yet raise NotImplementedError; an unknown window
-    pattern, norm or activation raises ValueError."""
-    unknown = {"window_pattern", "norm", "activation"} & set(flag)
-    with pytest.raises(ValueError if unknown else NotImplementedError):
-        ModelConfig(name="x", n_layers=1, d_model=8, n_q_heads=2, n_kv_heads=1,
-                    head_dim=4, d_ff=8, vocab=16, **flag)
+    """MoE, not ported yet, raises NotImplementedError; an unknown window
+    pattern, norm, activation or frontend raises ValueError; the hybrid,
+    encoder-decoder and vision families build, and their parameter trees
+    hold the hybrid's SSM branch, the encoder's stack and cross-attention."""
+    kw = dict(name="x", n_layers=1, d_model=8, n_q_heads=2, n_kv_heads=1, head_dim=4,
+              d_ff=8, vocab=16, **flag)
+    if {"block", "n_experts"} & set(flag) and flag.get("block") != "hybrid":
+        with pytest.raises(NotImplementedError):
+            ModelConfig(**kw)
+    elif {"window_pattern", "norm", "activation"} & set(flag) or flag.get("frontend") == "bogus":
+        with pytest.raises(ValueError):
+            ModelConfig(**kw)
+    else:
+        cfg = ModelConfig(**kw)
+        tree = param_shapes(cfg)
+        assert ("ssm" in tree["layers"]) == (cfg.block == "hybrid")
+        assert ("enc_layers" in tree) == ("cross" in tree["layers"]) == (cfg.n_encoder_layers > 0)
 
 
 def test_ssm_block_builds():
