@@ -18,9 +18,10 @@ Phases, each printed as one JSON line:
      window 4096) and 160 (stablelm: the serve shape), each also with a
      window off a tile boundary, a softcap and both, and gemma2-27b's decode
      shape on its local (window 4096, softcap 50) and global (softcap 50)
-     layers, whisper-large-v3's cross-attention (G = 1, 1,500 memory rows)
-     and hymba-1.5b's decode shape (G = 5, window 1024 and full), all in
-     f32 and bf16;
+     layers, whisper-large-v3's cross-attention (G = 1, 1,500 memory rows),
+     hymba-1.5b's decode shape (G = 5, window 1024 and full), and the MoE
+     families' decode shape at Dh 128 over 2 slots of 4,224 (dbrx-132b,
+     G = 6; llama4-maverick, G = 5), all in f32 and bf16;
   3. small-input check: a two-layer model (head_dim 64, f32) served on the
      card and on the CPU (the plain path the CPU tests hold against the JAX
      reference) must give the same greedy tokens and the same result dict;
@@ -117,11 +118,13 @@ Phases, each printed as one JSON line:
      the prefill and decode walls, measured tokens/s, peak device memory
      and a padded profile of one decode step;
  23. serve_families: ``python -m repro_torch.launch.serve --arch A`` at its
-     defaults for gemma2, h2o-danube, stablelm, qwen2.5, hymba and internvl2
-     (smoke configs, past their windows of 16), K1 launches = layers x
-     decode steps, K4 = layers x prefills for hymba, the result dict equal
-     to the CPU's; then gemma2's and hymba's smoke configs in f32 through
-     phase 3's check (greedy streams equal);
+     defaults for gemma2, h2o-danube, stablelm, qwen2.5, hymba, internvl2,
+     dbrx and llama4-maverick (smoke configs, past their windows of 16;
+     llama4's capacity of 1 an expert drops requests at decode), K1
+     launches = layers x decode steps, K4 = layers x prefills for hymba,
+     the result dict equal to the CPU's; then gemma2's, hymba's, dbrx's and
+     llama4's smoke configs in f32 through phase 3's check (greedy streams
+     equal);
  24. serve_hymba, the hymba serve path: hymba-1.5b at its published widths
      and depth in bf16, first build_cluster(full=True, mode="miku") with its
      device and host engines, then one device engine (2 slots of 2,112)
@@ -129,10 +132,31 @@ Phases, each printed as one JSON line:
      launches must be 32 x decode steps and K4 32 x prefills in each run,
      every token in vocab, every logit finite; the prefill and decode walls,
      measured tokens/s, peak device memory and a padded profile of one
-     decode step beside its bound.
+     decode step beside its bound;
+ 25. moe_check: dbrx-132b (cut to 4 layers) and llama4-maverick (one
+     dense/MoE pair) at full width in f32: a 2,048-token slot (2 query
+     blocks, routed in one call) and an 8-token slot, the long prefill's
+     logits against the one-shot attention (2e-3), 3 decode steps through
+     K1 against the plain attention (3e-3), and the share of top-k
+     routings both sides agree on; the first MoE layer's FFN on the long
+     slot's 2,048 tokens (the card's own call in that prefill) against
+     the same function on the CPU, expert by expert (1e-4, the same
+     dropped requests); the f32 peak is reckoned first and must fit the
+     card's free memory; the same weights drawn again in bf16 are printed,
+     not gated;
+ 26. serve_moe, the MoE serve path: dbrx-132b (8 layers) and
+     llama4-maverick (one pair) at their published widths in bf16, one
+     device engine each (2 slots of 4,224) serving a 4,096-token and an
+     8-token prompt, 16 new tokens each; K1 launches must be layers x
+     decode steps, every token in vocab, every logit finite; the prefill
+     and decode walls, measured tokens/s, peak device memory and a padded
+     profile of one decode step with the expert products' device time,
+     beside the bound of every weight read once (bar the untied input
+     embedding's rows that no slot looks up) and the bound of only the
+     routed experts read.
 The figures' plain lane runs in CPU worker processes from the build on.
-They run in this order: 1-5, 21, 22, 24, 23, 12, 20, 13, 6, 7, 9, 14, 16, 18, 19, 17, 15, 8,
-10, 11.  Every line carries ``elapsed_s``, the seconds since the script started.
+They run in this order: 1-5, 21, 25, 22, 26, 24, 23, 12, 20, 13, 6, 7, 9, 14, 16, 18, 19,
+17, 15, 8, 10, 11.  Every line carries ``elapsed_s``, the seconds since the script started.
 The line before the last lists every kernel's numbers; the last line is the
 device summary.  Any failed check exits non-zero; without CUDA (or without
 the rest of the repository beside this file) it exits non-zero at once.
@@ -402,6 +426,15 @@ def main() -> None:
         cases.append((f"hymba_window_{tag}", (2, 25, 5, 64, 2112), dtype, tol,
                       dict(window=1024), [2063, 23]))
         cases.append((f"hymba_full_{tag}", (2, 25, 5, 64, 2112), dtype, tol, {}, [2063, 23]))
+    # The MoE families' decode shape (2 slots of 4,224 positions, a 4,097-
+    # and a 9-token row: serve_moe's first step), full attention at Dh 128:
+    # dbrx-132b (48 q / 8 kv heads, G = 6) and llama4-maverick (40 q / 8 kv
+    # heads, G = 5).
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        cases.append((f"dbrx_decode_{tag}", (2, 48, 8, 128, 4224), dtype, tol, {}, [4097, 9]))
+        cases.append((f"llama4_decode_{tag}", (2, 40, 8, 128, 4224), dtype, tol, {},
+                      [4097, 9]))
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
         # Rows of very different lengths: most splits of the short rows are
@@ -543,8 +576,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     families_check(dev)
+    moe_check(dev)
     gemma2 = serve_gemma2(dev)
     torch.cuda.empty_cache()
+    moe = serve_moe(dev)
     hymba = serve_hymba(dev)
     torch.cuda.empty_cache()
     families = serve_families(dev)
@@ -617,9 +652,13 @@ def main() -> None:
         # and hymba's decode shape on its windowed and full layers.
         "serve_hymba_launches": hymba["k1_launches"],
         "serve_hymba_cluster_launches": hymba["cluster_k1_launches"],
+        # The MoE families: dbrx-132b (G = 6) and llama4-maverick (G = 5)
+        # served at full width (8 layers, one dense/MoE pair), and their
+        # decode shape's cases.
+        "serve_moe_launches": moe["k1_launches"],
         **{group: {name[len(group) + 1:]: {k: sweep[name][k] for k in K1_FIELDS}
                    for name in sweep if name.startswith(group + "_")}
-           for group in ("gemma2", "dh80", "dh160", "whisper", "hymba")},
+           for group in ("gemma2", "dh80", "dh160", "whisper", "hymba", "dbrx", "llama4")},
     }, {
         "name": "global_lambda",
         "route": "cuda",
@@ -2190,7 +2229,23 @@ FAMILY_CHECKS = (
 )
 #: serve_families: the serve CLI's --arch ids run at its defaults.
 SERVE_FAMILIES = ("gemma2-27b", "h2o-danube-1.8b", "stablelm-12b", "qwen2.5-3b",
-                  "hymba-1.5b", "internvl2-2b")
+                  "hymba-1.5b", "internvl2-2b", "dbrx-132b", "llama4-maverick-400b-a17b")
+#: moe_check: (arch, flat layers kept, why the depth is cut), f32 at the
+#: published widths.  The long slot's MOE_PROMPT tokens take the blocked
+#: prefill (2 query blocks); the MoE routes all of them in one call.
+MOE_CHECKS = (
+    ("dbrx-132b", 4, "40 -> 4 layers: 57.08 GB of f32 weights (526 GB whole)"),
+    ("llama4-maverick-400b-a17b", 2, "48 -> 2 layers, one dense/MoE pair: 74.72 GB of f32 "
+                                     "weights (1.60 TB whole)"),
+)
+MOE_PROMPT = 2048
+#: serve_moe: (arch, flat layers kept, why the depth is cut), bf16 at the
+#: published widths: one device engine of 2 slots x 4,224 positions.
+SERVE_MOE = (
+    ("dbrx-132b", 8, "40 -> 8 layers: 54.61 GB of bf16 weights (263 GB whole)"),
+    ("llama4-maverick-400b-a17b", 2, "48 -> 2 layers, one dense/MoE pair: 37.36 GB of bf16 "
+                                     "weights (801 GB whole)"),
+)
 #: The parts of a DecodeState that a slot owns beside its length.
 STATE_PARTS = ("kv", "ssm", "cross_kv")
 
@@ -2223,6 +2278,78 @@ class plain_kernels:
         from repro_torch.models import ssm as ssm_lib
 
         ops.decode_attention_cuda, ssm_lib.ssd = self._saved
+
+
+class routes_recorded:
+    """Within it, each call of the MoE router (``models.moe.route``)
+    appends its top-k expert ids [T, k] to ``.routes``, in call order, and
+    ``.first`` keeps the first ``models.moe.moe_apply`` call: (the layer's
+    leaves, x, its keywords, its output)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_lib
+
+        self._saved = route, apply = moe_lib.route, moe_lib.moe_apply
+        self.routes = routes = []
+        self.first = None
+
+        def record(params, x, top_k):
+            out = route(params, x, top_k)
+            routes.append(out[2])
+            return out
+
+        def keep_first(params, x, **kw):
+            out = apply(params, x, **kw)
+            if self.first is None:
+                self.first = (params, x, kw, out[0])
+            return out
+
+        moe_lib.route, moe_lib.moe_apply = record, keep_first
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as moe_lib
+
+        moe_lib.route, moe_lib.moe_apply = self._saved
+
+
+def routing_agreement(routes, n_moe, steps):
+    """Split the routings that :func:`family_check` recorded into its model
+    calls, ``n_moe`` each: slot 0's blocked prefill and its one-shot
+    prefill, slot 1's prefill, then per decode step the K1 side and the
+    plain side.  Returns the share of (token, choice) entries routed to the
+    same expert on both sides of each comparison."""
+    calls = [routes[i:i + n_moe] for i in range(0, len(routes), n_moe)]
+    check(len(routes) == n_moe * (3 + 2 * steps),
+          f"moe_check: {len(routes)} routings recorded, not {n_moe} x {3 + 2 * steps}")
+
+    def share(a, b):
+        return sum(int((x == y).sum()) for x, y in zip(a, b)) / sum(x.numel() for x in a)
+
+    return dict(prefill_routing_agree=share(calls[0], calls[1]),
+                decode_routing_agree=[share(calls[3 + 2 * i], calls[4 + 2 * i])
+                                      for i in range(steps)])
+
+
+def moe_peak_bytes(cfg, prompt_len):
+    """Reckoned peak of :func:`family_check` on ``cfg``: its weights, the
+    one-shot prefill's scores, masked scores and probabilities
+    [Hq, S, S] f32, and the widest FFN's three [rows, F] products (the
+    dense sublayer's S rows, or the experts' E x capacity rows)."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.transformer import param_shapes
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from leaves(v) if isinstance(v, dict) else [v]
+
+    weights = sum(int(np.prod(shape)) * dtype.itemsize
+                  for shape, dtype in leaves(param_shapes(cfg)))
+    s = prompt_len
+    cap = moe_lib.capacity(s, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    rows_f = max(s * (cfg.d_ff_dense or 2 * cfg.d_ff) if cfg.paired else 0,
+                 cfg.n_experts * cap * cfg.d_ff)
+    return weights + 3 * cfg.n_q_heads * s * s * 4 + 3 * rows_f * cfg.dtype.itemsize
 
 
 def frontend_embeds(cfg, gen, dev, plen):
@@ -2419,34 +2546,141 @@ def families_check(dev):
         torch.cuda.empty_cache()
 
 
-def serve_gemma2(dev):
-    """Phase 22, the gemma2 serve path: gemma2-27b at its published widths
-    and depth in bf16 (random weights from seed 0), one device engine in a
-    TieredServingCluster (2 slots of 5,248 positions) serving a seeded
-    5,120-token prompt and an 8-token prompt, 16 new tokens each, K1's
-    launch count set to 0 just before the run and read just after; then one
-    padded profile of a decode step on the served state."""
+def moe_check(dev):
+    """Phase 25: each MoE family at its published widths in f32 with its
+    depth cut as MOE_CHECKS says (random weights from a seeded generator):
+    a MOE_PROMPT-token slot beside an 8-token slot, the long prefill against
+    the one-shot attention (2e-3) and 3 decode steps through K1 against the
+    plain attention (3e-3), with the share of top-k routings the two sides
+    agree on, and the first MoE layer's call in the long prefill held
+    against the CPU (:func:`moe_layer_check`).  The f32 peak is reckoned
+    first and must fit the card's free memory.  Then the f32 weights are
+    freed and the same values drawn again in bf16 (the draw is f32,
+    rounded) and run the same way, printed, not gated."""
+    import gc
+
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import decode_attention as k1
     from repro_torch.models.transformer import TransformerLM
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for arch, n_layers, cut in MOE_CHECKS:
+        spec = get_arch(arch)
+        full = dataclasses.replace(spec.config, n_layers=n_layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        need = moe_peak_bytes(dataclasses.replace(full, dtype=torch.float32), MOE_PROMPT)
+        free = torch.cuda.mem_get_info()[0]
+        check(need <= free, f"moe_check {arch}: the f32 run's reckoned peak {need / 1e9:.2f} GB "
+                            f"exceeds the card's free memory, {free / 1e9:.2f} GB")
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = dataclasses.replace(full, dtype=dtype)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = TransformerLM(cfg).init(torch.Generator(device=dev).manual_seed(3), dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            with routes_recorded() as rec:
+                res = family_check(TransformerLM(cfg), params, gen, dev, MOE_PROMPT)
+            res.update(routing_agreement(rec.routes, cfg.n_layers // cfg.moe_every,
+                                         res["steps"]))
+            f32 = dtype == torch.float32
+            if f32:
+                res["layer_check"] = moe_layer_check(rec.first, rec.routes[0], cfg)
+            emit("moe_check", arch=arch, config=cfg.name, dtype=str(dtype).split(".")[-1],
+                 gated=f32, tol_prefill=2e-3, tol_decode=3e-3, n_layers=cfg.n_layers,
+                 published_layers=spec.config.n_layers, cut=cut, d_model=cfg.d_model,
+                 n_q_heads=cfg.n_q_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                 d_ff=cfg.d_ff, d_ff_dense=cfg.d_ff_dense, n_experts=cfg.n_experts,
+                 top_k=cfg.top_k, shared_expert_ff=cfg.shared_expert_ff, vocab=cfg.vocab,
+                 f32_reckoned_peak_gb=need / 1e9, free_device_memory_gb=free / 1e9,
+                 init_s=init_s, peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 **res)
+            if f32:
+                layer = res["layer_check"]
+                check(res["prefill_allclose"] and res["allclose"] and res["finite"]
+                      and res["prefill_finite"], f"{arch}: f32 MoE logits differ: {res}")
+                check(layer["allclose"] and layer["same_dropped"] and layer["same_routing"],
+                      f"{arch}: the card's MoE layer differs from the CPU's: {layer}")
+            else:
+                check(res["finite"] and res["prefill_finite"], f"{arch}: non-finite bf16 logits")
+            del params, rec
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def moe_layer_check(call, card_idx, cfg):
+    """Hold one MoE FFN call made on the card, ``call`` = (the layer's
+    leaves, x [B, S, D], moe_apply's keywords, its output), against the same
+    function computed on the CPU without ``moe_apply``'s dispatch: the
+    routing (``models.moe.route``) on copies of x and the router, then
+    expert by expert, with only that expert's weights copied over, the
+    first ``capacity`` requests in the order of their flat index
+    ``t * k + j`` kept and the rest dropped, each kept token's FFN output
+    added with its gate; the shared expert added last.  ``card_idx`` is
+    the card's top-k routing [T, k] of the same call.  Outputs at
+    atol = rtol = 1e-4, and the same dropped (token, expert) requests."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe as moe_lib
+
+    layer, x, kw, out = call
+    k = kw["top_k"]
+
+    def act(h):
+        return F.silu(h) if kw["activation"] == "silu" else F.gelu(h, approximate="tanh")
+
+    t0 = time.perf_counter()
+    xc = x.reshape(-1, x.shape[-1]).cpu()
+    t, n_exp = xc.shape[0], layer["router"].shape[-1]
+    _, vals, idx = moe_lib.route({"router": layer["router"].cpu()}, xc, k)
+    cap = moe_lib.capacity(t, k, n_exp, kw["capacity_factor"])
+    flat, gate = idx.reshape(-1), vals.reshape(-1)
+    ref = torch.zeros_like(xc)
+    dropped_cpu = set()
+    for e in range(n_exp):
+        reqs = (flat == e).nonzero().flatten()
+        dropped_cpu |= {(int(r) // k, e) for r in reqs[cap:]}
+        kept = reqs[:cap]
+        if kept.numel():
+            tok = kept // k
+            wg, wu, wd = (layer[n][e].cpu() for n in ("w_gate", "w_up", "w_down"))
+            ref.index_add_(0, tok, (act(xc[tok] @ wg) * (xc[tok] @ wu)) @ wd
+                           * gate[kept, None])
+    if "shared" in layer:
+        sh = {n: w.cpu() for n, w in layer["shared"].items()}
+        ref += (act(xc @ sh["w_gate"]) * (xc @ sh["w_up"])) @ sh["w_down"]
+    cpu_s = time.perf_counter() - t0
+    # The card's drops, read from its own dispatch of its own routing.
+    sort_idx, sorted_e, _, keep = moe_lib.dispatch(card_idx, n_exp, cap)
+    lost = ~keep
+    dropped_card = set(zip((sort_idx[lost] // k).tolist(), sorted_e[lost].tolist()))
+    card = out.reshape(ref.shape).float().cpu()
+    diff = (card - ref).abs().max().item()
+    return dict(tokens=t, capacity=cap, experts_with_requests=int(flat.unique().numel()),
+                dropped_requests=len(dropped_cpu), same_dropped=dropped_card == dropped_cpu,
+                same_routing=bool((card_idx.cpu() == idx).all()), tol=1e-4,
+                max_abs_err=diff, max_rel_err=diff / ref.abs().max().item(),
+                allclose=torch.allclose(card, ref, atol=1e-4, rtol=1e-4), cpu_s=cpu_s)
+
+
+def run_timed(eng):
+    """Serve the requests queued on device engine ``eng`` in a
+    TieredServingCluster of its own, each prefill and decode step timed
+    (device synchronised) and each sampled step's logits checked finite.
+    The main path: K1's and K4's launch counts are set to 0 just before the
+    run and read just after.  Returns (result dict, walls in s by "prefill"
+    and "decode", finite flags, run wall in s, {"k1": n, "k4": n}).  The
+    timing wrappers are removed afterwards: they would hold the engine, and
+    its weights, in a reference cycle."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.kernels import ssd_scan as k4
     from repro_torch.serving import engine as eng_lib
 
-    cfg = get_arch("gemma2-27b").config
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = TransformerLM(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    eng = eng_lib.ServingEngine(
-        eng_lib.EngineConfig(name="hbm", model=cfg, max_slots=2, max_len=5248,
-                             placement="device"), params)
-    rng = np.random.default_rng(0)
-    for rid, plen in enumerate((5120, 8)):
-        eng.submit(eng_lib.Request(rid=rid, prompt=rng.integers(1, cfg.vocab, plen).tolist(),
-                                   max_new_tokens=16))
-    cluster = eng_lib.TieredServingCluster([eng])
     walls = {"prefill": [], "decode": []}
     finite = []
 
@@ -2469,13 +2703,48 @@ def serve_gemma2(dev):
     eng.model.prefill = timed(eng.model.prefill, "prefill")
     eng.decode_once = timed(eng.decode_once, "decode")
     eng._sample = checked
-    # The main path: launches counted from here.
-    k1.LAUNCHES.reset()
+    cluster = eng_lib.TieredServingCluster([eng])
+    try:
+        k1.LAUNCHES.reset()
+        k4.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        res = cluster.run(max_ticks=10**9)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = {"k1": k1.LAUNCHES.count, "k4": k4.LAUNCHES.count}
+    finally:
+        del eng.model.prefill, eng.decode_once, eng._sample
+    return res, walls, finite, wall_s, counts
+
+
+def serve_gemma2(dev):
+    """Phase 22, the gemma2 serve path: gemma2-27b at its published widths
+    and depth in bf16 (random weights from seed 0), one device engine in a
+    TieredServingCluster (2 slots of 5,248 positions) serving a seeded
+    5,120-token prompt and an 8-token prompt, 16 new tokens each, K1's
+    launch count set to 0 just before the run and read just after; then one
+    padded profile of a decode step on the served state."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving import engine as eng_lib
+
+    cfg = get_arch("gemma2-27b").config
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = cluster.run(max_ticks=10**9)
+    params = TransformerLM(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = k1.LAUNCHES.count
+    init_s = time.perf_counter() - t0
+    eng = eng_lib.ServingEngine(
+        eng_lib.EngineConfig(name="hbm", model=cfg, max_slots=2, max_len=5248,
+                             placement="device"), params)
+    rng = np.random.default_rng(0)
+    for rid, plen in enumerate((5120, 8)):
+        eng.submit(eng_lib.Request(rid=rid, prompt=rng.integers(1, cfg.vocab, plen).tolist(),
+                                   max_new_tokens=16))
+    res, walls, finite, wall_s, counts = run_timed(eng)
+    launches = counts["k1"]
     steps = eng.decode_steps
     decode_tokens = sum(len(r.output) - 1 for r in eng.done)
     lengths = eng.state.length.tolist()
@@ -2597,37 +2866,8 @@ def serve_hymba(dev):
     for rid, plen in enumerate((2048, 8)):
         eng.submit(eng_lib.Request(rid=rid, prompt=rng.integers(1, cfg.vocab, plen).tolist(),
                                    max_new_tokens=16))
-    cluster = eng_lib.TieredServingCluster([eng])
-    walls = {"prefill": [], "decode": []}
-    finite = []
-
-    def timed(fn, key):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            walls[key].append(time.perf_counter() - t)
-            return out
-        return run
-
-    sample = eng._sample
-
-    def checked(logits):
-        finite.append(bool(torch.isfinite(logits).all()))
-        return sample(logits)
-
-    eng.model.prefill = timed(eng.model.prefill, "prefill")
-    eng.decode_once = timed(eng.decode_once, "decode")
-    eng._sample = checked
-    # The main path: launches counted from here.
-    k1.LAUNCHES.reset()
-    k4.LAUNCHES.reset()
-    t0 = time.perf_counter()
-    res = cluster.run(max_ticks=10**9)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches, k4_launches = k1.LAUNCHES.count, k4.LAUNCHES.count
+    res, walls, finite, wall_s, counts = run_timed(eng)
+    launches, k4_launches = counts["k1"], counts["k4"]
     steps = eng.decode_steps
     decode_tokens = sum(len(r.output) - 1 for r in eng.done)
     lengths = eng.state.length.tolist()
@@ -2668,6 +2908,111 @@ def serve_hymba(dev):
           f"{cfg.n_layers * len(eng.done)}")
     return dict(k1_launches=launches, k4_launches=k4_launches, decode_steps=steps,
                 cluster_k1_launches=k1_cluster, cluster_k4_launches=k4_cluster)
+
+
+def serve_moe(dev):
+    """Phase 26, the MoE serve path: dbrx-132b and llama4-maverick at their
+    published widths in bf16, depth cut as SERVE_MOE says (random weights
+    from seed 0), each in one device engine in a TieredServingCluster (2
+    slots of 4,224 positions) serving a seeded 4,096-token prompt and an
+    8-token prompt, 16 new tokens each; the collector runs before each
+    model.  K1's launch count is set to 0 just before each run and read
+    just after: layers x decode steps.  Then one padded profile of a decode
+    step on the served state, with the expert products' device time
+    (``aten::bmm``), beside two bounds: every weight read once (the untied
+    input embedding only in the rows the slots look up) plus the K/V rows,
+    and the same with only the experts that step routed to."""
+    import gc
+
+    import torch
+
+    launches, steps = {}, {}
+    for arch, n_layers, cut in SERVE_MOE:
+        # Each model's engine and weights live in serve_moe_model's frame,
+        # so they are gone when it returns.
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches[arch], steps[arch] = serve_moe_model(dev, arch, n_layers, cut)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(k1_launches=launches, decode_steps=steps)
+
+
+def serve_moe_model(dev, arch, n_layers, cut):
+    """One model of :func:`serve_moe`: returns (K1 launches, decode steps)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.serving import engine as eng_lib
+
+    cfg = dataclasses.replace(get_arch(arch).config, n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = TransformerLM(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = eng_lib.ServingEngine(
+        eng_lib.EngineConfig(name="hbm", model=cfg, max_slots=2, max_len=4224,
+                             placement="device"), params)
+    rng = np.random.default_rng(0)
+    for rid, plen in enumerate((4096, 8)):
+        eng.submit(eng_lib.Request(rid=rid, prompt=rng.integers(1, cfg.vocab, plen).tolist(),
+                                   max_new_tokens=16))
+    res, walls, finite, wall_s, counts = run_timed(eng)
+    launches = counts["k1"]
+    steps = eng.decode_steps
+    decode_tokens = sum(len(r.output) - 1 for r in eng.done)
+    lengths = eng.state.length.tolist()
+    with routes_recorded() as rec:
+        prof = profile_decode(TransformerLM(cfg), params, dev, steps=1, state=eng.state,
+                              tok=eng._tokens)
+    # A decode step reads every weight once, bar the rows of an untied input
+    # embedding that its slots do not look up, and each slot's K/V rows;
+    # reading only the experts it routes to would spare the others.
+    kv_bytes = 2 * sum(n + 1 for n in lengths) * cfg.n_layers * cfg.n_kv_heads \
+        * cfg.head_dim * 2
+    embed = params["embed"]
+    unread = 0 if cfg.tied_embeddings else embed.nbytes - len(lengths) * embed[0].nbytes
+    read = eng.param_bytes - unread + kv_bytes
+    expert_bytes = 3 * cfg.d_model * cfg.d_ff * 2
+    routed = [int(torch.unique(r).numel()) for r in rec.routes]
+    check(len(routed) == cfg.n_layers // cfg.moe_every,
+          f"serve_moe {arch}: {len(routed)} routings in one profiled step")
+    prof["bound_ms"], prof["bound_by"] = bound(read, 0, 1)
+    prof["embed_bytes_unread"] = unread
+    prof["routed_experts_per_layer"] = routed
+    prof["routed_only_bound_ms"], _ = bound(
+        read - sum(cfg.n_experts - n for n in routed) * expert_bytes, 0, 1)
+    prof["expert_products_share"] = prof["bmm_device_ms_per_step"] / prof["device_ms_per_step"]
+    emit("serve_moe", arch=arch, config=cfg.name, n_layers=cfg.n_layers,
+         published_layers=get_arch(arch).config.n_layers, cut=cut, d_model=cfg.d_model,
+         n_q_heads=cfg.n_q_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+         d_ff=cfg.d_ff, d_ff_dense=cfg.d_ff_dense, n_experts=cfg.n_experts,
+         top_k=cfg.top_k, shared_expert_ff=cfg.shared_expert_ff, vocab=cfg.vocab,
+         param_bytes=eng.param_bytes, init_s=init_s, max_slots=2, max_len=4224,
+         prompt_lens=[4096, 8], max_new_tokens=16,
+         note="one device engine: build_cluster's host engine is left out at this width, "
+              "its device staging copy would double the weights (serving/engine.py "
+              "_place_state)",
+         prefill_wall_s=walls["prefill"], decode_steps=steps,
+         decode_wall_s=sum(walls["decode"]),
+         decode_step_ms=[w * 1e3 for w in walls["decode"]],
+         measured_decode_tokens_per_s=decode_tokens / sum(walls["decode"]),
+         wall_s=wall_s, result=res, k1_launches=launches,
+         layers_x_decode_steps=cfg.n_layers * steps,
+         peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         decode_profile=prof)
+    check(res["hbm"]["requests"] == 2 and len(eng.done) == 2,
+          f"serve_moe {arch} did not finish its requests: {res}")
+    for r in eng.done:
+        check(len(r.output) == 16 and all(0 <= t < cfg.vocab for t in r.output),
+              f"serve_moe {arch}: bad output for request {r.rid}: {r.output}")
+    check(finite and all(finite), f"serve_moe {arch}: non-finite logits")
+    check(launches == cfg.n_layers * steps and launches > 0,
+          f"serve_moe {arch}: K1 launches {launches} != layers x decode steps "
+          f"{cfg.n_layers * steps}")
+    return launches, steps
 
 
 def serve_families(dev):
@@ -2724,7 +3069,7 @@ def serve_families(dev):
         check(k4_launches[arch] == want_k4,
               f"serve_families {arch}: K4 launches {k4_launches[arch]} != {want_k4}")
         check(card == cpu, f"serve_families {arch}: the card's result {card} != the CPU's {cpu}")
-    for arch in ("gemma2-27b", "hymba-1.5b"):
+    for arch in ("gemma2-27b", "hymba-1.5b", "dbrx-132b", "llama4-maverick-400b-a17b"):
         small_check(dataclasses.replace(get_arch(arch).smoke, dtype=torch.float32),
                     prompt=[5, 7, 11, 13, 17, 19, 23], max_new=24, max_len=64)
     return dict(k1_launches=launches, k4_launches=k4_launches)
@@ -2795,10 +3140,11 @@ def decode_compare(model, params, st_k, tok, steps):
 def profile_decode(model, params, dev, steps: int = 3, state=None, tok=None):
     """torch.profiler over ``steps`` decode steps, at batch 4 from an
     8-token prompt or from ``state`` with tokens ``tok``: wall time per
-    step, device kernel time per step, and the kernels that take it.  The
-    trace opens on the spin-kernel padding of :func:`profiled` (its
-    records left out, the ones it lost counted), finished before the
-    steps start."""
+    step, device kernel time per step, and the kernels that take it; the
+    device time of the kernels that ``aten::bmm`` launched (the MoE's
+    expert products) and its calls, per step.  The trace opens on the
+    spin-kernel padding of :func:`profiled` (its records left out, the ones
+    it lost counted), finished before the steps start."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2819,13 +3165,17 @@ def profile_decode(model, params, dev, steps: int = 3, state=None, tok=None):
             _, st = model.decode_step(params, st, tok)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type.name == "CUDA"]
     PROFILE_PADS_LOST.append(PROFILE_PAD_KERNELS - sum(
         e.count for e in events if "spin_kernel" in e.key))
     events = [e for e in events if "spin_kernel" not in e.key]
     dev_us = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    bmm = [e for e in averages if e.key == "aten::bmm" and e.device_type.name == "CPU"]
     return dict(
+        bmm_device_ms_per_step=sum(e.device_time_total for e in bmm) / steps / 1e3,
+        bmm_calls_per_step=sum(e.count for e in bmm) / steps,
         steps=steps, layers=cfg.n_layers, batch=int(st.length.shape[0]),
         wall_ms_per_step=wall / steps * 1e3, device_ms_per_step=dev_us / steps / 1e3,
         device_busy_share=dev_us / 1e6 / wall,

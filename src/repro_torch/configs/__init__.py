@@ -1,6 +1,5 @@
-"""Architecture registry of the port: the configs whose families are
-ported (a subset of ``repro.configs``), copied so the port imports nothing
-from the reference."""
+"""Architecture registry of the port: every config of ``repro.configs``,
+copied so the port imports nothing from the reference."""
 
 from __future__ import annotations
 
@@ -12,7 +11,7 @@ from repro_torch.models.transformer import ModelConfig
 
 ARCH_IDS: List[str] = ["llama31-8b", "mamba2-2.7b", "gemma2-27b", "h2o-danube-1.8b",
                        "stablelm-12b", "qwen2.5-3b", "hymba-1.5b", "internvl2-2b",
-                       "whisper-large-v3"]
+                       "whisper-large-v3", "dbrx-132b", "llama4-maverick-400b-a17b"]
 
 _MODULES: Dict[str, str] = {
     "llama31-8b": "llama31_8b",
@@ -24,6 +23,8 @@ _MODULES: Dict[str, str] = {
     "hymba-1.5b": "hymba_1p5b",
     "internvl2-2b": "internvl2_2b",
     "whisper-large-v3": "whisper_large_v3",
+    "dbrx-132b": "dbrx_132b",
+    "llama4-maverick-400b-a17b": "llama4_maverick",
 }
 
 

@@ -6,12 +6,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx-132b --device cpu
 
 ``--arch`` takes the port's registry: llama31-8b, mamba2-2.7b, gemma2-27b,
-h2o-danube-1.8b, stablelm-12b, qwen2.5-3b, hymba-1.5b and internvl2-2b
-(text prompts, as the reference's engine serves it), and whisper-large-v3,
-which the engine refuses with ``ValueError``: its requests would need
-frames, as in the reference.
+h2o-danube-1.8b, stablelm-12b, qwen2.5-3b, hymba-1.5b, internvl2-2b (text
+prompts, as the reference's engine serves it), the MoE families dbrx-132b
+and llama4-maverick-400b-a17b, and whisper-large-v3, which the engine
+refuses with ``ValueError``: its requests would need frames, as in the
+reference.
 
 Modes: ``opt`` (each instance alone), ``racing`` (no control), ``miku``
 (dynamic control).  Runs on the card unless ``--device cpu``.  The tok/s
@@ -82,7 +84,7 @@ def main(argv=None) -> Dict[str, Dict[str, float]]:
     ap.add_argument("--arch", default="llama31-8b",
                     help="a port registry id: llama31-8b, mamba2-2.7b, gemma2-27b, "
                          "h2o-danube-1.8b, stablelm-12b, qwen2.5-3b, hymba-1.5b, "
-                         "internvl2-2b")
+                         "internvl2-2b, dbrx-132b, llama4-maverick-400b-a17b")
     ap.add_argument("--full", action="store_true",
                     help="the published widths instead of the smoke config")
     ap.add_argument("--requests", type=int, default=24)

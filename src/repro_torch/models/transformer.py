@@ -1,28 +1,33 @@
-"""The port's ``TransformerLM`` (``repro/models/transformer.py`` without
-MoE): the llama, gemma2, h2o-danube, stablelm and qwen2.5 attention
-families, mamba2, hymba's hybrid block (parallel attention and SSM heads
-on one normed input, mean-fused), whisper's encoder-decoder (a non-causal
+"""The port's ``TransformerLM`` (``repro/models/transformer.py``): the
+llama, gemma2, h2o-danube, stablelm and qwen2.5 attention families, the
+MoE families (dbrx: an MoE FFN in every layer; llama4-maverick: dense/MoE
+pairs), mamba2, hymba's hybrid block (parallel attention and SSM heads on
+one normed input, mean-fused), whisper's encoder-decoder (a non-causal
 encoder over stubbed frame embeddings, cross-attention in every decoder
 layer) and internvl2's early fusion (stubbed patch embeddings replace the
 first prompt positions).
 
-Parameters keep the reference's stacked ``[L, ...]`` leaves and names, so
+Parameters keep the reference's stacked ``[L, ...]`` leaves and names
+(a paired stack's ``{"dense": [L/2, ...], "moe": [L/2, ...]}``), so
 ``repro_torch.models.weights.params_from_numpy`` maps the reference's tree
 onto the port's.  ``lax.scan`` over layers becomes a Python loop over the
-leading index.  Decode state is mutable: ``prefill`` and ``decode_step``
-write the KV caches and the SSM states in place and return a state that
-shares them.
+flat layer index: layer ``2p + j`` of a paired stack is sublayer ``j`` of
+pair ``p``, which is also its slot in the reference's pair view of the
+flat ``[L, ...]`` decode state.  Decode state is mutable: ``prefill`` and
+``decode_step`` write the KV caches and the SSM states in place and return
+a state that shares them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     Params,
@@ -44,11 +49,12 @@ WINDOW_PATTERNS = ("full", "swa", "gemma2", "hymba")
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Copy of the reference's ``ModelConfig`` without the MoE fields;
-    ``dtype`` is a torch dtype.  MoE (``block="moe"``, ``n_experts``) is not
-    ported yet and raises ``NotImplementedError`` instead of being ignored;
-    an unknown block, window pattern, norm, activation or frontend raises
-    ``ValueError``."""
+    """Copy of the reference's ``ModelConfig``; ``dtype`` is a torch dtype.
+    An unknown block, window pattern, norm, activation or frontend raises
+    ``ValueError``, as does an inconsistent MoE config: ``block="moe"``
+    without ``0 < top_k <= n_experts``, experts on another block,
+    ``moe_every`` other than 1 or 2, or dense/MoE pairs over an odd number
+    of layers."""
 
     name: str
     n_layers: int
@@ -73,6 +79,13 @@ class ModelConfig:
     embed_scale: bool = False
     use_post_norms: bool = False
     n_experts: int = 0
+    top_k: int = 0
+    shared_expert_ff: int = 0
+    capacity_factor: float = 1.25
+    #: 1 = every layer MoE (dbrx); 2 = alternating dense/MoE pairs (llama4
+    #: maverick: 24 dense + 24 MoE layers, 400B total / 17B active).
+    moe_every: int = 1
+    d_ff_dense: int = 0  # dense sub-layer FFN width when moe_every == 2 (0: 2 x d_ff)
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssm_groups: int = 1
@@ -85,10 +98,7 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self) -> None:
-        if self.block == "moe" or self.n_experts != 0:
-            raise NotImplementedError(f"{self.name}: MoE (block='moe', n_experts) is not "
-                                      "ported yet")
-        for field, allowed in (("block", ("dense", "ssm", "hybrid")),
+        for field, allowed in (("block", ("dense", "moe", "ssm", "hybrid")),
                                ("window_pattern", WINDOW_PATTERNS), ("norm", ("rms", "layernorm")),
                                ("activation", ("silu", "gelu")),
                                ("frontend", (None, "vision", "audio"))):
@@ -97,6 +107,17 @@ class ModelConfig:
                                  f"{allowed}")
         if self.uses_attention and self.n_q_heads % self.n_kv_heads:
             raise ValueError("n_q_heads must be a multiple of n_kv_heads")
+        if self.block == "moe" and not 0 < self.top_k <= self.n_experts:
+            raise ValueError(f"{self.name}: an MoE block needs 0 < top_k <= n_experts, got "
+                             f"top_k={self.top_k}, n_experts={self.n_experts}")
+        if self.block != "moe" and self.n_experts:
+            raise ValueError(f"{self.name}: n_experts={self.n_experts} on block="
+                             f"{self.block!r}; experts need block='moe'")
+        if self.moe_every not in (1, 2):
+            raise ValueError(f"{self.name}: moe_every={self.moe_every} is not 1 or 2")
+        if self.paired and self.n_layers % 2:
+            raise ValueError(f"{self.name}: dense/MoE pairs need an even n_layers, got "
+                             f"{self.n_layers}")
 
     @property
     def uses_attention(self) -> bool:
@@ -112,9 +133,68 @@ class ModelConfig:
                                 head_dim=self.ssm_head_dim, d_state=self.ssm_state,
                                 n_groups=self.ssm_groups)
 
+    @property
+    def paired(self) -> bool:
+        return self.block == "moe" and self.moe_every == 2
+
+    @property
+    def n_scan(self) -> int:
+        """Stacked steps (a dense/MoE pair counts as one)."""
+        return self.n_layers // 2 if self.paired else self.n_layers
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the reference's, for 6·N·D
+        bookkeeping)."""
+        d, f, L = self.d_model, self.d_ff, self.n_layers
+        n = self.vocab * d  # embed
+        if not self.tied_embeddings:
+            n += self.vocab * d
+        attn_per = d * self.head_dim * (self.n_q_heads * 2 + self.n_kv_heads * 2)
+        per_layer = 0
+        if self.uses_attention:
+            per_layer += attn_per
+        if self.block == "moe":
+            n_moe_layers = L // 2 if self.paired else L
+            n_dense_layers = L - n_moe_layers
+            n += n_moe_layers * (
+                attn_per
+                + d * self.n_experts
+                + 3 * d * f * self.n_experts
+                + (3 * d * self.shared_expert_ff if self.shared_expert_ff else 0)
+            )
+            dense_ff = self.d_ff_dense or 2 * f
+            n += n_dense_layers * (attn_per + 3 * d * dense_ff)
+            per_layer = 0  # fully accounted above
+            L = 0
+        elif self.block in ("dense", "hybrid") and f > 0:
+            per_layer += 3 * d * f
+        if self.uses_ssm:
+            dims = self.ssm_dims
+            per_layer += d * dims["d_in_proj"] + dims["d_inner"] * d
+            per_layer += dims["d_conv"] * dims["conv_dim"]
+        n += L * per_layer
+        if self.n_encoder_layers:
+            enc_per = attn_per + 3 * d * f
+            n += self.n_encoder_layers * enc_per
+            n += self.n_layers * attn_per  # decoder cross-attention
+        return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if self.block != "moe":
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        n_moe_layers = self.n_layers // 2 if self.paired else self.n_layers
+        total = self.param_count()
+        moe_all = n_moe_layers * 3 * d * f * self.n_experts
+        moe_active = n_moe_layers * 3 * d * f * self.top_k
+        return total - moe_all + moe_active
+
     def window_sizes(self) -> List[int]:
-        """Per-layer attention windows: ``sliding_window`` (or full) on the
-        pattern's local layers, ``FULL_WINDOW`` on the others."""
+        """Per-layer attention windows, one per flat layer (the reference's
+        ``[n_scan, 2]`` for a paired stack, flattened): ``sliding_window``
+        (or full) on the pattern's local layers, ``FULL_WINDOW`` on the
+        others."""
         w = self.sliding_window or FULL_WINDOW
         n = self.n_layers
         if self.window_pattern == "swa":
@@ -168,10 +248,11 @@ def _attn_shapes(cfg: ModelConfig, L: int, *, extras: bool = True) -> Dict:
 
 
 def _sublayer_shapes(cfg: ModelConfig, L: int, *, use_attn: bool, use_ssm: bool,
-                     cross: bool) -> Dict:
+                     cross: bool, ffn: Optional[str], d_ff: int) -> Dict:
     """One stack of layers, leaves in the reference's ``_sublayer_init``
-    order: attention, cross-attention, SSM, MLP."""
-    d, f = cfg.d_model, cfg.d_ff
+    order: attention, cross-attention, SSM, then the FFN (``ffn``: "mlp",
+    "moe" or None) of width ``d_ff``."""
+    d, f = cfg.d_model, d_ff
     layers: Dict = {}
     if use_attn:
         layers["attn"] = _attn_shapes(cfg, L)
@@ -185,7 +266,10 @@ def _sublayer_shapes(cfg: ModelConfig, L: int, *, use_attn: bool, use_ssm: bool,
         layers["ssm"] = ssm_lib.ssm_shapes(d, cfg.ssm_dims, L)
         if not use_attn:
             layers["pre_ssm_norm"] = (L, d)
-    if use_attn:  # the SSM block has no MLP
+    if ffn == "moe":  # no post norm, as in the reference
+        layers["moe"] = moe_lib.moe_shapes(d, f, cfg.n_experts, L, cfg.shared_expert_ff)
+        layers["pre_mlp_norm"] = (L, d)
+    elif ffn == "mlp":
         layers["mlp"] = {"w_gate": (L, d, f), "w_up": (L, d, f), "w_down": (L, f, d)}
         layers["pre_mlp_norm"] = (L, d)
         if cfg.use_post_norms:
@@ -193,14 +277,32 @@ def _sublayer_shapes(cfg: ModelConfig, L: int, *, use_attn: bool, use_ssm: bool,
     return layers
 
 
+def _decoder_stack(cfg: ModelConfig, make: Callable[..., Dict]) -> Dict:
+    """The decoder's ``layers`` tree from ``make(L, **sublayer keywords)``:
+    one stack of ``n_layers``, or a paired stack's dense sublayers (FFN
+    ``d_ff_dense`` or 2 x ``d_ff``) and then its MoE sublayers, which have
+    no cross-attention, ``n_layers / 2`` each, in the reference's order."""
+    cross = cfg.n_encoder_layers > 0
+    if cfg.paired:
+        return {"dense": make(cfg.n_scan, use_attn=True, use_ssm=False, cross=cross,
+                              ffn="mlp", d_ff=cfg.d_ff_dense or 2 * cfg.d_ff),
+                "moe": make(cfg.n_scan, use_attn=True, use_ssm=False, cross=False,
+                            ffn="moe", d_ff=cfg.d_ff)}
+    # The SSM block, and a dense or hybrid one without an FFN width, has no FFN.
+    ffn = {"moe": "moe", "dense": "mlp", "hybrid": "mlp"}.get(cfg.block)
+    return make(cfg.n_layers, use_attn=cfg.uses_attention, use_ssm=cfg.uses_ssm,
+                cross=cross, ffn=ffn if cfg.block == "moe" or cfg.d_ff > 0 else None,
+                d_ff=cfg.d_ff)
+
+
 def _shapes(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     shapes = {"embed": (cfg.vocab, d),
-              "layers": _sublayer_shapes(cfg, cfg.n_layers, use_attn=cfg.uses_attention,
-                                         use_ssm=cfg.uses_ssm, cross=cfg.n_encoder_layers > 0)}
+              "layers": _decoder_stack(cfg, lambda L, **kw: _sublayer_shapes(cfg, L, **kw))}
     if cfg.n_encoder_layers:
         shapes["enc_layers"] = _sublayer_shapes(cfg, cfg.n_encoder_layers, use_attn=True,
-                                                use_ssm=False, cross=False)
+                                                use_ssm=False, cross=False, ffn="mlp",
+                                                d_ff=cfg.d_ff)
         shapes["enc_final_norm"] = (d,)
     shapes["final_norm"] = (d,)
     if not cfg.tied_embeddings:
@@ -213,6 +315,15 @@ def _layer(layers: Params, i: int) -> Params:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
 
 
+def _decoder_layer(cfg: ModelConfig, layers: Params, i: int) -> Params:
+    """Flat decoder layer ``i``'s view: for a paired stack, the dense
+    sublayer of pair ``i // 2`` at even ``i`` and its MoE sublayer at odd
+    ``i``."""
+    if cfg.paired:
+        return _layer(layers["moe" if i % 2 else "dense"], i // 2)
+    return _layer(layers, i)
+
+
 class TransformerLM:
     """The LM of every ported family: ``init``, ``forward``, ``encode``,
     ``logits``, ``prefill`` and one-token ``decode_step`` with an explicit
@@ -223,12 +334,13 @@ class TransformerLM:
 
     # ------------------------------------------------------------------ init
     def _sublayer_init(self, L: int, generator: torch.Generator, dev: torch.device, *,
-                       use_attn: bool, use_ssm: bool, cross: bool) -> Params:
+                       use_attn: bool, use_ssm: bool, cross: bool, ffn: Optional[str],
+                       d_ff: int) -> Params:
         """One stack of layers, drawn in the leaf order of
         :func:`_sublayer_shapes`."""
         cfg = self.cfg
         dt = cfg.dtype
-        d, f, hq, hkv, dh = cfg.d_model, cfg.d_ff, cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
+        d, f, hq, hkv, dh = cfg.d_model, d_ff, cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=dt, device=dev)
@@ -247,7 +359,11 @@ class TransformerLM:
             layers["ssm"] = ssm_lib.ssm_init(d, cfg.ssm_dims, dt, generator, dev, stacked=L)
             if not use_attn:
                 layers["pre_ssm_norm"] = zeros(L, d)
-        if use_attn:
+        if ffn == "moe":
+            layers["moe"] = moe_lib.moe_init(d, f, cfg.n_experts, dt, generator, dev,
+                                             stacked=L, shared_expert_ff=cfg.shared_expert_ff)
+            layers["pre_mlp_norm"] = zeros(L, d)
+        elif ffn == "mlp":
             layers["mlp"] = {
                 "w_gate": dense_init(d, (L, d, f), dt, generator, dev),
                 "w_up": dense_init(d, (L, d, f), dt, generator, dev),
@@ -266,16 +382,13 @@ class TransformerLM:
         cfg = self.cfg
         dev = resolve_device(device)
         d = cfg.d_model
-        params: Params = {
-            "embed": embed_init((cfg.vocab, d), cfg.dtype, generator, dev),
-            "layers": self._sublayer_init(cfg.n_layers, generator, dev,
-                                          use_attn=cfg.uses_attention, use_ssm=cfg.uses_ssm,
-                                          cross=cfg.n_encoder_layers > 0),
-        }
+        params: Params = {"embed": embed_init((cfg.vocab, d), cfg.dtype, generator, dev)}
+        params["layers"] = _decoder_stack(
+            cfg, lambda L, **kw: self._sublayer_init(L, generator, dev, **kw))
         if cfg.n_encoder_layers:
             params["enc_layers"] = self._sublayer_init(cfg.n_encoder_layers, generator, dev,
                                                        use_attn=True, use_ssm=False,
-                                                       cross=False)
+                                                       cross=False, ffn="mlp", d_ff=cfg.d_ff)
             params["enc_final_norm"] = torch.zeros(d, dtype=cfg.dtype, device=dev)
         params["final_norm"] = torch.zeros(d, dtype=cfg.dtype, device=dev)
         if not cfg.tied_embeddings:
@@ -306,16 +419,26 @@ class TransformerLM:
             return rmsnorm(x, scale)
         return layernorm(x, scale)
 
-    def _ffn(self, layer: Params, x: torch.Tensor) -> torch.Tensor:
-        """The layer's MLP sub-block; the identity for a layer without one
-        (the SSM block: d_ff = 0)."""
+    def _ffn(self, layer: Params, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The layer's FFN sub-block: (x, the MoE's load-balance aux loss, or
+        None for the MLP).  The identity for a layer without one (the SSM
+        block: d_ff = 0).  The MoE routes all of the call's tokens at once,
+        so a prompt's capacity is that of its whole length."""
+        cfg = self.cfg
+        if "moe" in layer:
+            h = self._norm(x, layer["pre_mlp_norm"])
+            m, aux = moe_lib.moe_apply(layer["moe"], h, top_k=cfg.top_k,
+                                       capacity_factor=cfg.capacity_factor,
+                                       activation=cfg.activation)
+            return x + m, aux
         if "mlp" not in layer:
-            return x
+            return x, None
         h = self._norm(x, layer["pre_mlp_norm"])
-        m = mlp_apply(layer["mlp"], h, activation=self.cfg.activation)
-        if self.cfg.use_post_norms:
+        m = mlp_apply(layer["mlp"], h, activation=cfg.activation)
+        if cfg.use_post_norms:
             m = self._norm(m, layer["post_mlp_norm"])
-        return x + m
+        return x + m, None
 
     def _attn_out(self, layer: Params, a: torch.Tensor) -> torch.Tensor:
         """The attention sub-block's output before the residual add."""
@@ -348,7 +471,7 @@ class TransformerLM:
             h = self._norm(x, layer["pre_attn_norm"])
             x = x + attn.attend_full(layer["attn"], h, positions, rope_theta=None,
                                      window=FULL_WINDOW, causal=False)
-            x = self._ffn(layer, x)
+            x, _ = self._ffn(layer, x)
         return self._norm(x, params["enc_final_norm"])
 
     def _cross_memory(self, params: Params, frontend_embeds: Optional[torch.Tensor]
@@ -378,15 +501,26 @@ class TransformerLM:
              frontend_embeds: Optional[torch.Tensor] = None,
              kv: Optional[Dict[str, torch.Tensor]] = None,
              ssm: Optional[Dict[str, torch.Tensor]] = None,
-             memory: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        """Full-sequence stack; writes each layer's K/V prefix into ``kv``
-        and each SSM branch's final scan and conv states into ``ssm``.  A
-        hybrid layer's attention and SSM branch read the same normed input
-        and are mean-fused; ``memory`` is the encoder's cross K/V."""
+             memory: Optional[Dict[str, torch.Tensor]] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence stack: (hidden states after the final norm, the
+        MoE layers' aux losses summed in f32).  Writes each layer's K/V
+        prefix into ``kv`` and each SSM branch's final scan and conv states
+        into ``ssm``.  A hybrid layer's attention and SSM branch read the
+        same normed input and are mean-fused; ``memory`` is the encoder's
+        cross K/V."""
         cfg = self.cfg
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
         x = self._embed(params, tokens, frontend_embeds)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def ffn(layer, x):
+            nonlocal aux_total
+            x, aux = self._ffn(layer, x)
+            if aux is not None:
+                aux_total = aux_total + aux
+            return x
 
         def ssm_branch(layer, h, i):
             out, st = ssm_lib.ssm_branch(layer["ssm"], h, cfg.ssm_dims, chunk=cfg.ssm_chunk)
@@ -396,10 +530,10 @@ class TransformerLM:
             return out
 
         for i, window in enumerate(cfg.window_sizes()):
-            layer = _layer(params["layers"], i)
+            layer = _decoder_layer(cfg, params["layers"], i)
             if "attn" not in layer:  # pure SSM block
                 h = self._norm(x, layer["pre_ssm_norm"])
-                x = self._ffn(layer, x + ssm_branch(layer, h, i))
+                x = ffn(layer, x + ssm_branch(layer, h, i))
                 continue
             h = self._norm(x, layer["pre_attn_norm"])
             if kv is not None:
@@ -415,16 +549,19 @@ class TransformerLM:
             if "ssm" in layer:  # hybrid: parallel heads, mean-fused
                 a = 0.5 * (a + ssm_branch(layer, h, i))
             x = self._cross(layer, x + self._attn_out(layer, a), memory, i)
-            x = self._ffn(layer, x)
-        return self._norm(x, params["final_norm"])
+            x = ffn(layer, x)
+        return self._norm(x, params["final_norm"]), aux_total
 
     def forward(self, params: Params, tokens: torch.Tensor, *,
-                frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                frontend_embeds: Optional[torch.Tensor] = None, return_aux: bool = False):
         """Full-sequence forward: hidden states [B, S, D] after the final
-        norm.  ``frontend_embeds``: patch embeddings (vision) or the
-        encoder's frames (audio, required)."""
-        return self._run(params, tokens, frontend_embeds,
-                         memory=self._cross_memory(params, frontend_embeds))
+        norm, or with ``return_aux`` (hidden, aux) as the reference's
+        ``forward`` returns them: aux is the MoE layers' load-balance losses
+        summed in f32 (0 without MoE).  ``frontend_embeds``: patch
+        embeddings (vision) or the encoder's frames (audio, required)."""
+        x, aux = self._run(params, tokens, frontend_embeds,
+                           memory=self._cross_memory(params, frontend_embeds))
+        return (x, aux) if return_aux else x
 
     # ---------------------------------------------------------------- serving
     def init_decode_state(self, batch: int, max_len: int, device=None) -> DecodeState:
@@ -473,10 +610,10 @@ class TransformerLM:
             return y
 
         for i, window in enumerate(cfg.window_sizes()):
-            layer = _layer(params["layers"], i)
+            layer = _decoder_layer(cfg, params["layers"], i)
             if "attn" not in layer:  # pure SSM block: the recurrence
                 h = self._norm(x, layer["pre_ssm_norm"])
-                x = self._ffn(layer, x + ssm_step(layer, h, i))
+                x, _ = self._ffn(layer, x + ssm_step(layer, h, i))
                 continue
             h = self._norm(x, layer["pre_attn_norm"])
             cache = {"k": state.kv["k"][i], "v": state.kv["v"][i]}
@@ -488,7 +625,7 @@ class TransformerLM:
             if "ssm" in layer:  # hybrid: the recurrence on the same input
                 a = 0.5 * (a + ssm_step(layer, h, i))
             x = self._cross(layer, x + self._attn_out(layer, a), state.cross_kv, i)
-            x = self._ffn(layer, x)
+            x, _ = self._ffn(layer, x)
         x = self._norm(x, params["final_norm"])
         logits = self._logits(params, x)[:, 0, :]
         return logits, dataclasses.replace(state, length=length + 1)
@@ -513,7 +650,7 @@ class TransformerLM:
                     cross_kv[name].copy_(memory[name])
             else:  # frames of another length than the state's buffer
                 cross_kv = memory
-        x = self._run(params, tokens, frontend_embeds, state.kv, state.ssm, memory)
+        x, _ = self._run(params, tokens, frontend_embeds, state.kv, state.ssm, memory)
         logits = self._logits(params, x[:, -1:, :])[:, 0, :]
         length = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
         return logits, dataclasses.replace(state, cross_kv=cross_kv, length=length)

@@ -132,20 +132,27 @@ def test_decode_step_matches_forward():
 
 
 @pytest.mark.parametrize("flag", [dict(block="moe"), dict(n_experts=8),
+                                  dict(block="moe", n_experts=4, top_k=2),
+                                  dict(block="moe", n_experts=4, top_k=1, moe_every=2),
                                   dict(block="hybrid", ssm_state=16),
                                   dict(n_encoder_layers=2),
                                   dict(frontend="vision"), dict(window_pattern="bogus"),
                                   dict(norm="bogus"), dict(activation="relu"),
                                   dict(frontend="bogus")])
 def test_unported_families_raise(flag):
-    """MoE, not ported yet, raises NotImplementedError; an unknown window
-    pattern, norm, activation or frontend raises ValueError; the hybrid,
+    """An inconsistent MoE config raises ValueError: ``block="moe"`` without
+    ``0 < top_k <= n_experts``, experts on a dense block, dense/MoE pairs
+    over an odd number of layers; so does an unknown window pattern, norm,
+    activation or frontend.  A consistent MoE config and the hybrid,
     encoder-decoder and vision families build, and their parameter trees
-    hold the hybrid's SSM branch, the encoder's stack and cross-attention."""
+    hold the router and the expert stacks, the hybrid's SSM branch, the
+    encoder's stack and cross-attention."""
     kw = dict(name="x", n_layers=1, d_model=8, n_q_heads=2, n_kv_heads=1, head_dim=4,
               d_ff=8, vocab=16, **flag)
-    if {"block", "n_experts"} & set(flag) and flag.get("block") != "hybrid":
-        with pytest.raises(NotImplementedError):
+    moe_consistent = flag.get("top_k") and flag.get("moe_every", 1) == 1
+    if {"block", "n_experts"} & set(flag) and flag.get("block") != "hybrid" \
+            and not moe_consistent:
+        with pytest.raises(ValueError):
             ModelConfig(**kw)
     elif {"window_pattern", "norm", "activation"} & set(flag) or flag.get("frontend") == "bogus":
         with pytest.raises(ValueError):
@@ -155,6 +162,11 @@ def test_unported_families_raise(flag):
         tree = param_shapes(cfg)
         assert ("ssm" in tree["layers"]) == (cfg.block == "hybrid")
         assert ("enc_layers" in tree) == ("cross" in tree["layers"]) == (cfg.n_encoder_layers > 0)
+        assert ("moe" in tree["layers"]) == ("mlp" not in tree["layers"]) == (cfg.block == "moe")
+        if cfg.block == "moe":
+            assert {k: v[0] for k, v in tree["layers"]["moe"].items()} == {
+                "router": (1, 8, 4), "w_gate": (1, 4, 8, 8), "w_up": (1, 4, 8, 8),
+                "w_down": (1, 4, 8, 8)}
 
 
 def test_ssm_block_builds():
