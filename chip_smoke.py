@@ -153,10 +153,31 @@ Phases, each printed as one JSON line:
      profile of one decode step with the expert products' device time,
      beside the bound of every weight read once (bar the untied input
      embedding's rows that no slot looks up) and the bound of only the
-     routed experts read.
+     routed experts read;
+ 27. train_qwen, the training path: qwen2.5-3b at its published widths and
+     depth through ``Trainer`` at its defaults (global batch 8, seq 128,
+     bf16 with an f32 master copy, AdamW, warmup_cosine, remat "none"), 6
+     steps with total_steps 6, after its reckoned peak is held against the
+     card's free memory: every loss finite, the last below the first, the
+     peak within the reckoned one; step walls, tokens/s, the bound a step,
+     one padded, profiled step (kernels, busy share, GEMM time, the
+     forward's, clip's and AdamW's spans) and the step's three parts timed
+     apart;
+ 28. train_ssm: mamba2-2.7b at its published widths cut to 8 layers, f32:
+     the gradients through K4's autograd Function against the same
+     gradients with ssd_chunked called directly on the card (every leaf
+     within 1e-3 of its scale), then 2 train steps of 2 microbatches with
+     K4's launches counted (8 x 2 x 2);
+ 29. train_resume: in a subprocess with deterministic algorithms, qwen2.5-3b's
+     widths cut to 2 layers in bf16, 2 steps straight against 1 step, a
+     checkpoint, a resume and 1 step, every leaf of params, m, v and the
+     master copy within 1e-6; the bytes written, save and restore walls;
+ 30. train_remat: qwen2.5-3b's widths cut to 4 layers in f32 at seq 2048
+     (two query blocks): the gradients with remat "full" and "dots"
+     against "none" within 1e-5, each mode's peak and wall.
 The figures' plain lane runs in CPU worker processes from the build on.
 They run in this order: 1-5, 21, 25, 22, 26, 24, 23, 12, 20, 13, 6, 7, 9, 14, 16, 18, 19,
-17, 15, 8, 10, 11.  Every line carries ``elapsed_s``, the seconds since the script started.
+17, 15, 8, 10, 11, 27-30.  Every line carries ``elapsed_s``, the seconds since the script started.
 The line before the last lists every kernel's numbers; the last line is the
 device summary.  Any failed check exits non-zero; without CUDA (or without
 the rest of the repository beside this file) it exits non-zero at once.
@@ -603,6 +624,7 @@ def main() -> None:
     mva_phase(dev)
     k4_row = k4_sweep(dev)
     k4_launches = ssm_phases(dev)
+    k4_train_launches = train_phases(dev)
     emit("profiler", traces=len(PROFILE_PADS_LOST), pad_kernels=PROFILE_PAD_KERNELS,
          pad_records_lost_max=max(PROFILE_PADS_LOST),
          traces_losing_pad_records=sum(n > 0 for n in PROFILE_PADS_LOST),
@@ -698,6 +720,9 @@ def main() -> None:
         "serve_hymba_launches": hymba["k4_launches"],
         "serve_hymba_cluster_launches": hymba["cluster_k4_launches"],
         "serve_families_launches": families["k4_launches"]["hymba-1.5b"],
+        # The training path: mamba2-2.7b's train steps through K4's autograd
+        # Function (forward launches; the backward is the plain scan's).
+        "train_ssm_launches": k4_train_launches,
         **k4_row,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3075,6 +3100,441 @@ def serve_families(dev):
     return dict(k1_launches=launches, k4_launches=k4_launches)
 
 
+# -- the training path: qwen2.5-3b trained at full width and depth; mamba2
+# -- through K4's autograd Function; resume; remat -----------------------------
+
+#: train_qwen: the Trainer's defaults (global batch 8, seq 128, AdamW with
+#: an f32 master copy, warmup_cosine, remat "none") for this many steps,
+#: with total_steps equal to it.
+TRAIN_STEPS = 6
+#: train_ssm: mamba2-2.7b at its published widths cut to this many of its 64
+#: layers (f32, TF32 off: the gate compares gradients), batch rows, sequence
+#: (4 chunks of 128, so the scan runs its three stages), microbatches and
+#: steps; every gradient leaf within this share of its scale.
+TRAIN_SSM_LAYERS, TRAIN_SSM_BATCH, TRAIN_SSM_SEQ = 8, 4, 512
+TRAIN_SSM_MICROBATCHES, TRAIN_SSM_STEPS = 2, 2
+TRAIN_SSM_TOL = 1e-3
+#: train_resume: qwen2.5-3b's widths cut to this many layers, bf16, the
+#: Trainer's batch; every leaf within the reference's atol = rtol = 1e-6.
+TRAIN_RESUME_LAYERS = 2
+TRAIN_RESUME_TOL = 1e-6
+#: train_remat: qwen2.5-3b's widths cut to 4 layers in f32 at seq 2048 (two
+#: query blocks of 1024), 2 rows, 4 loss chunks of 512; the modes' gradients
+#: within this share of each leaf's scale.
+TRAIN_REMAT_LAYERS, TRAIN_REMAT_BATCH, TRAIN_REMAT_SEQ = 4, 2, 2048
+TRAIN_REMAT_TOL = 1e-5
+
+
+def train_peak_bytes(cfg, batch, seq):
+    """The reckoned device peak of a train step without remat: params,
+    the f32 master, m and v, one set of gradients in the params' dtype, and
+    the larger of the backward's live activations and logits or the
+    clipping's two f32 temporaries of the largest leaf.  Activations per
+    token and layer: the norms' f32 copies and the residual stream (40 B a
+    model width), the projections and RoPE (12 B a head width), the gated
+    MLP (10 B a hidden width) and the f32 and bf16 scores and probabilities
+    (12 B a key); logits [T, V] in bf16, f32 and the softmax's gradient."""
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.pytree import tree_leaves
+
+    leaves = tree_leaves(param_shapes(cfg))
+    numels = [int(np.prod(shape)) for shape, _ in leaves]
+    param_bytes = sum(n * (2 if dt.itemsize == 2 else 4)
+                      for n, (_, dt) in zip(numels, leaves))
+    n = sum(numels)
+    tokens = batch * seq
+    act = tokens * cfg.n_layers * (40 * cfg.d_model
+                                   + 12 * (cfg.n_q_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+                                   + 10 * cfg.d_ff + 12 * cfg.n_q_heads * seq)
+    logits = tokens * cfg.vocab * 14
+    return 2 * param_bytes + 12 * n + max(act + logits, 8 * max(numels))
+
+
+def train_step_bound(n_params, cfg, batch, seq):
+    """The least time of one train step, the sum of two phases that cannot
+    overlap: the products of the forward and backward at the bf16 peak (6
+    operations a parameter and token, and the scores' 12 B S^2 H Dh a layer),
+    then clipping and AdamW at the memory rate (the clip reads the bf16
+    gradients twice and writes them once: 6 B a parameter; AdamW reads the
+    gradient, reads and writes m, v and the master copy and writes the bf16
+    param: 28 B).  Returns (ms, the products' ms, the update's ms)."""
+    tokens = batch * seq
+    flops = 6 * n_params * tokens + 12 * batch * seq * seq * cfg.n_q_heads * cfg.head_dim \
+        * cfg.n_layers
+    t_ops = flops / H100_BF16_FLOPS
+    t_bytes = 34 * n_params / H100_HBM_BYTES_PER_S
+    return (t_ops + t_bytes) * 1e3, t_ops * 1e3, t_bytes * 1e3
+
+
+def profile_train_step(step_fn, state, tokens, labels):
+    """torch.profiler over one train step behind the spin-kernel padding:
+    wall, the kernels' device time and count, busy share, the top kernels,
+    the products' (GEMM kernels') device time, and the device-timeline span
+    of each range the step names (forward, clip, AdamW)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD_KERNELS):
+            torch.cuda._sleep(PROFILE_PAD_CYCLES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, tokens, labels)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    # The ranges' own records on the device timeline are spans, not kernels.
+    spans = {e.key.split("/", 1)[1]: e.device_time_total / 1e3 for e in device
+             if e.key.startswith("train_step/")}
+    events = [e for e in device if not e.key.startswith("train_step/")]
+    PROFILE_PADS_LOST.append(PROFILE_PAD_KERNELS - sum(
+        e.count for e in events if "spin_kernel" in e.key))
+    events = [e for e in events if "spin_kernel" not in e.key]
+    dev_us = sum(e.self_device_time_total for e in events)
+    gemm = sum(e.self_device_time_total for e in events
+               if any(s in e.key.lower() for s in ("gemm", "xmma", "cutlass", "nvjet")))
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    return state, metrics, dict(
+        wall_ms=wall * 1e3, device_ms=dev_us / 1e3, device_busy_share=dev_us / 1e6 / wall,
+        kernels=sum(e.count for e in events), gemm_device_ms=gemm / 1e3,
+        range_span_ms=spans,
+        top_kernels=[dict(name=e.key[:70], ms=e.self_device_time_total / 1e3, calls=e.count)
+                     for e in top])
+
+
+def train_step_parts(trainer, state, tokens, labels):
+    """One more train step taken in its three parts, each timed alone
+    between synchronisations: the gradients (forward and backward), the
+    clipping and AdamW's update.  Returns their walls in ms."""
+    import torch
+
+    from repro_torch.optim import clip_by_global_norm
+    from repro_torch.train.step import make_grad_fn
+
+    grad_fn = make_grad_fn(trainer.model)
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, _, _ = grad_fn(state.params, tokens, labels)
+    torch.cuda.synchronize()
+    out["grads"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    grads, _ = clip_by_global_norm(grads, 1.0)
+    torch.cuda.synchronize()
+    out["clip"] = (time.perf_counter() - t0) * 1e3
+    lr = torch.tensor(1e-5, dtype=torch.float32, device=tokens.device)
+    t0 = time.perf_counter()
+    trainer.opt.update(grads, state.opt, state.params, lr)
+    torch.cuda.synchronize()
+    out["adamw"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def train_qwen(dev):
+    """qwen2.5-3b at its published widths and depth through ``Trainer`` at
+    its defaults for TRAIN_STEPS steps (total_steps the same), after the
+    step's reckoned peak is held against the card's free memory: every
+    loss finite and the last below the first; the step walls, tokens/s,
+    the peak against the reckoned one, the bound a step, and one padded,
+    profiled step."""
+    import gc
+    import signal
+
+    import torch
+
+    from repro_torch.launch.train import Trainer
+    from repro_torch.pytree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    sigterm = signal.getsignal(signal.SIGTERM)  # Trainer.train installs its own
+    trainer = Trainer("qwen2.5-3b", total_steps=TRAIN_STEPS, device=dev)
+    cfg = trainer.cfg
+    need = train_peak_bytes(cfg, trainer.global_batch, trainer.seq_len)
+    free = torch.cuda.mem_get_info()[0]
+    check(need <= free, f"train_qwen: the reckoned peak {need / 1e9:.2f} GB exceeds the card's "
+                        f"free memory, {free / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        state = trainer.train(TRAIN_STEPS, log_every=TRAIN_STEPS)
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = list(trainer.history)
+    losses = [h["loss"] for h in hist]
+    walls = [h["seconds"] for h in hist]
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    tokens_per_step = trainer.global_batch * trainer.seq_len
+    bound_ms, ops_ms, bytes_ms = train_step_bound(n_params, cfg, trainer.global_batch,
+                                                  trainer.seq_len)
+    tokens, labels = (torch.from_numpy(t).to(dev) for t in next(trainer.loader))
+    state, _, prof = profile_train_step(trainer.step_fn, state, tokens, labels)
+    parts = train_step_parts(trainer, state, tokens, labels)
+    emit("train_qwen", config=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab, params=n_params, dtype="bfloat16", master="float32",
+         global_batch=trainer.global_batch, seq_len=trainer.seq_len, steps=TRAIN_STEPS,
+         losses=losses, step_walls_s=walls, run_s=run_s,
+         tokens_per_s_steady=tokens_per_step * (len(walls) - 1) / sum(walls[1:]),
+         tokens_per_s_run=tokens_per_step * len(walls) / run_s,
+         reckoned_peak_gb=need / 1e9, free_device_memory_gb=free / 1e9,
+         max_memory_allocated_gb=peak / 1e9, bound_ms=bound_ms, bound_products_ms=ops_ms,
+         bound_update_ms=bytes_ms, governor_windows=trainer.straggler_loop.windows_run,
+         rate_factor=trainer.step_substrate.rate_factor(0), profiled_step=prof,
+         step_parts_wall_ms=parts)
+    check(len(losses) == TRAIN_STEPS and all(_finite(x) for x in losses),
+          f"train_qwen: losses {losses}")
+    check(losses[-1] < losses[0], f"train_qwen: the loss did not fall: {losses}")
+    check(peak <= need, f"train_qwen: peak {peak / 1e9:.2f} GB above the reckoned "
+                        f"{need / 1e9:.2f} GB")
+    check(trainer.straggler_loop.windows_run == TRAIN_STEPS, "the governor missed a window")
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_ssm(dev):
+    """mamba2-2.7b at its published widths, depth cut, in f32 (TF32 off):
+    the gradients of the loss through K4's autograd Function against the
+    same gradients with ``ssd_chunked`` called directly on the card (every
+    leaf within TRAIN_SSM_TOL of its scale, the losses equal to that too),
+    then TRAIN_SSM_STEPS train steps of TRAIN_SSM_MICROBATCHES microbatches
+    with K4's count set to 0 just before and read just after: it must equal
+    layers x microbatches x steps.  Returns that count."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.pytree import flatten_with_paths
+    from repro_torch.train.step import TrainState, make_grad_fn, make_train_step
+
+    full = get_arch("mamba2-2.7b").config
+    cfg = dataclasses.replace(full, n_layers=TRAIN_SSM_LAYERS, dtype=torch.float32)
+    model = TransformerLM(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(5), dev)
+    rng = np.random.default_rng(5)
+    shape = (TRAIN_SSM_BATCH, TRAIN_SSM_SEQ)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, shape).astype(np.int32)).to(dev)
+    labels = torch.from_numpy(rng.integers(1, cfg.vocab, shape).astype(np.int32)).to(dev)
+    grad_fn = make_grad_fn(model, microbatches=TRAIN_SSM_MICROBATCHES)
+    k4.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    g_kernel, loss_k, _ = grad_fn(params, tokens, labels)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    grad_launches = k4.LAUNCHES.count
+    k4.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    with plain_kernels(k1=False, k4=True):
+        g_plain, loss_p, _ = grad_fn(params, tokens, labels)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_launches = k4.LAUNCHES.count
+    errs = {}
+    for (key, a), (_, b) in zip(flatten_with_paths(g_kernel), flatten_with_paths(g_plain)):
+        scale = float(b.abs().max())
+        errs[key] = dict(rel=float((a - b).abs().max()) / max(scale, 1e-30), scale=scale)
+    worst = max(errs, key=lambda k: errs[k]["rel"])
+    del g_kernel, g_plain
+
+    state = TrainState(params=params, opt=AdamW().init(params), ef_residual=None)
+    step_fn = make_train_step(model, AdamW(), lambda s: warmup_cosine(
+        s, peak_lr=3e-4, warmup_steps=1, total_steps=TRAIN_SSM_STEPS),
+        microbatches=TRAIN_SSM_MICROBATCHES)
+    # The main path of this phase: launches counted from here.
+    k4.LAUNCHES.reset()
+    losses = []
+    for _ in range(TRAIN_SSM_STEPS):
+        state, m = step_fn(state, tokens, labels)
+        losses.append(float(m["loss"]))
+    launches = k4.LAUNCHES.count
+    want = cfg.n_layers * TRAIN_SSM_MICROBATCHES * TRAIN_SSM_STEPS
+    emit("train_ssm", config=full.name, n_layers=cfg.n_layers, published_layers=full.n_layers,
+         cut=f"{full.n_layers} -> {cfg.n_layers} layers: one train step's comparison, not "
+             "the model's depth, is what the phase holds", d_model=cfg.d_model,
+         ssm_heads=cfg.ssm_dims["n_heads"], d_state=cfg.ssm_state, dtype="float32",
+         batch=TRAIN_SSM_BATCH, seq_len=TRAIN_SSM_SEQ, chunk=cfg.ssm_chunk,
+         microbatches=TRAIN_SSM_MICROBATCHES, tol=TRAIN_SSM_TOL, loss_kernel=float(loss_k),
+         loss_plain=float(loss_p), grad_leaves=len(errs), worst_leaf=worst,
+         worst_rel=errs[worst]["rel"], leaf_rel={k: v["rel"] for k, v in errs.items()},
+         grads_kernel_s=kernel_s, grads_plain_s=plain_s, k4_launches_grads=grad_launches,
+         k4_launches_plain=plain_launches, train_losses=losses, k4_launches=launches,
+         layers_x_microbatches_x_steps=want,
+         peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(grad_launches == cfg.n_layers * TRAIN_SSM_MICROBATCHES and plain_launches == 0,
+          f"train_ssm: K4 ran {grad_launches} times through the Function, {plain_launches} "
+          "on the plain side")
+    check(abs(float(loss_k) - float(loss_p)) <= TRAIN_SSM_TOL * abs(float(loss_p)),
+          f"train_ssm: losses {float(loss_k)} and {float(loss_p)}")
+    check(all(v["rel"] <= TRAIN_SSM_TOL and v["scale"] > 0 for v in errs.values()),
+          f"train_ssm: gradient {worst} off by {errs[worst]['rel']} of its scale")
+    check(launches == want, f"train_ssm: K4 launches {launches} != layers x microbatches x "
+                            f"steps {want}")
+    check(all(_finite(x) for x in losses), f"train_ssm: losses {losses}")
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_resume_worker(tmp):
+    """``--train-resume-worker``: the reference's bit-exact resume test on
+    the card at qwen2.5-3b's widths cut to TRAIN_RESUME_LAYERS layers, bf16,
+    deterministic algorithms on (set before CUDA starts): two steps straight
+    against one step, a checkpoint, a resume and one step.  Prints one JSON
+    line."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.checkpoint.ckpt import CheckpointManager, restore_checkpoint
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import Trainer
+    from repro_torch.pytree import flatten_with_paths
+
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b").config, n_layers=TRAIN_RESUME_LAYERS)
+    kw = dict(config_override=cfg, device="cuda", ckpt_every=1000)
+    straight = Trainer("qwen2.5-3b", **kw).train(2, log_every=100)
+    t0 = time.perf_counter()
+    Trainer("qwen2.5-3b", ckpt_dir=os.path.join(tmp, "b"), **kw).train(1, log_every=100)
+    first_s = time.perf_counter() - t0
+    step_dir = os.path.join(tmp, "b", "step_00000001")
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+    t0 = time.perf_counter()
+    resumed_trainer = Trainer("qwen2.5-3b", ckpt_dir=os.path.join(tmp, "b"), **kw)
+    resumed = resumed_trainer.train(2, resume=True, log_every=100)
+    resume_s = time.perf_counter() - t0
+    max_abs, close, leaves = 0.0, True, 0
+    for (key, a), (key2, b) in zip(flatten_with_paths(straight), flatten_with_paths(resumed)):
+        assert key == key2
+        a, b = a.float(), b.float()
+        max_abs = max(max_abs, (a - b).abs().max().item())
+        close &= torch.allclose(a, b, atol=TRAIN_RESUME_TOL, rtol=TRAIN_RESUME_TOL)
+        leaves += 1
+    # Save and restore alone, timed.
+    torch.cuda.synchronize()
+    mgr = CheckpointManager(os.path.join(tmp, "c"))
+    t0 = time.perf_counter()
+    mgr.save(2, resumed)
+    mgr.wait()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restore_checkpoint(os.path.join(tmp, "c"), 2, resumed)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    print(json.dumps(dict(n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+                          leaves=leaves, max_abs_diff=max_abs, equal=close,
+                          checkpoint_bytes=nbytes, save_s=save_s, restore_s=restore_s,
+                          first_run_s=first_s, resumed_run_s=resume_s,
+                          resumed_loader_step=resumed_trainer.loader.step,
+                          deterministic=torch.are_deterministic_algorithms_enabled())),
+          flush=True)
+
+
+def train_resume(dev):
+    """Run :func:`train_resume_worker` in a subprocess (cuBLAS's workspace
+    fixed and deterministic algorithms on there only) in a temporary
+    directory that is removed afterwards; gate its result."""
+    import gc
+    import shutil
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--train-resume-worker", tmp], env=env, capture_output=True,
+                              text=True, timeout=600)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(proc.returncode == 0, f"train_resume worker exited {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit("train_resume", config="qwen2.5-3b", dtype="bfloat16", tol=TRAIN_RESUME_TOL,
+         wall_s=time.perf_counter() - t0, temp_dir_removed=not os.path.exists(tmp), **res)
+    check(res["equal"] and res["deterministic"] and res["resumed_loader_step"] == 2,
+          f"train_resume: resumed state differs from the straight run: {res}")
+
+
+def train_remat(dev):
+    """qwen2.5-3b's widths cut to TRAIN_REMAT_LAYERS layers in f32 at seq
+    TRAIN_REMAT_SEQ (the attention in query blocks, each checkpointed): the
+    gradients with remat "full" and "dots" against "none", each mode's peak
+    memory and wall of one forward and backward."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import attention as attn
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.pytree import flatten_with_paths
+    from repro_torch.train.step import make_grad_fn
+
+    full = get_arch("qwen2.5-3b").config
+    cfg = dataclasses.replace(full, n_layers=TRAIN_REMAT_LAYERS, dtype=torch.float32)
+    params = TransformerLM(cfg).init(torch.Generator(device=dev).manual_seed(6), dev)
+    rng = np.random.default_rng(6)
+    shape = (TRAIN_REMAT_BATCH, TRAIN_REMAT_SEQ)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, shape).astype(np.int32)).to(dev)
+    labels = torch.from_numpy(rng.integers(1, cfg.vocab, shape).astype(np.int32)).to(dev)
+    modes, ref = {}, None
+    for mode in ("none", "full", "dots"):
+        grad_fn = make_grad_fn(TransformerLM(cfg, remat=mode))
+        grad_fn(params, tokens[:, :256], labels[:, :256])  # warm
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, loss, _ = grad_fn(params, tokens, labels)
+        torch.cuda.synchronize()
+        row = dict(wall_s=time.perf_counter() - t0, loss=float(loss),
+                   peak_above_resident_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+        if ref is None:
+            ref = grads
+        else:
+            worst = 0.0
+            for (key, a), (_, b) in zip(flatten_with_paths(grads), flatten_with_paths(ref)):
+                worst = max(worst, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+            row["worst_rel"] = worst
+        modes[mode] = row
+        del grads
+    emit("train_remat", config=full.name, n_layers=cfg.n_layers, published_layers=full.n_layers,
+         dtype="float32", batch=TRAIN_REMAT_BATCH, seq_len=TRAIN_REMAT_SEQ,
+         query_blocks=TRAIN_REMAT_SEQ // attn.Q_BLOCK, tol=TRAIN_REMAT_TOL, modes=modes)
+    check(all(m["worst_rel"] <= TRAIN_REMAT_TOL
+              and abs(m["loss"] - modes["none"]["loss"]) <= 1e-6 * abs(modes["none"]["loss"])
+              for k, m in modes.items() if k != "none"),
+          f"train_remat: the remat modes' gradients differ: {modes}")
+    del ref, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_phases(dev):
+    """The training path: train_qwen, train_ssm, train_resume, train_remat.
+    Returns K4's launches on train_ssm's train steps."""
+    train_qwen(dev)
+    launches = train_ssm(dev)
+    train_resume(dev)
+    train_remat(dev)
+    return launches
+
+
 def _finite(x) -> bool:
     return x == x and abs(x) != float("inf")
 
@@ -3201,5 +3661,7 @@ def _cast(tree, leaves):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--plain-lane-worker"]:
         plain_lane_worker(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:2] == ["--train-resume-worker"]:
+        train_resume_worker(sys.argv[2])
     else:
         main()

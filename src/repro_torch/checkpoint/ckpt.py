@@ -1,0 +1,146 @@
+"""Atomic, asynchronous checkpoints in the reference's format (port of
+``repro/checkpoint/ckpt.py``), so a checkpoint crosses between the
+frameworks in both directions.
+
+Format: ``<dir>/step_{step:08d}/`` holds ``arrays.npz`` (leaves named
+``leaf_{i:05d}`` in the reference's flatten order: dict keys sorted,
+dataclass fields in order, ``None`` dropped) and ``manifest.json`` (step,
+each leaf's path key such as ``params/layers/attn/wq`` or ``opt/m/embed``,
+its name, shape and dtype, and the caller's ``extra``, e.g. the data
+loader's state).  bfloat16 leaves are stored as f32 with ``"bfloat16"`` in
+the manifest.  Writes go to ``<dir>/tmp.<step>`` and are renamed, so a crash
+mid-write never corrupts the latest checkpoint.  Restoring onto another
+mesh waits for the port's distribution layer.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.pytree import flatten_with_paths, tree_map, tree_unflatten
+
+
+def _host_array(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """(the array to store, the leaf's dtype name as the manifest keeps it)."""
+    t = leaf.detach().cpu()
+    name = str(t.dtype).removeprefix("torch.")
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)  # npz cannot hold bfloat16
+    return t.numpy(), name
+
+
+def save_checkpoint(directory: str, step: int, state: Any, *,
+                    extra: Optional[Dict[str, Any]] = None) -> str:
+    os.makedirs(directory, exist_ok=True)
+    tmp = os.path.join(directory, f"tmp.{step}")
+    final = os.path.join(directory, f"step_{step:08d}")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    arrays = {}
+    manifest = {"step": step, "leaves": [], "extra": extra or {}}
+    for i, (key, leaf) in enumerate(flatten_with_paths(state)):
+        arr, dtype = _host_array(leaf)
+        name = f"leaf_{i:05d}"
+        arrays[name] = arr
+        manifest["leaves"].append({"key": key, "name": name, "shape": list(arr.shape),
+                                   "dtype": dtype})
+    np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
+def latest_step(directory: str) -> Optional[int]:
+    if not os.path.isdir(directory):
+        return None
+    steps = []
+    for name in os.listdir(directory):
+        m = re.match(r"step_(\d+)$", name)
+        if m and os.path.exists(os.path.join(directory, name, "manifest.json")):
+            steps.append(int(m.group(1)))
+    return max(steps) if steps else None
+
+
+def restore_checkpoint(directory: str, step: int, state_template: Any
+                       ) -> Tuple[Any, Dict[str, Any]]:
+    """The checkpoint's leaves in the template's structure, matched by path
+    key, each cast to its template leaf's dtype and put on its device.
+    Raises ``KeyError`` on a leaf missing from the checkpoint and
+    ``ValueError`` on a shape mismatch.  Returns (state, extra)."""
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    data = np.load(os.path.join(path, "arrays.npz"))
+    by_key = {e["key"]: e["name"] for e in manifest["leaves"]}
+    restored = []
+    for key, tmpl in flatten_with_paths(state_template):
+        if key not in by_key:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        arr = data[by_key[key]]
+        if tuple(arr.shape) != tuple(tmpl.shape):
+            raise ValueError(f"leaf {key!r}: checkpoint shape {arr.shape} != "
+                             f"template {tuple(tmpl.shape)}")
+        restored.append(torch.from_numpy(arr if arr.flags.writeable else arr.copy()).to(
+            device=tmpl.device, dtype=tmpl.dtype))
+    return tree_unflatten(state_template, restored), manifest["extra"]
+
+
+class CheckpointManager:
+    """Asynchronous checkpoints with retention.  ``save`` copies the state
+    to host memory at once (the train step updates it in place afterwards)
+    and writes on a worker thread, keeping the newest ``keep``; ``wait``
+    fences (before exit or on preemption)."""
+
+    def __init__(self, directory: str, *, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._pending: List[Future] = []
+        self._lock = threading.Lock()
+
+    def save(self, step: int, state: Any, extra: Optional[Dict[str, Any]] = None) -> Future:
+        host_state = tree_map(lambda x: x.detach().to("cpu", copy=True), state)
+
+        def work():
+            p = save_checkpoint(self.directory, step, host_state, extra=extra)
+            self._gc()
+            return p
+
+        fut = self._pool.submit(work)
+        with self._lock:
+            self._pending.append(fut)
+        return fut
+
+    def _gc(self) -> None:
+        steps = sorted(int(m.group(1)) for name in os.listdir(self.directory)
+                       if (m := re.match(r"step_(\d+)$", name)))
+        for s in steps[: -self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"), ignore_errors=True)
+
+    def wait(self) -> None:
+        with self._lock:
+            pending, self._pending = self._pending, []
+        for fut in pending:
+            fut.result()
+
+    def restore_latest(self, state_template: Any):
+        """(step, state, extra) of the newest checkpoint, or (None, None,
+        None) when there is none."""
+        step = latest_step(self.directory)
+        if step is None:
+            return None, None, None
+        state, extra = restore_checkpoint(self.directory, step, state_template)
+        return step, state, extra

@@ -10,6 +10,8 @@ of every slow tier's window, its decision broadcast to each slow tier.
 :class:`VectorMikuLadder` is the same state machine over ``(cells, units)``
 tensors, for the batched sweep lane (a merged cell runs its one ladder as
 unit 0).
+:class:`StragglerGovernor` applies the same estimator to per-host step
+service times in the trainer, answering with :class:`HostHealth` lists.
 
 Per slow tier: a backlog (smoothed ``T_slow`` above its mix-adjusted
 threshold) demotes the tier's traffic to the most restrictive concurrency
@@ -28,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.core.invariants import require
 from repro_torch.core.littles_law import (
     ACCESS_MIX,
     EstimatorConfig,
@@ -642,3 +645,69 @@ class VectorMikuLadder:
         return torch.where(~self.restricted, cap,
                            torch.where(self.rate < 1.0, 0.0,
                                        torch.minimum(cap, lvl))).to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# Straggler governor: the same estimator applied to per-host step service
+# times.  A slow host is "an overloaded slow tier": its step service time is
+# estimated per window; hosts whose estimate exceeds the threshold get their
+# input shard rate-capped, then excluded.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class HostHealth:
+    host: int
+    t_step: float
+    healthy: bool
+    rate_factor: float
+
+
+class StragglerGovernor:
+    """Detect and mitigate straggler hosts via service-time estimation.
+
+    ``threshold_scale`` x the median step time flags a straggler; mitigation
+    follows MIKU's ladder: first halve the straggler's microbatch share
+    (``rate_factor``), then exclude it (rate 0: its shard goes to healthy
+    hosts) if it keeps degrading.  Recovery doubles the rate a window,
+    mirroring the work-conserving promotion.
+    """
+
+    def __init__(self, n_hosts: int, threshold_scale: float = 1.35, ewma: float = 0.4,
+                 patience: int = 2):
+        self.n_hosts = n_hosts
+        self.threshold_scale = threshold_scale
+        self.ewma = ewma
+        self.patience = patience
+        self._t = [0.0] * n_hosts
+        self._bad_windows = [0] * n_hosts
+        self._rate = [1.0] * n_hosts
+
+    def window(self, step_times: Sequence[float]) -> List[HostHealth]:
+        require(len(step_times) == self.n_hosts, "host-count",
+                "one step time per host required", expected=self.n_hosts,
+                got=len(step_times))
+        for h, t in enumerate(step_times):
+            if t <= 0:  # the host missed the window entirely: the worst signal
+                self._bad_windows[h] += 1
+                continue
+            self._t[h] = (t if self._t[h] == 0.0
+                          else self.ewma * t + (1 - self.ewma) * self._t[h])
+        alive = sorted(t for t in self._t if t > 0)
+        if not alive:
+            return [HostHealth(h, 0.0, True, 1.0) for h in range(self.n_hosts)]
+        threshold = self.threshold_scale * alive[len(alive) // 2]
+        out = []
+        for h in range(self.n_hosts):
+            if self._t[h] > threshold:
+                self._bad_windows[h] += 1
+                if self._bad_windows[h] >= self.patience:
+                    # Demote: halve its shard; floor at exclusion.
+                    self._rate[h] = 0.0 if self._rate[h] <= 0.25 else self._rate[h] / 2
+            else:
+                self._bad_windows[h] = 0
+                if self._rate[h] < 1.0:
+                    self._rate[h] = min(1.0, max(self._rate[h], 0.25) * 2)
+            out.append(HostHealth(host=h, t_step=self._t[h], healthy=self._rate[h] >= 1.0,
+                                  rate_factor=self._rate[h]))
+        return out

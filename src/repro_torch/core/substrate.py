@@ -7,7 +7,8 @@ substrate exposes ``clock_ns``, ``counters_delta()`` (a per-tier
 feeding deltas to the decision law and recording its decisions.
 :class:`WindowRecord` and :func:`window_record_jsonable` define the
 per-window telemetry schema (the batched lane's ``record_windows``
-records are in it).
+records are in it).  :class:`StepTimingSubstrate` is the trainer's:
+per-host step times for the straggler governor.
 """
 
 from __future__ import annotations
@@ -118,8 +119,12 @@ class ControlLoop:
     """Drives a decision law over a substrate's windows.
 
     The host calls :meth:`fire` exactly when a window elapses (the transfer
-    queue interleaves boundaries with transfer completions in time order).
-    ``controller=None`` keeps the window cadence but makes no decisions.
+    queue interleaves boundaries with transfer completions in time order;
+    the trainer fires once a step).  A :class:`TierWindow` delta goes to the
+    law whole, a plain tuple splatted (the straggler governor's
+    ``(step_times,)``).  ``controller=None`` keeps the window cadence but
+    makes no decisions; ``max_history`` caps the decisions kept (a trainer
+    fires one window a step, forever).
     """
 
     def __init__(
@@ -128,12 +133,15 @@ class ControlLoop:
         controller: Optional[Any] = None,
         *,
         window_ns: float = 1_000_000.0,
+        max_history: Optional[int] = None,
     ) -> None:
         self.substrate = substrate
         self.controller = controller
         self.window_ns = float(window_ns)
         self.next_window_ns = float(window_ns)
         self.decisions: List[Any] = []
+        self.windows_run = 0
+        self._max_history = max_history
         reg = default_registry()
         self._m_windows = reg.counter("control.windows")
         self._m_decisions = reg.counter("control.decisions")
@@ -144,9 +152,14 @@ class ControlLoop:
         self._m_windows.inc()
         if self.controller is None:
             return None
-        decision = self.controller.window(self.substrate.counters_delta())
+        delta = self.substrate.counters_delta()
+        decision = (self.controller.window(delta) if isinstance(delta, TierWindow)
+                    else self.controller.window(*delta))
         self.decisions.append(decision)
         self._m_decisions.inc()
+        self.windows_run += 1
+        if self._max_history is not None and len(self.decisions) > 2 * self._max_history:
+            del self.decisions[:-self._max_history]
         self.substrate.apply(decision)
         return decision
 
@@ -160,3 +173,45 @@ class ControlLoop:
             "restricted_windows": restricted,
             "window_ns": self.window_ns,
         }
+
+
+class StepTimingSubstrate:
+    """Per-host step-service-time substrate for the straggler governor.
+
+    The trainer records each host's step wall time; every window the control
+    loop hands the governor one mean step time per host (0.0 for a host that
+    missed the window entirely, the governor's worst signal) and applies the
+    returned :class:`~repro_torch.core.controller.HostHealth` list as
+    per-host dispatch rate factors.
+    """
+
+    def __init__(self, n_hosts: int) -> None:
+        self.n_hosts = n_hosts
+        self._sums = [0.0] * n_hosts
+        self._counts = [0] * n_hosts
+        self._clock_ns = 0.0
+        self.health: List[Any] = []
+
+    @property
+    def clock_ns(self) -> float:
+        return self._clock_ns
+
+    def record_step(self, host: int, seconds: float) -> None:
+        self._sums[host] += seconds
+        self._counts[host] += 1
+        self._clock_ns += seconds * 1e9
+
+    def counters_delta(self) -> Tuple[List[float], ...]:
+        times = [self._sums[h] / self._counts[h] if self._counts[h] else 0.0
+                 for h in range(self.n_hosts)]
+        self._sums = [0.0] * self.n_hosts
+        self._counts = [0] * self.n_hosts
+        return (times,)
+
+    def apply(self, healths: List[Any]) -> None:
+        self.health = healths
+
+    def rate_factor(self, host: int) -> float:
+        if not self.health:
+            return 1.0
+        return self.health[host].rate_factor

@@ -200,7 +200,13 @@ def ssd_scan_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernels on the current stream with chunks of ``chunk``
     steps (at most 128; the caller takes ``min(chunk, S)``).  Returns
-    (y [B, S, H, P] in x's dtype, final state [B, H, P, N] f32)."""
+    (y [B, S, H, P] in x's dtype, final state [B, H, P, N] f32), outside
+    the autograd graph: with grad enabled, an input that requires grad
+    raises (the model's :class:`repro_torch.models.ssm.SSDScan` calls this
+    with grad disabled and differentiates the plain scan)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, bmat, cmat, a)):
+        raise RuntimeError("ssd_scan_cuda's outputs carry no gradient: a scan whose inputs "
+                           "require grad goes through repro_torch.models.ssm.ssd")
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     dev = x.device

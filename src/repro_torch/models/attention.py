@@ -7,7 +7,8 @@ per-layer windows (gemma2's local layers, SWA), logit soft-capping
   grouped score and value products with a causal (or, for an encoder,
   symmetric) window mask and f32 softmax, on plain tensors; above
   ``Q_BLOCK`` query rows it takes the queries in blocks of ``Q_BLOCK``
-  against all keys, as the reference does.
+  against all keys, as the reference does, each block checkpointed under
+  autograd.
 * ``attend_cached`` — one-token decode: writes the new K/V into the cache
   in place (the port's caches are mutable) and runs the flash-decode kernel
   through :func:`repro_torch.kernels.ops.decode_attention`, where the
@@ -19,9 +20,11 @@ per-layer windows (gemma2's local layers, SWA), logit soft-capping
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, apply_rope, dense_init, rmsnorm
@@ -150,11 +153,18 @@ def _attention_core(
 def _blocked(core, q: torch.Tensor, q_block: int, *args) -> torch.Tensor:
     """``core(q rows, *row args)`` in row blocks of ``q_block`` when S >
     ``q_block`` and ``q_block`` divides S (so the [B, H, S, T] score tensor
-    never exists), else in one shot; ``args`` are [B, S] position rows."""
+    never exists), else in one shot; ``args`` are [B, S] position rows.
+    Under autograd each block is checkpointed, as the reference's
+    ``jax.checkpoint`` per block: the backward recomputes one block's
+    scores at a time instead of keeping every block's."""
     s = q.shape[1]
     if s <= q_block or s % q_block != 0:
         return core(q, *args)
-    return torch.cat([core(q[:, i:i + q_block], *(a[:, i:i + q_block] for a in args))
+    if torch.is_grad_enabled():
+        run = functools.partial(checkpoint, core, use_reentrant=False)
+    else:
+        run = core
+    return torch.cat([run(q[:, i:i + q_block], *(a[:, i:i + q_block] for a in args))
                       for i in range(0, s, q_block)], dim=1)
 
 

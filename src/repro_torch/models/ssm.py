@@ -6,8 +6,12 @@ across chunks a [H, P, N] f32 state is carried.  :func:`ssd_chunked` is the
 plain version, with the reference's bf16 casts; :func:`ssd` is what the
 model calls: on a CUDA tensor it launches the hand-written scan kernel
 (:func:`repro_torch.kernels.ops.ssd_scan`), on a CPU tensor it runs
-:func:`ssd_chunked`.  Decode is the single-step recurrence
-(:func:`ssm_step`), plain torch as in the reference.
+:func:`ssd_chunked`.  Under autograd it goes through :class:`SSDScan`,
+whose forward is that same dispatch and whose backward differentiates
+:func:`ssd_chunked` (the function the reference differentiates) on the
+saved inputs; the kernel's own outputs carry no gradient.  Decode is the
+single-step recurrence (:func:`ssm_step`), plain torch as in the
+reference.
 
 Parameters keep the reference's leaf names; ``A_log``, ``D`` and
 ``dt_bias`` are float32 whatever the model's dtype.
@@ -189,17 +193,52 @@ def ssd_chunked(
     return y[:, :s_orig], carry
 
 
-def ssd(xs: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor, dt: torch.Tensor,
-        a: torch.Tensor, *, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The model's scan: the scan kernel on CUDA tensors, :func:`ssd_chunked`
-    on CPU tensors.  The kernel takes one group (G = 1); no ported
-    configuration has more, so G > 1 on CUDA raises."""
+def _scan(xs: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor, dt: torch.Tensor,
+          a: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan kernel on CUDA tensors, :func:`ssd_chunked` on CPU tensors."""
     if xs.device.type == "cuda":
         if bmat.shape[2] != 1:
             raise NotImplementedError(
                 f"the SSD scan kernel takes one group, got G={bmat.shape[2]}")
         return ops.ssd_scan(xs, dt, bmat[:, :, 0], cmat[:, :, 0], a, chunk=chunk)
     return ssd_chunked(xs, bmat, cmat, dt, a, chunk=chunk)
+
+
+class SSDScan(torch.autograd.Function):
+    """The scan under autograd.  Forward: :func:`_scan` (the kernel on CUDA
+    tensors).  Backward: :func:`ssd_chunked` recomputed on the saved inputs
+    under grad and differentiated, so each input's gradient is the plain
+    scan's, whichever path made the forward."""
+
+    @staticmethod
+    def forward(ctx, xs, bmat, cmat, dt, a, chunk):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xs, bmat, cmat, dt, a)
+        return _scan(xs, bmat, cmat, dt, a, chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y, state = ssd_chunked(*inputs, chunk=ctx.chunk)
+        pairs = [(out, g) for out, g in ((y, grad_y), (state, grad_state)) if g is not None]
+        wrt = [t for t in inputs if t.requires_grad]
+        got = iter(torch.autograd.grad([out for out, _ in pairs], wrt,
+                                       [g for _, g in pairs], allow_unused=True))
+        return (*(next(got) if t.requires_grad else None for t in inputs), None)
+
+
+def ssd(xs: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor, dt: torch.Tensor,
+        a: torch.Tensor, *, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The model's scan: the scan kernel on CUDA tensors, :func:`ssd_chunked`
+    on CPU tensors, through :class:`SSDScan` when an input requires grad.
+    The kernel takes one group (G = 1); no ported configuration has more,
+    so G > 1 on CUDA raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xs, bmat, cmat, dt, a)):
+        return SSDScan.apply(xs, bmat, cmat, dt, a, chunk)
+    return _scan(xs, bmat, cmat, dt, a, chunk)
 
 
 def ssm_branch(params: Params, x: torch.Tensor, dims: Dict[str, int], *, chunk: int

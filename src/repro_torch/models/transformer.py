@@ -16,14 +16,26 @@ pair ``p``, which is also its slot in the reference's pair view of the
 flat ``[L, ...]`` decode state.  Decode state is mutable: ``prefill`` and
 ``decode_step`` write the KV caches and the SSM states in place and return
 a state that shares them.
+
+Training differentiates ``forward`` with autograd.  A full-sequence pass
+unbinds each stacked leaf once (its backward is one ``stack``, where one
+``select`` a layer would add a zero tensor of the whole leaf per layer),
+and ``remat`` checkpoints each layer's body: "full" saves only its input,
+"dots" also the outputs of its matrix products (XLA's ``checkpoint_dots``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -42,6 +54,10 @@ from repro_torch.models.layers import (
 )
 
 FULL_WINDOW = 1 << 30  # "window" larger than any sequence = dense attention
+#: Activation-checkpointing policies of a layer's body under autograd.
+REMAT_POLICIES = ("none", "full", "dots")
+#: The matrix products whose outputs ``remat="dots"`` saves.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default)
 #: Per-layer window patterns: all full; all sliding; gemma2's local (even)
 #: and global (odd) layers; hymba's full first, middle and last layers.
 WINDOW_PATTERNS = ("full", "swa", "gemma2", "hymba")
@@ -310,18 +326,30 @@ def _shapes(cfg: ModelConfig) -> Dict:
     return shapes
 
 
-def _layer(layers: Params, i: int) -> Params:
-    """Layer ``i``'s view of the stacked ``[L, ...]`` tree."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
+def _unstack(layers: Params, n: int) -> List[Params]:
+    """The ``n`` layer views of a stacked tree, each leaf unbound once."""
+    def split(tree):
+        return {k: split(v) if isinstance(v, dict) else torch.unbind(v) for k, v in tree.items()}
+
+    def pick(tree, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+    parts = split(layers)
+    return [pick(parts, i) for i in range(n)]
 
 
-def _decoder_layer(cfg: ModelConfig, layers: Params, i: int) -> Params:
-    """Flat decoder layer ``i``'s view: for a paired stack, the dense
-    sublayer of pair ``i // 2`` at even ``i`` and its MoE sublayer at odd
-    ``i``."""
+def _decoder_layers(cfg: ModelConfig, layers: Params) -> List[Params]:
+    """Every flat decoder layer's view, each stacked leaf unbound once: for
+    a paired stack, layer ``i`` is the dense sublayer of pair ``i // 2`` at
+    even ``i`` and its MoE sublayer at odd ``i``."""
     if cfg.paired:
-        return _layer(layers["moe" if i % 2 else "dense"], i // 2)
-    return _layer(layers, i)
+        dense, moe = _unstack(layers["dense"], cfg.n_scan), _unstack(layers["moe"], cfg.n_scan)
+        return [sub for pair in zip(dense, moe) for sub in pair]
+    return _unstack(layers, cfg.n_layers)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class TransformerLM:
@@ -329,8 +357,20 @@ class TransformerLM:
     ``logits``, ``prefill`` and one-token ``decode_step`` with an explicit
     :class:`DecodeState`."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, *, remat: str = "none"):
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"remat={remat!r} is not one of {REMAT_POLICIES}")
         self.cfg = cfg
+        self.remat = remat
+
+    def _maybe_remat(self, body: Callable, *args):
+        """``body(*args)``, checkpointed under autograd as ``remat`` says."""
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return body(*args)
+        if self.remat == "full":
+            return checkpoint(body, *args, use_reentrant=False)
+        return checkpoint(body, *args, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy))
 
     # ------------------------------------------------------------------ init
     def _sublayer_init(self, L: int, generator: torch.Generator, dev: torch.device, *,
@@ -466,18 +506,19 @@ class TransformerLM:
         b, t = frames.shape[:2]
         positions = torch.arange(t, device=frames.device)[None, :].expand(b, t)
         x = frames.to(cfg.dtype)
-        for i in range(cfg.n_encoder_layers):
-            layer = _layer(params["enc_layers"], i)
+        for layer in _unstack(params["enc_layers"], cfg.n_encoder_layers):
             h = self._norm(x, layer["pre_attn_norm"])
             x = x + attn.attend_full(layer["attn"], h, positions, rope_theta=None,
                                      window=FULL_WINDOW, causal=False)
             x, _ = self._ffn(layer, x)
         return self._norm(x, params["enc_final_norm"])
 
-    def _cross_memory(self, params: Params, frontend_embeds: Optional[torch.Tensor]
+    def _cross_memory(self, params: Params, frontend_embeds: Optional[torch.Tensor],
+                      layers: Optional[List[Params]] = None
                       ) -> Optional[Dict[str, torch.Tensor]]:
         """Each decoder layer's cross-attention K/V of the encoded frames,
-        stacked [L, B, T, Hkv, Dh]; None without an encoder."""
+        stacked [L, B, T, Hkv, Dh]; None without an encoder.  ``layers``:
+        the decoder's unstacked layers, if the caller has them."""
         cfg = self.cfg
         if not cfg.n_encoder_layers:
             return None
@@ -485,8 +526,8 @@ class TransformerLM:
             raise ValueError(f"{cfg.name}: an encoder-decoder model needs its frame "
                              "embeddings (frontend_embeds)")
         enc = self.encode(params, frontend_embeds)
-        kv = [attn.project_memory_kv(_layer(params["layers"]["cross"], i), enc)
-              for i in range(cfg.n_layers)]
+        layers = layers or _decoder_layers(cfg, params["layers"])
+        kv = [attn.project_memory_kv(layer["cross"], enc) for layer in layers]
         return {"k": torch.stack([k for k, _ in kv]), "v": torch.stack([v for _, v in kv])}
 
     def _cross(self, layer: Params, x: torch.Tensor, memory, i: int) -> torch.Tensor:
@@ -497,59 +538,65 @@ class TransformerLM:
         h = self._norm(x, layer["pre_cross_norm"])
         return x + attn.attend_cross(layer["cross"], h, memory["k"][i], memory["v"][i])
 
-    def _run(self, params: Params, tokens: torch.Tensor,
-             frontend_embeds: Optional[torch.Tensor] = None,
-             kv: Optional[Dict[str, torch.Tensor]] = None,
-             ssm: Optional[Dict[str, torch.Tensor]] = None,
-             memory: Optional[Dict[str, torch.Tensor]] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence stack: (hidden states after the final norm, the
-        MoE layers' aux losses summed in f32).  Writes each layer's K/V
-        prefix into ``kv`` and each SSM branch's final scan and conv states
-        into ``ssm``.  A hybrid layer's attention and SSM branch read the
-        same normed input and are mean-fused; ``memory`` is the encoder's
-        cross K/V."""
+    def _block(self, layer: Params, x: torch.Tensor, positions: torch.Tensor, window: int,
+               i: int, kv: Optional[Dict[str, torch.Tensor]],
+               ssm: Optional[Dict[str, torch.Tensor]],
+               memory: Optional[Dict[str, torch.Tensor]]
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Flat decoder layer ``i`` over the whole sequence: (x, its MoE aux
+        loss or None).  Writes its K/V prefix into ``kv`` and its SSM
+        branch's final scan and conv states into ``ssm``."""
         cfg = self.cfg
-        b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-        x = self._embed(params, tokens, frontend_embeds)
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
-        def ffn(layer, x):
-            nonlocal aux_total
-            x, aux = self._ffn(layer, x)
-            if aux is not None:
-                aux_total = aux_total + aux
-            return x
-
-        def ssm_branch(layer, h, i):
+        def ssm_branch(h):
             out, st = ssm_lib.ssm_branch(layer["ssm"], h, cfg.ssm_dims, chunk=cfg.ssm_chunk)
             if ssm is not None:
                 ssm["h"][i] = st["h"]
                 ssm["conv"][i] = st["conv"]
             return out
 
-        for i, window in enumerate(cfg.window_sizes()):
-            layer = _decoder_layer(cfg, params["layers"], i)
-            if "attn" not in layer:  # pure SSM block
-                h = self._norm(x, layer["pre_ssm_norm"])
-                x = ffn(layer, x + ssm_branch(layer, h, i))
-                continue
-            h = self._norm(x, layer["pre_attn_norm"])
-            if kv is not None:
-                _, k, v = attn.project_qkv(layer["attn"], h, positions,
-                                           rope_theta=cfg.rope_theta)
-                kv["k"][i, :, :s] = k.to(kv["k"].dtype)
-                kv["v"][i, :, :s] = v.to(kv["v"].dtype)
-            a = attn.attend_full(
-                layer["attn"], h, positions, rope_theta=cfg.rope_theta,
-                window=window, softcap_value=cfg.attn_softcap,
-                query_scale=cfg.query_scale,
-            )
-            if "ssm" in layer:  # hybrid: parallel heads, mean-fused
-                a = 0.5 * (a + ssm_branch(layer, h, i))
-            x = self._cross(layer, x + self._attn_out(layer, a), memory, i)
-            x = ffn(layer, x)
+        if "attn" not in layer:  # pure SSM block
+            h = self._norm(x, layer["pre_ssm_norm"])
+            return self._ffn(layer, x + ssm_branch(h))
+        h = self._norm(x, layer["pre_attn_norm"])
+        if kv is not None:
+            _, k, v = attn.project_qkv(layer["attn"], h, positions, rope_theta=cfg.rope_theta)
+            kv["k"][i, :, :x.shape[1]] = k.to(kv["k"].dtype)
+            kv["v"][i, :, :x.shape[1]] = v.to(kv["v"].dtype)
+        a = attn.attend_full(
+            layer["attn"], h, positions, rope_theta=cfg.rope_theta,
+            window=window, softcap_value=cfg.attn_softcap,
+            query_scale=cfg.query_scale,
+        )
+        if "ssm" in layer:  # hybrid: parallel heads, mean-fused
+            a = 0.5 * (a + ssm_branch(h))
+        x = self._cross(layer, x + self._attn_out(layer, a), memory, i)
+        return self._ffn(layer, x)
+
+    def _run(self, params: Params, layers: List[Params], tokens: torch.Tensor,
+             frontend_embeds: Optional[torch.Tensor] = None,
+             kv: Optional[Dict[str, torch.Tensor]] = None,
+             ssm: Optional[Dict[str, torch.Tensor]] = None,
+             memory: Optional[Dict[str, torch.Tensor]] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence stack over ``layers`` (:func:`_decoder_layers`):
+        (hidden states after the final norm, the MoE layers' aux losses
+        summed in f32).  Writes each layer's K/V
+        prefix into ``kv`` and each SSM branch's final scan and conv states
+        into ``ssm``.  A hybrid layer's attention and SSM branch read the
+        same normed input and are mean-fused; ``memory`` is the encoder's
+        cross K/V.  Each layer's body is checkpointed as ``remat`` says."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+        x = self._embed(params, tokens, frontend_embeds)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, (layer, window) in enumerate(zip(layers, cfg.window_sizes())):
+            x, aux = self._maybe_remat(
+                functools.partial(self._block, positions=positions, window=window, i=i,
+                                  kv=kv, ssm=ssm, memory=memory), layer, x)
+            if aux is not None:
+                aux_total = aux_total + aux
         return self._norm(x, params["final_norm"]), aux_total
 
     def forward(self, params: Params, tokens: torch.Tensor, *,
@@ -559,8 +606,9 @@ class TransformerLM:
         ``forward`` returns them: aux is the MoE layers' load-balance losses
         summed in f32 (0 without MoE).  ``frontend_embeds``: patch
         embeddings (vision) or the encoder's frames (audio, required)."""
-        x, aux = self._run(params, tokens, frontend_embeds,
-                           memory=self._cross_memory(params, frontend_embeds))
+        layers = _decoder_layers(self.cfg, params["layers"])
+        x, aux = self._run(params, layers, tokens, frontend_embeds,
+                           memory=self._cross_memory(params, frontend_embeds, layers))
         return (x, aux) if return_aux else x
 
     # ---------------------------------------------------------------- serving
@@ -609,8 +657,8 @@ class TransformerLM:
             state.ssm["conv"][i] = new["conv"]
             return y
 
-        for i, window in enumerate(cfg.window_sizes()):
-            layer = _decoder_layer(cfg, params["layers"], i)
+        layers = _decoder_layers(cfg, params["layers"])
+        for i, (layer, window) in enumerate(zip(layers, cfg.window_sizes())):
             if "attn" not in layer:  # pure SSM block: the recurrence
                 h = self._norm(x, layer["pre_ssm_norm"])
                 x, _ = self._ffn(layer, x + ssm_step(layer, h, i))
@@ -642,7 +690,8 @@ class TransformerLM:
         prompt (and, for an encoder-decoder, the frames it attends to);
         returns (last logits [B,V], state)."""
         b, s = tokens.shape
-        memory = self._cross_memory(params, frontend_embeds)
+        layers = _decoder_layers(self.cfg, params["layers"])
+        memory = self._cross_memory(params, frontend_embeds, layers)
         cross_kv = state.cross_kv
         if memory is not None:
             if cross_kv is not None and cross_kv["k"].shape == memory["k"].shape:
@@ -650,7 +699,7 @@ class TransformerLM:
                     cross_kv[name].copy_(memory[name])
             else:  # frames of another length than the state's buffer
                 cross_kv = memory
-        x, _ = self._run(params, tokens, frontend_embeds, state.kv, state.ssm, memory)
+        x, _ = self._run(params, layers, tokens, frontend_embeds, state.kv, state.ssm, memory)
         logits = self._logits(params, x[:, -1:, :])[:, 0, :]
         length = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
         return logits, dataclasses.replace(state, cross_kv=cross_kv, length=length)

@@ -4,18 +4,22 @@ The reference and the port draw random weights from different generators,
 so parity runs share weights, not seeds: the caller converts the
 reference's ``TransformerLM.init(...)[0]`` to a nested dict of numpy arrays
 (``np.asarray`` on each leaf) and hands it here.  The port never sees a
-framework array of the reference.
+framework array of the reference.  :func:`train_state_from_numpy` does the
+same for a whole training state (params, AdamW's state, the
+error-feedback residual).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import ModelConfig, param_shapes
+from repro_torch.optim.adamw import OptState
+from repro_torch.train.step import TrainState
 
 
 def _convert(tree: Any, leaves: Any, device: torch.device, path: str) -> Any:
@@ -42,3 +46,30 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Di
     float32 for the SSM's ``A_log``, ``D`` and ``dt_bias``); raises on a
     missing, extra or misshapen leaf."""
     return _convert(tree, param_shapes(cfg), resolve_device(device), "")
+
+
+def train_state_from_numpy(state: Any, cfg: ModelConfig, device=None) -> TrainState:
+    """The port's ``TrainState`` from the reference's, its leaves numpy
+    arrays (``jax.tree.map(np.asarray, state)``): params as
+    :func:`params_from_numpy` casts them, ``m``, ``v``, the master copy and
+    the residual (when present) in f32 with the params' shapes, ``step``
+    int32; raises on a missing, extra or misshapen leaf."""
+    dev = resolve_device(device)
+    f32 = _retype(param_shapes(cfg), torch.float32)
+
+    def f32_tree(tree: Optional[Any], path: str) -> Optional[Dict[str, Any]]:
+        return None if tree is None else _convert(tree, f32, dev, path)
+
+    opt = state.opt
+    return TrainState(
+        params=params_from_numpy(state.params, cfg, dev),
+        opt=OptState(step=torch.tensor(np.asarray(opt.step), dtype=torch.int32, device=dev),
+                     m=f32_tree(opt.m, "opt/m"), v=f32_tree(opt.v, "opt/v"),
+                     master=f32_tree(opt.master, "opt/master")),
+        ef_residual=f32_tree(state.ef_residual, "ef_residual"),
+    )
+
+
+def _retype(leaves: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
+    return {k: _retype(v, dtype) if isinstance(v, dict) else (v[0], dtype)
+            for k, v in leaves.items()}

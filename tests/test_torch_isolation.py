@@ -43,7 +43,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.core.mva, repro_torch.memsim.batched.exact, "
             "repro_torch.obs.histogram, repro_torch.scenarios.planner, "
             "repro_torch.tiering, repro_torch.tiering.hook, "
-            "repro_torch.memsim.batched.tiering; "
+            "repro_torch.memsim.batched.tiering, repro_torch.launch.train, "
+            "repro_torch.train.step, repro_torch.optim, repro_torch.checkpoint, "
+            "repro_torch.data, repro_torch.pytree; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules, "
             "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -61,6 +63,7 @@ def test_entry_points_without_device_raise_on_cpu_only_machine():
     from repro_torch.core.littles_law import OpClass
     from repro_torch.core.mva import analyze
     from repro_torch.launch.serve import build_cluster
+    from repro_torch.launch.train import Trainer
     from repro_torch.memsim.batched import run_sweep_batched
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.scenarios import plan, run_scenario
@@ -71,6 +74,8 @@ def test_entry_points_without_device_raise_on_cpu_only_machine():
         TransformerLM(get_arch("llama31-8b").smoke).init(torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda:0")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer("qwen2.5-3b", smoke=True)
     jobs = [j for _, _, js in plan("corun_sweep", {"threads": 2, "mlp": 96}) for j in js]
     with pytest.raises(RuntimeError, match="CUDA"):
         run_sweep_batched(jobs)
