@@ -174,10 +174,31 @@ Phases, each printed as one JSON line:
      master copy within 1e-6; the bytes written, save and restore walls;
  30. train_remat: qwen2.5-3b's widths cut to 4 layers in f32 at seq 2048
      (two query blocks): the gradients with remat "full" and "dots"
-     against "none" within 1e-5, each mode's peak and wall.
+     against "none" within 1e-5, each mode's peak and wall;
+ 31. dist_serve, the distribution path: llama31-8b at full width and depth
+     in bf16 with every parameter and cache leaf a DTensor on a 1 x 1 mesh
+     (``make_host_mesh``: NCCL from a FileStore) under DECODE_RULES, on the
+     unmeshed tensors' storage: prompts of 1,024 and 8 tokens prefilled,
+     then 8 greedy decode steps, against the same steps without a mesh:
+     tokens equal, logits within 1e-6 of their scale, K1 = 32 x 8 = 256;
+     each side's prefill and decode-step walls;
+ 32. dist_train: qwen2.5-3b whole through ``Trainer(mesh=...)`` on that
+     mesh for 3 steps: losses within 1e-3 (relative) of train_qwen's first
+     3, the peak beside train_qwen's; then train_ssm's gradients with the
+     parameters DTensors (within 1e-3 of the unmeshed ones' scale) and its
+     train steps on the mesh, K4's launches counted (8 x 2 x 2);
+ 33. dryrun: ``launch.dryrun.run_cell`` on the card's device type, fake
+     tensors on the 256-rank production mesh (32 x 8) of a fake process
+     group: llama31-8b train_4k, prefill_32k and decode_32k, gemma2-27b
+     long_500k, mamba2-2.7b prefill_32k and dbrx-132b train_4k (the train
+     cells at 1 microbatch, the CLI's default being 8); every cell
+     ok, the device's allocated bytes unchanged, each cell's parameter
+     bytes a device equal to bytes_per_device of their placements; each
+     cell's trace time, counts and H100 roofline terms, and the phase's
+     wall.
 The figures' plain lane runs in CPU worker processes from the build on.
 They run in this order: 1-5, 21, 25, 22, 26, 24, 23, 12, 20, 13, 6, 7, 9, 14, 16, 18, 19,
-17, 15, 8, 10, 11, 27-30.  Every line carries ``elapsed_s``, the seconds since the script started.
+17, 15, 8, 10, 11, 27-33.  Every line carries ``elapsed_s``, the seconds since the script started.
 The line before the last lists every kernel's numbers; the last line is the
 device summary.  Any failed check exits non-zero; without CUDA (or without
 the rest of the repository beside this file) it exits non-zero at once.
@@ -186,6 +207,7 @@ the rest of the repository beside this file) it exits non-zero at once.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import dataclasses
 import json
 import os
@@ -199,9 +221,6 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
-H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-H100_BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM data sheet
-H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 H100_F64_FLOPS = 34e12  # f64 outside the tensor cores
 #: A profiler trace can lose its first kernel records, the more the older
 #: the process, even after a pause before the first launch; never its
@@ -315,19 +334,27 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def h100():
+    """The package's hardware model of the card (``roofline.analysis``):
+    the H100 SXM data sheet's rates."""
+    from repro_torch.roofline.analysis import H100_SXM
+
+    return H100_SXM
+
+
 def attention_bound_ms(q, k, lengths, window=1 << 30):
     """Least time for one decode-attention call on these inputs: each input
     byte read once (only the K/V rows the mask keeps), the output written
-    once, against the bf16/f32 operations they need; the larger of the two,
+    once, against the bf16/f32 operations they need (the package's K1 cost,
+    ``roofline.op_costs.decode_attention_cost``); the larger of the two,
     and which one it is."""
-    b, hkv, g, dh = q.shape
-    s = k.shape[2]
-    valid = sum(max(0, min(int(n), s) - max(0, int(n) - window)) for n in lengths.tolist())
-    esize = k.element_size()
-    nbytes = 2 * valid * hkv * dh * esize + 2 * q.numel() * q.element_size() + 4 * b
-    flops = 4 * valid * hkv * g * dh
-    peak = H100_BF16_FLOPS if q.dtype.itemsize == 2 else H100_F32_FLOPS
-    t_bytes, t_ops = nbytes / H100_HBM_BYTES_PER_S, flops / peak
+    from repro_torch.roofline.op_costs import decode_attention_cost
+
+    nbytes, flops = decode_attention_cost(tuple(q.shape), tuple(k.shape), k.element_size(),
+                                          lengths.tolist(), window)
+    hw = h100()
+    peak = hw.peak_flops if q.dtype.itemsize == 2 else hw.peak_flops_f32
+    t_bytes, t_ops = nbytes / hw.hbm_bw, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -343,6 +370,7 @@ def main() -> None:
         from repro_torch.kernels import _nvcc
         from repro_torch.kernels import decode_attention as k1
         from repro_torch.kernels import fluid_solver as fs
+        from repro_torch.kernels import ops
         from repro_torch.kernels import ssd_scan as k4
         from repro_torch.kernels.ref import decode_attention_ref
     except ImportError as e:
@@ -516,6 +544,13 @@ def main() -> None:
                                           - ref.float()).abs().max().item()
         row["bound_ms"], row["bound_by"] = attention_bound_ms(q, k, lens,
                                                               kw.get("window", 1 << 30))
+        if name == "serve":
+            # The model's entry (kernels.ops, model layout) through the torch
+            # operator that the launcher sits behind: the host cost a call
+            # adds on the decode path, beside ms above (the launcher alone).
+            qm, km, vm = q.reshape(b, hq, dh), k.transpose(1, 2), v.transpose(1, 2)
+            row["op_call_ms"] = time_ms(lambda: ops.decode_attention(qm, km, vm, lens, **kw),
+                                        iters)
         sweep[name] = row
         emit("kernel_sweep", **row)
         check(ok, f"decode attention {name}: max abs err {err} > {tol}")
@@ -624,7 +659,8 @@ def main() -> None:
     mva_phase(dev)
     k4_row = k4_sweep(dev)
     k4_launches = ssm_phases(dev)
-    k4_train_launches = train_phases(dev)
+    k4_train_launches, qwen = train_phases(dev)
+    k1_dist_launches, k4_dist_launches, _ = dist_phases(dev, qwen)
     emit("profiler", traces=len(PROFILE_PADS_LOST), pad_kernels=PROFILE_PAD_KERNELS,
          pad_records_lost_max=max(PROFILE_PADS_LOST),
          traces_losing_pad_records=sum(n > 0 for n in PROFILE_PADS_LOST),
@@ -648,6 +684,8 @@ def main() -> None:
         # (captured in the kernel sweep), taking kernel_device_ms in all.
         "device_kernels_per_call": row["device_kernels_per_call"],
         "kernel_device_ms": row["kernel_device_ms"],
+        # The same call through kernels.ops and the torch operator.
+        "op_call_ms": row["op_call_ms"],
         "long_cache_ms": long_row["ms"],
         "long_cache_kernel_device_ms": long_row["kernel_device_ms"],
         "long_cache_library_ms": long_row["library_ms"],
@@ -678,6 +716,8 @@ def main() -> None:
         # served at full width (8 layers, one dense/MoE pair), and their
         # decode shape's cases.
         "serve_moe_launches": moe["k1_launches"],
+        # llama31-8b served on a 1 x 1 mesh, every leaf a DTensor.
+        "dist_serve_launches": k1_dist_launches,
         **{group: {name[len(group) + 1:]: {k: sweep[name][k] for k in K1_FIELDS}
                    for name in sweep if name.startswith(group + "_")}
            for group in ("gemma2", "dh80", "dh160", "whisper", "hymba", "dbrx", "llama4")},
@@ -723,6 +763,8 @@ def main() -> None:
         # The training path: mamba2-2.7b's train steps through K4's autograd
         # Function (forward launches; the backward is the plain scan's).
         "train_ssm_launches": k4_train_launches,
+        # The same train steps with the parameters DTensors on a 1 x 1 mesh.
+        "train_ssm_mesh_launches": k4_dist_launches,
         **k4_row,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -888,7 +930,7 @@ def kernel_device_ms(fn, names, iters: int = 20, kernels: int = 1,
 
 
 def bound(nbytes, ops, peak):
-    t_bytes, t_ops = nbytes / H100_HBM_BYTES_PER_S, ops / peak
+    t_bytes, t_ops = nbytes / h100().hbm_bw, ops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -933,7 +975,7 @@ def k2_check(dev):
         library_ms=None,
     )
     nbytes = (5 * 1024 * 2 + 3 * 1024) * 4 + 1024 * 4
-    row["bound_ms"], row["bound_by"] = bound(nbytes, glam_ops(1024, 2), H100_F32_FLOPS)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, glam_ops(1024, 2), h100().peak_flops_f32)
     row["kernel_device_ms"] = kernel_device_ms(lambda: bk.global_lambda(*args),
                                                "global_lambda_kernel")
     emit("k2_check", cases=len(cases), cells=n_cells, inf_cells=n_inf, tol_rel=2e-3,
@@ -1003,7 +1045,7 @@ def k3_check(dev):
     C, W, S = shape = args[3].shape
     nbytes = (3 * C * W + 3 * C * W * S + 2 * C * S + 2 * C + C * W + C * S + C) * 4
     row["bound_ms"], row["bound_by"] = bound(
-        nbytes, window_solve_ops(C, W, S, n_outer), H100_F32_FLOPS)
+        nbytes, window_solve_ops(C, W, S, n_outer), h100().peak_flops_f32)
     # The sequential bisection steps a cell's chain had (the tests at the
     # cap included), and the dependent rounds the warp runs instead: the
     # stations' tests at the cap take one step on all lanes, the global
@@ -1757,7 +1799,7 @@ def k3_instance_timing(dev, firsts, ptxas_path):
                    library_ms=None, **ptxas.get((8, 8), {}))
         nbytes = (3 * C * W + 3 * C * W * S + 2 * C * S + 2 * C + C * W + C * S + C) * 4
         row["bound_ms"], row["bound_by"] = bound(
-            nbytes, window_solve_ops(C, W, S, n_outer), H100_F32_FLOPS)
+            nbytes, window_solve_ops(C, W, S, n_outer), h100().peak_flops_f32)
         emit("k3_instance_timing", **row)
         check(same and beyond <= K3_RANDOM_MAX_SHARE_BEYOND * C,
               f"k3_instance_timing {case}: mask {same}, {beyond} of {C} cells beyond 2e-3")
@@ -1882,23 +1924,19 @@ K4_KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_chunk_kernel")
 
 
 def ssd_bound_ms(b, s, h, p, n, chunk, esize):
-    """Least time of one scan on these shapes: x, B and C read once in
-    their dtype, dt and a in f32, y written once, the final state in f32;
+    """Least time of one scan on these shapes (the package's K4 cost,
+    ``roofline.op_costs.ssd_scan_cost``): x, B and C read once in their
+    dtype, dt and a in f32, y written once, the final state in f32;
     against the operations the chunked algorithm needs: C B^T once per
     (batch row, chunk) at G = 1 (causal half), per head the causal
     (C B^T * decay) @ dx, the state's contribution from the second chunk on
     and every chunk's state update.  bf16 inputs against the bf16
     tensor-core rate, f32 against the f32 rate."""
-    chunk = min(chunk, s)
-    nbytes = (2 * b * s * h * p + 2 * b * s * n) * esize + b * s * h * 4 + h * 4 \
-        + b * h * p * n * 4
-    flops = 0
-    for t0 in range(0, s, chunk):
-        q = min(chunk, s - t0)
-        tri = q * (q + 1) // 2
-        flops += b * 2 * tri * n
-        flops += b * h * (2 * tri * p + 2 * q * p * n * (2 if t0 else 1))
-    return bound(nbytes, flops, H100_BF16_FLOPS if esize == 2 else H100_F32_FLOPS)
+    from repro_torch.roofline.op_costs import ssd_scan_cost
+
+    nbytes, flops = ssd_scan_cost(b, s, h, p, n, chunk, esize)
+    hw = h100()
+    return bound(nbytes, flops, hw.peak_flops if esize == 2 else hw.peak_flops_f32)
 
 
 def k4_inputs(gen, b, s, h, p, n, dtype, dev):
@@ -3161,8 +3199,8 @@ def train_step_bound(n_params, cfg, batch, seq):
     tokens = batch * seq
     flops = 6 * n_params * tokens + 12 * batch * seq * seq * cfg.n_q_heads * cfg.head_dim \
         * cfg.n_layers
-    t_ops = flops / H100_BF16_FLOPS
-    t_bytes = 34 * n_params / H100_HBM_BYTES_PER_S
+    t_ops = flops / h100().peak_flops
+    t_bytes = 34 * n_params / h100().hbm_bw
     return (t_ops + t_bytes) * 1e3, t_ops * 1e3, t_bytes * 1e3
 
 
@@ -3294,6 +3332,7 @@ def train_qwen(dev):
     del state, trainer
     gc.collect()
     torch.cuda.empty_cache()
+    return dict(losses=losses, peak_gb=peak / 1e9)
 
 
 def train_ssm(dev):
@@ -3527,12 +3566,340 @@ def train_remat(dev):
 
 def train_phases(dev):
     """The training path: train_qwen, train_ssm, train_resume, train_remat.
-    Returns K4's launches on train_ssm's train steps."""
-    train_qwen(dev)
+    Returns K4's launches on train_ssm's train steps and train_qwen's losses
+    and peak."""
+    qwen = train_qwen(dev)
     launches = train_ssm(dev)
     train_resume(dev)
     train_remat(dev)
+    return launches, qwen
+
+
+def dist_phases(dev, qwen):
+    """The distribution path on one card: dist_serve and dist_train on a
+    1 x 1 mesh (NCCL), then the dry run on a fake 256-rank process group
+    (the mesh's group is destroyed first: a process holds one).  Returns
+    K1's dist_serve launches, K4's meshed train_ssm launches and the dry
+    run's cells."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(device=dev)
+    try:
+        k1_launches = dist_serve(dev, mesh)
+        k4_launches = dist_train(dev, mesh, qwen)
+    finally:
+        dist.destroy_process_group()
+    return k1_launches, k4_launches, dryrun_phase(dev)
+
+
+# -- distribution: meshed serve and train on the card, and the dry run ---------
+
+#: dist_serve: llama31-8b's two prompts and its decode steps on a 1 x 1 mesh.
+DIST_PROMPTS, DIST_DECODE_STEPS = (1024, 8), 8
+#: dist_serve's gate: meshed logits against the unmeshed ones, of their scale
+#: (the same kernels on the same bytes).
+DIST_SERVE_TOL = 1e-6
+#: dist_train: qwen2.5-3b's meshed steps and their gate against train_qwen's
+#: first losses (relative).
+DIST_TRAIN_STEPS, DIST_TRAIN_TOL = 3, 1e-3
+#: The dry run's train cells take 1 microbatch here (the reference's and the
+#: CLI's default is 8): the step's FLOPs are the same, its weight gathers 8x
+#: fewer, and its trace an eighth as long.
+DRYRUN_MICROBATCHES = 1
+#: The dry run's cells on the 256-rank production mesh (fake process group).
+DRYRUN_CELLS = (("llama31-8b", "train_4k"), ("llama31-8b", "prefill_32k"),
+                ("llama31-8b", "decode_32k"), ("gemma2-27b", "long_500k"),
+                ("mamba2-2.7b", "prefill_32k"), ("dbrx-132b", "train_4k"))
+
+
+def dist_serve(dev, mesh):
+    """llama31-8b at full width and depth in bf16, every parameter and cache
+    leaf a DTensor on ``mesh`` (1 x 1 on one card) under DECODE_RULES, on
+    the storage of the unmeshed tensors: each prompt of DIST_PROMPTS
+    prefilled alone into its slot, then DIST_DECODE_STEPS greedy steps of
+    both slots; the same without a mesh.  Greedy tokens equal, logits
+    within DIST_SERVE_TOL of their scale; K1 counted over the meshed decode
+    (layers x steps).  Returns that count."""
+    import gc
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.autosharding import distribute_tree, logical_sharding_context
+    from repro_torch.distributed.sharding import DECODE_RULES
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.pytree import tree_leaves
+
+    cfg = get_arch("llama31-8b").config
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(7), dev)
+    dparams = distribute_tree(params, mesh, model.param_axes(), DECODE_RULES)
+    rng = np.random.default_rng(7)
+    prompts = [torch.from_numpy(rng.integers(1, cfg.vocab, (1, n)).astype(np.int32)).to(dev)
+               for n in DIST_PROMPTS]
+    max_len = max(DIST_PROMPTS) + DIST_DECODE_STEPS
+
+    def full(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
+    def run(meshed):
+        p = dparams if meshed else params
+        state = model.init_decode_state(len(prompts), max_len, dev)
+        last = []
+        ctx = logical_sharding_context(mesh, DECODE_RULES) if meshed else contextlib.nullcontext()
+        with torch.no_grad(), ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for slot, tokens in enumerate(prompts):
+                st1 = model.init_decode_state(1, tokens.shape[1], dev)
+                if meshed:
+                    st1 = distribute_tree(st1, mesh, model.decode_state_axes(), DECODE_RULES)
+                logits1, st1 = model.prefill(p, tokens, st1)
+                n = tokens.shape[1]
+                for name in ("k", "v"):
+                    state.kv[name][:, slot, :n] = full(st1.kv[name])[:, 0]
+                state.length[slot] = n
+                last.append(full(logits1)[0])
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            if meshed:
+                state = distribute_tree(state, mesh, model.decode_state_axes(), DECODE_RULES)
+                check(all(isinstance(x, DTensor) for x in tree_leaves(state)),
+                      "dist_serve: a cache leaf is not a DTensor")
+            tok = torch.stack(last).argmax(-1).to(torch.int32)
+            logits_all, toks, walls = [], [], []
+            k1.LAUNCHES.reset()
+            for _ in range(DIST_DECODE_STEPS):
+                toks.append(tok)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, state = model.decode_step(p, state, tok)
+                logits = full(logits)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                logits_all.append(logits.float())
+                tok = logits.argmax(-1).to(torch.int32)
+            launches = k1.LAUNCHES.count
+        return dict(prefill_s=prefill_s, step_ms=walls, launches=launches,
+                    logits=torch.stack(logits_all), tokens=torch.stack(toks))
+
+    plain = run(False)
+    meshed = run(True)
+    scale = float(plain["logits"].abs().max())
+    err = float((meshed["logits"] - plain["logits"]).abs().max())
+    same = bool((meshed["tokens"] == plain["tokens"]).all())
+    want = cfg.n_layers * DIST_DECODE_STEPS
+    n_dtensor = sum(isinstance(x, DTensor) for x in tree_leaves(dparams))
+    check(n_dtensor == len(tree_leaves(params)), "dist_serve: a parameter is not a DTensor")
+    emit("dist_serve", config=cfg.name, n_layers=cfg.n_layers, dtype="bfloat16",
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), rules="decode",
+         dtensor_param_leaves=n_dtensor, prompts=list(DIST_PROMPTS),
+         decode_steps=DIST_DECODE_STEPS, tokens_equal=same, max_abs_logit_diff=err,
+         logit_scale=scale, tol_of_scale=DIST_SERVE_TOL, k1_launches=meshed["launches"],
+         layers_x_decode_steps=want, unmeshed_k1_launches=plain["launches"],
+         prefill_s={"unmeshed": plain["prefill_s"], "meshed": meshed["prefill_s"]},
+         decode_step_ms={"unmeshed": plain["step_ms"], "meshed": meshed["step_ms"]},
+         decode_step_ms_median={"unmeshed": float(np.median(plain["step_ms"][1:])),
+                                "meshed": float(np.median(meshed["step_ms"][1:]))})
+    check(same, "dist_serve: the meshed greedy tokens differ from the unmeshed ones")
+    check(err <= DIST_SERVE_TOL * scale, f"dist_serve: logits differ by {err} (scale {scale})")
+    check(meshed["launches"] == want, f"dist_serve: K1 launches {meshed['launches']} != {want}")
+    del params, dparams, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return meshed["launches"]
+
+
+def dist_train(dev, mesh, qwen):
+    """qwen2.5-3b whole through ``Trainer(mesh=mesh)`` (the state distributed
+    per TRAIN_RULES, each step inside the logical sharding context) for
+    DIST_TRAIN_STEPS steps from train_qwen's seed and loader: losses within
+    DIST_TRAIN_TOL (relative) of train_qwen's first ones, the peak beside
+    its peak.  Then train_ssm's gradients and train steps on the same mesh
+    (:func:`train_ssm_meshed`).  Returns K4's launches on those steps."""
+    import gc
+    import signal
+
+    import torch
+
+    from repro_torch.launch.train import Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    sigterm = signal.getsignal(signal.SIGTERM)
+    trainer = Trainer("qwen2.5-3b", total_steps=TRAIN_STEPS, device=dev, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        state = trainer.train(DIST_TRAIN_STEPS, log_every=DIST_TRAIN_STEPS)
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = list(trainer.history)
+    losses = [h["loss"] for h in hist]
+    want = qwen["losses"][:DIST_TRAIN_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    emit("dist_train", config=trainer.cfg.name, n_layers=trainer.cfg.n_layers,
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), rules="train",
+         steps=DIST_TRAIN_STEPS, losses=losses, train_qwen_losses=want, max_rel_diff=max(rel),
+         tol=DIST_TRAIN_TOL, step_walls_s=[h["seconds"] for h in hist], run_s=run_s,
+         max_memory_allocated_gb=peak / 1e9,
+         train_qwen_max_memory_allocated_gb=qwen["peak_gb"])
+    check(len(losses) == DIST_TRAIN_STEPS and max(rel) <= DIST_TRAIN_TOL,
+          f"dist_train: meshed losses {losses} against train_qwen's {want}")
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train_ssm_meshed(dev, mesh)
+
+
+def _ssm_setup(dev):
+    """train_ssm's model, parameters and batch (mamba2-2.7b's widths, depth
+    cut, f32, its seed)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import TransformerLM
+
+    full = get_arch("mamba2-2.7b").config
+    cfg = dataclasses.replace(full, n_layers=TRAIN_SSM_LAYERS, dtype=torch.float32)
+    model = TransformerLM(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(5), dev)
+    rng = np.random.default_rng(5)
+    shape = (TRAIN_SSM_BATCH, TRAIN_SSM_SEQ)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, shape).astype(np.int32)).to(dev)
+    labels = torch.from_numpy(rng.integers(1, cfg.vocab, shape).astype(np.int32)).to(dev)
+    return full, cfg, model, params, tokens, labels
+
+
+def train_ssm_meshed(dev, mesh):
+    """train_ssm's gradients with the parameters DTensors on ``mesh`` under
+    TRAIN_RULES, against the same gradients unmeshed (every leaf within
+    TRAIN_SSM_TOL of its scale), then train_ssm's train steps on the mesh
+    with K4's count set to 0 just before and read just after (layers x
+    microbatches x steps, as unmeshed).  Returns that count."""
+    import gc
+
+    import torch
+
+    from repro_torch.distributed.autosharding import distribute_tree, logical_sharding_context
+    from repro_torch.distributed.sharding import TRAIN_RULES
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.pytree import flatten_with_paths
+    from repro_torch.train.step import TrainState, make_grad_fn, make_train_step
+
+    full, cfg, model, params, tokens, labels = _ssm_setup(dev)
+    grad_fn = make_grad_fn(model, microbatches=TRAIN_SSM_MICROBATCHES)
+    g_plain, loss_p, _ = grad_fn(params, tokens, labels)
+    axes = model.param_axes()
+    with logical_sharding_context(mesh, TRAIN_RULES):
+        dparams = distribute_tree(params, mesh, axes, TRAIN_RULES)
+        dtok, dlab = (distribute_tree({"t": x}, mesh, {"t": ("batch", "seq")}, TRAIN_RULES)["t"]
+                      for x in (tokens, labels))
+        k4.LAUNCHES.reset()
+        g_mesh, loss_m, _ = grad_fn(dparams, dtok, dlab)
+        grad_launches = k4.LAUNCHES.count
+    errs = {}
+    for (key, a), (_, b) in zip(flatten_with_paths(g_mesh), flatten_with_paths(g_plain)):
+        scale = float(b.abs().max())
+        errs[key] = float((a.full_tensor() - b).abs().max()) / max(scale, 1e-30)
+    worst = max(errs, key=errs.get)
+    del g_mesh, g_plain
+
+    step_fn = make_train_step(model, AdamW(), lambda s: warmup_cosine(
+        s, peak_lr=3e-4, warmup_steps=1, total_steps=TRAIN_SSM_STEPS),
+        microbatches=TRAIN_SSM_MICROBATCHES)
+    opt = AdamW()
+    state = TrainState(params=dparams, opt=distribute_tree(opt.init(params), mesh,
+                                                           opt.state_axes(axes), TRAIN_RULES),
+                       ef_residual=None)
+    losses = []
+    with logical_sharding_context(mesh, TRAIN_RULES):
+        # The meshed main path of this phase: launches counted from here.
+        k4.LAUNCHES.reset()
+        for _ in range(TRAIN_SSM_STEPS):
+            state, m = step_fn(state, dtok, dlab)
+            losses.append(float(m["loss"].full_tensor()))
+        launches = k4.LAUNCHES.count
+    want = cfg.n_layers * TRAIN_SSM_MICROBATCHES * TRAIN_SSM_STEPS
+    emit("dist_train_ssm", config=full.name, n_layers=cfg.n_layers, dtype="float32",
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), rules="train",
+         microbatches=TRAIN_SSM_MICROBATCHES, tol=TRAIN_SSM_TOL, loss_unmeshed=float(loss_p),
+         loss_meshed=float(loss_m.full_tensor()), worst_leaf=worst, worst_rel=errs[worst],
+         k4_launches_grads=grad_launches, train_losses=losses, k4_launches=launches,
+         layers_x_microbatches_x_steps=want)
+    check(all(v <= TRAIN_SSM_TOL for v in errs.values()),
+          f"dist_train_ssm: gradient {worst} off by {errs[worst]} of its scale")
+    check(launches == want, f"dist_train_ssm: K4 launches {launches} != {want}")
+    check(all(_finite(x) for x in losses), f"dist_train_ssm: losses {losses}")
+    del state, dparams, params
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
+
+
+def dryrun_phase(dev):
+    """The dry run on the card's device type: each cell of DRYRUN_CELLS
+    traced with fake tensors on the 256-rank production mesh of a fake
+    process group, with the device's allocated bytes unchanged across the
+    phase.  Each cell prints its trace time, per-device state bytes (and the
+    parameters' against ``bytes_per_device`` of their placements), the peak
+    of storage the step made, FLOPs, bytes, minimum bytes, collective bytes
+    by kind and by mesh axis, and the H100 roofline terms.  Every cell must
+    be ok.  Returns the cells' results."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.launch.dryrun import fake_process_group, run_cell
+    from repro_torch.launch.mesh import SINGLE_POD, make_production_mesh
+    from repro_torch.roofline.analysis import roofline_from_cell
+    from repro_torch.roofline.op_costs import OpCost
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t_phase = time.perf_counter()
+    shape, _ = SINGLE_POD
+    n_dev = int(np.prod(shape))
+    name = "x".join(map(str, shape))
+    results = []
+    with fake_process_group(n_dev):
+        mesh = make_production_mesh(device=dev)
+        for arch, shape_name in DRYRUN_CELLS:
+            r = run_cell(arch, shape_name, mesh, name, device=dev,
+                         microbatches=DRYRUN_MICROBATCHES)
+            row = r.to_json()
+            if r.ok:
+                cost = OpCost(flops=r.flops_per_device, bytes=r.bytes_per_device,
+                              collective_bytes=dict(r.collective_bytes),
+                              axis_bytes=dict(r.collective_axis_bytes))
+                terms = roofline_from_cell(get_arch(arch), SHAPES[shape_name], name, n_dev,
+                                           cost, hw=h100())
+                row["h100"] = dict(compute_s=terms.compute_s, memory_s=terms.memory_s,
+                                   collective_s=terms.collective_s, dominant=terms.dominant,
+                                   useful_flops_ratio=terms.useful_flops_ratio,
+                                   roofline_fraction=terms.roofline_fraction,
+                                   model_flops=terms.model_flops)
+            emit("dryrun", **row)
+            results.append(r)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    wall = time.perf_counter() - t_phase
+    emit("dryrun", cells=len(results), ok=sum(r.ok for r in results),
+         device_allocated_before=before, device_allocated_after=after, wall_s=wall)
+    check(all(r.ok for r in results),
+          f"dryrun: cells failed: {[(r.arch, r.shape, r.error) for r in results if not r.ok]}")
+    check(after == before, f"dryrun: the device's allocated bytes went {before} -> {after}")
+    for r in results:
+        check(r.memory["param_size_in_bytes"] == r.memory["param_bytes_from_placements"],
+              f"dryrun {r.arch} {r.shape}: parameter bytes a device {r.memory}")
+    return results
 
 
 def _finite(x) -> bool:

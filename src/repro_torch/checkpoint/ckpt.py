@@ -9,8 +9,14 @@ each leaf's path key such as ``params/layers/attn/wq`` or ``opt/m/embed``,
 its name, shape and dtype, and the caller's ``extra``, e.g. the data
 loader's state).  bfloat16 leaves are stored as f32 with ``"bfloat16"`` in
 the manifest.  Writes go to ``<dir>/tmp.<step>`` and are renamed, so a crash
-mid-write never corrupts the latest checkpoint.  Restoring onto another
-mesh waits for the port's distribution layer.
+mid-write never corrupts the latest checkpoint.
+
+On a mesh, a leaf that is a DTensor is gathered in full before it is
+written (every rank takes part in the gather; rank 0 of the process group
+writes, and the others wait for it), so the format is the same whatever
+mesh wrote it.  ``restore_checkpoint(..., placements=)`` places every leaf
+on the mesh that is alive, so a checkpoint written on one mesh restores
+onto another, or onto none (elastic restore).
 """
 
 from __future__ import annotations
@@ -25,8 +31,27 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.autosharding import distribute_local
 from repro_torch.pytree import flatten_with_paths, tree_map, tree_unflatten
+
+
+def _host_copy(leaf: torch.Tensor) -> torch.Tensor:
+    """A host copy of the leaf, in full (a DTensor is gathered)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
+    return leaf.detach().to("cpu", copy=True)
+
+
+def _is_writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def _host_array(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
@@ -40,6 +65,17 @@ def _host_array(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
 
 def save_checkpoint(directory: str, step: int, state: Any, *,
                     extra: Optional[Dict[str, Any]] = None) -> str:
+    if any(isinstance(leaf, DTensor) for _, leaf in flatten_with_paths(state)):
+        state = tree_map(_host_copy, state)
+        final = os.path.join(directory, f"step_{step:08d}")
+        if _is_writer():
+            _write(directory, step, state, extra)
+        _barrier()
+        return final
+    return _write(directory, step, state, extra)
+
+
+def _write(directory: str, step: int, state: Any, extra: Optional[Dict[str, Any]]) -> str:
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"tmp.{step}")
     final = os.path.join(directory, f"step_{step:08d}")
@@ -74,12 +110,14 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory: str, step: int, state_template: Any
-                       ) -> Tuple[Any, Dict[str, Any]]:
+def restore_checkpoint(directory: str, step: int, state_template: Any, *,
+                       placements: Any = None) -> Tuple[Any, Dict[str, Any]]:
     """The checkpoint's leaves in the template's structure, matched by path
     key, each cast to its template leaf's dtype and put on its device.
-    Raises ``KeyError`` on a leaf missing from the checkpoint and
-    ``ValueError`` on a shape mismatch.  Returns (state, extra)."""
+    ``placements`` — a tree like the template of ``(mesh, placements)``
+    pairs, or None — distributes each leaf onto a mesh, each device keeping
+    its shard.  Raises ``KeyError`` on a leaf missing from the checkpoint
+    and ``ValueError`` on a shape mismatch.  Returns (state, extra)."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -95,7 +133,10 @@ def restore_checkpoint(directory: str, step: int, state_template: Any
                              f"template {tuple(tmpl.shape)}")
         restored.append(torch.from_numpy(arr if arr.flags.writeable else arr.copy()).to(
             device=tmpl.device, dtype=tmpl.dtype))
-    return tree_unflatten(state_template, restored), manifest["extra"]
+    state = tree_unflatten(state_template, restored)
+    if placements is not None:
+        state = tree_map(lambda leaf, mp: distribute_local(leaf, *mp), state, placements)
+    return state, manifest["extra"]
 
 
 class CheckpointManager:
@@ -112,7 +153,11 @@ class CheckpointManager:
         self._lock = threading.Lock()
 
     def save(self, step: int, state: Any, extra: Optional[Dict[str, Any]] = None) -> Future:
-        host_state = tree_map(lambda x: x.detach().to("cpu", copy=True), state)
+        host_state = tree_map(_host_copy, state)
+        if not _is_writer():
+            fut: Future = Future()
+            fut.set_result(os.path.join(self.directory, f"step_{step:08d}"))
+            return fut
 
         def work():
             p = save_checkpoint(self.directory, step, host_state, extra=extra)
@@ -135,12 +180,15 @@ class CheckpointManager:
             pending, self._pending = self._pending, []
         for fut in pending:
             fut.result()
+        _barrier()
 
-    def restore_latest(self, state_template: Any):
+    def restore_latest(self, state_template: Any, *, placements: Any = None):
         """(step, state, extra) of the newest checkpoint, or (None, None,
-        None) when there is none."""
+        None) when there is none; ``placements`` as in
+        :func:`restore_checkpoint`."""
         step = latest_step(self.directory)
         if step is None:
             return None, None, None
-        state, extra = restore_checkpoint(self.directory, step, state_template)
+        state, extra = restore_checkpoint(self.directory, step, state_template,
+                                          placements=placements)
         return step, state, extra

@@ -1,5 +1,7 @@
 """Architecture registry of the port: every config of ``repro.configs``,
-copied so the port imports nothing from the reference."""
+copied so the port imports nothing from the reference, and the four input
+shapes of the dry run (``train_4k``, ``prefill_32k``, ``decode_32k`` and
+``long_500k``, which only the sub-quadratic families run)."""
 
 from __future__ import annotations
 
@@ -8,6 +10,21 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.models.transformer import ModelConfig
+
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, Shape] = {
+    "train_4k": Shape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": Shape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": Shape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": Shape("long_500k", 524_288, 1, "decode"),
+}
 
 ARCH_IDS: List[str] = ["llama31-8b", "mamba2-2.7b", "gemma2-27b", "h2o-danube-1.8b",
                        "stablelm-12b", "qwen2.5-3b", "hymba-1.5b", "internvl2-2b",
@@ -33,7 +50,20 @@ class ArchSpec:
     arch_id: str
     config: ModelConfig
     smoke: ModelConfig
+    #: sub-quadratic decode state (SSM / SWA / local-global) => long_500k runs
+    long_context: bool
     notes: str = ""
+
+    def shapes(self) -> List[Shape]:
+        out = [SHAPES["train_4k"], SHAPES["prefill_32k"], SHAPES["decode_32k"]]
+        if self.long_context:
+            out.append(SHAPES["long_500k"])
+        return out
+
+    def shape_applicable(self, shape_name: str) -> bool:
+        if shape_name == "long_500k":
+            return self.long_context
+        return shape_name in SHAPES
 
 
 def get_arch(arch_id: str) -> ArchSpec:

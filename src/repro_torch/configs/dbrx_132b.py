@@ -45,5 +45,6 @@ SPEC = ArchSpec(
     arch_id="dbrx-132b",
     config=CONFIG,
     smoke=smoke_config(),
+    long_context=False,  # full attention
     notes="16 experts top-4 every layer; sort-based dispatch",
 )

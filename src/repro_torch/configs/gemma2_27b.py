@@ -60,5 +60,6 @@ SPEC = ArchSpec(
     arch_id="gemma2-27b",
     config=CONFIG,
     smoke=smoke_config(),
+    long_context=True,  # half the layers are SWA; global-layer decode is O(S)
     notes="local/global alternating + softcaps + post-norms",
 )

@@ -45,5 +45,6 @@ SPEC = ArchSpec(
     arch_id="h2o-danube-1.8b",
     config=CONFIG,
     smoke=smoke_config(),
+    long_context=True,  # SWA: decode state bounded by the window
     notes="mistral-style SWA(4096)",
 )

@@ -56,5 +56,6 @@ SPEC = ArchSpec(
     arch_id="hymba-1.5b",
     config=CONFIG,
     smoke=smoke_config(),
+    long_context=True,  # hybrid: SSM state + SWA hot window
     notes="parallel attn+mamba heads, mean-fused; meta tokens omitted",
 )

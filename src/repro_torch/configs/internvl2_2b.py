@@ -47,5 +47,6 @@ SPEC = ArchSpec(
     arch_id="internvl2-2b",
     config=CONFIG,
     smoke=smoke_config(),
+    long_context=False,  # pure full attention backbone
     notes="vision frontend stubbed (precomputed patch embeddings)",
 )

@@ -36,5 +36,6 @@ SPEC = ArchSpec(
     arch_id="llama31-8b",
     config=CONFIG,
     smoke=smoke_config(),
+    long_context=False,
     notes="paper §6 case-study model (serving engine)",
 )

@@ -55,5 +55,6 @@ SPEC = ArchSpec(
     arch_id="llama4-maverick-400b-a17b",
     config=CONFIG,
     smoke=smoke_config(),
+    long_context=False,  # treated as full attention per assignment
     notes="interleaved dense/MoE pairs; 128e top-1 + shared expert",
 )

@@ -52,5 +52,6 @@ SPEC = ArchSpec(
     arch_id="mamba2-2.7b",
     config=CONFIG,
     smoke=smoke_config(),
+    long_context=True,  # O(1) decode state
     notes="attention-free SSD; no KV cache, the decode state is O(1) per slot",
 )

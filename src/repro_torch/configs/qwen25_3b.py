@@ -44,5 +44,6 @@ SPEC = ArchSpec(
     arch_id="qwen2.5-3b",
     config=CONFIG,
     smoke=smoke_config(),
+    long_context=False,  # pure full attention
     notes="QKV bias, 8:1 GQA ratio",
 )

@@ -44,5 +44,6 @@ SPEC = ArchSpec(
     arch_id="stablelm-12b",
     config=CONFIG,
     smoke=smoke_config(),
+    long_context=False,  # pure full attention: long_500k skipped
     notes="layernorm + per-head qk-norm",
 )

@@ -55,5 +55,6 @@ SPEC = ArchSpec(
     arch_id="whisper-large-v3",
     config=CONFIG,
     smoke=smoke_config(),
+    long_context=False,  # full attention enc-dec
     notes="enc-dec; conv frontend stubbed; MHA (kv=q=20)",
 )

@@ -1,10 +1,33 @@
 """Model-layout wrappers of the port's model kernels (port of
 ``repro/kernels/ops.py``): flash-decode GQA and the SSD chunked scan.
 
-A CUDA tensor launches the hand-written kernel; a CPU tensor takes the
-plain version.  There is no fallback from one to the other.  The
-reference's padding of G to 8 existed for the TPU's sublane tiling and is
-dropped: the kernel takes any G.  The reference's halving of the scan's
+Each kernel is a torch operator (``torch.ops.repro_torch.decode_attention``
+and ``torch.ops.repro_torch.ssd_scan``), registered through
+``torch.library.Library`` with three implementations: on a CUDA tensor the
+hand-written kernel, on a CPU tensor the plain version (there is no
+fallback from one to the other), and a fake rule that gives the outputs'
+shapes and dtypes, so fake and meta tensors (the dry run) reach the
+operators by dispatch and never through a raw pointer.  A plain CUDA
+tensor, whose pointer is its own, goes to the launcher directly: the
+operator's dispatch adds about 20 us a call on the host, which the
+decode step, bound by its host, would pay once a layer.
+
+A DTensor never reaches an operator: :func:`decode_attention` and the
+model's scan (``models/ssm.py:_ssd_local``, differentiable) redistribute
+its inputs to placements on which the kernel computes its own function on
+each device's shards, call the kernel on the local tensors and wrap the
+result (:func:`decode_attention_placements`, :func:`ssd_scan_placements`):
+
+* K1: batch shards stay; query and KV heads shard together, Hq / n query
+  heads over the Hkv / n KV heads they group on; a cache sharded along its
+  sequence is gathered along it first (a cross-device combine of the
+  kernel's partial softmax statistics is not written yet), as is anything
+  else.
+* K4: batch shards stay; SSM heads shard with their dt and ``a``, B and C
+  (one group) replicated beside them; anything else is replicated.
+
+The reference's padding of G to 8 existed for the TPU's sublane tiling and
+is dropped: the kernel takes any G.  The reference's halving of the scan's
 chunk until it divides S is dropped too (a prime prompt length would fall
 to chunk 1): S is padded to a chunk multiple with dt = 0 instead, as
 ``models/ssm.py::ssd_chunked`` does.
@@ -12,13 +35,116 @@ to chunk 1): S is padded to a chunk multiple with dt = 0 instead, as
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 
+from repro_torch.distributed.autosharding import from_local, to_local_as
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.ref import decode_attention_ref, ssd_scan_chunked_ref
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("decode_attention(Tensor q, Tensor k, Tensor v, Tensor lengths, int window, "
+            "float? softcap, float? scale) -> Tensor")
+_LIB.define("ssd_scan(Tensor x, Tensor dt, Tensor b, Tensor c, Tensor a, int chunk) "
+            "-> (Tensor, Tensor)")
+
+
+def _decode_attention_cuda_impl(q, k, v, lengths, window, softcap, scale):
+    return decode_attention_cuda(q, k, v, lengths, window=window, softcap=softcap, scale=scale)
+
+
+def _decode_attention_cpu_impl(q, k, v, lengths, window, softcap, scale):
+    return decode_attention_ref(q, k, v, lengths, window=window, softcap=softcap, scale=scale)
+
+
+def _decode_attention_fake(q, k, v, lengths, window, softcap, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def _ssd_scan_cuda_impl(x, dt, b, c, a, chunk):
+    # The kernel reads the model layout by strides and pads a ragged last
+    # chunk itself.
+    return ssd_scan_cuda(x, dt, b, c, a, chunk=chunk)
+
+
+def _ssd_scan_cpu_impl(x, dt, b, c, a, chunk):
+    y, state = ssd_scan_chunked_ref(x.transpose(1, 2), dt.transpose(1, 2),
+                                    torch.stack([b, c], dim=2), a, chunk=chunk)
+    return y.transpose(1, 2).contiguous(), state
+
+
+def _ssd_scan_fake(x, dt, b, c, a, chunk):
+    bb, _, h, p = x.shape
+    return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+            torch.empty((bb, h, p, b.shape[-1]), dtype=torch.float32, device=x.device))
+
+
+_LIB.impl("decode_attention", _decode_attention_cuda_impl, "CUDA")
+_LIB.impl("decode_attention", _decode_attention_cpu_impl, "CPU")
+_LIB.impl("ssd_scan", _ssd_scan_cuda_impl, "CUDA")
+_LIB.impl("ssd_scan", _ssd_scan_cpu_impl, "CPU")
+torch.library.register_fake("repro_torch::decode_attention", _decode_attention_fake, lib=_LIB)
+torch.library.register_fake("repro_torch::ssd_scan", _ssd_scan_fake, lib=_LIB)
+
+
+def _is_cuda_tensor(t: torch.Tensor) -> bool:
+    """A plain tensor in CUDA memory (not a fake, meta or subclass tensor)."""
+    return type(t) is torch.Tensor and t.is_cuda
+
+
+# ---------------------------------------------------------------------------
+# DTensor rules
+# ---------------------------------------------------------------------------
+
+
+def _sharded_on(p: Placement, dim: int) -> bool:
+    return isinstance(p, Shard) and p.dim == dim
+
+
+def decode_attention_placements(q: DTensor, k: DTensor
+                                ) -> Tuple[List[Placement], List[Placement], List[Placement]]:
+    """(q and output, k and v, lengths) placements, per mesh dimension, on
+    which K1 runs on local shards.  q is [B, Hq, Dh] and k [B, S, Hkv, Dh]:
+    a mesh dimension that shards the batch of either shards all batches; one
+    that shards the heads of either, where both head counts divide, shards
+    both; any other is replicated (a cache sharded along S is gathered)."""
+    mesh = q.device_mesh
+    hq, hkv = q.shape[1], k.shape[2]
+    qp, kp, lp = [], [], []
+    for i, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        n = mesh.size(i)
+        if _sharded_on(pq, 0) or _sharded_on(pk, 0):
+            qp.append(Shard(0)), kp.append(Shard(0)), lp.append(Shard(0))
+        elif (_sharded_on(pq, 1) or _sharded_on(pk, 2)) and hq % n == 0 and hkv % n == 0:
+            qp.append(Shard(1)), kp.append(Shard(2)), lp.append(Replicate())
+        else:
+            qp.append(Replicate()), kp.append(Replicate()), lp.append(Replicate())
+    return qp, kp, lp
+
+
+def ssd_scan_placements(x: DTensor) -> Tuple[List[Placement], ...]:
+    """(x and y, dt, B and C, a, the final state) placements, per mesh
+    dimension, on which K4 runs on local shards.  x is [B, S, H, P], dt
+    [B, S, H], B and C [B, S, ..., N], a [H], the state [B, H, P, N]."""
+    xp, dtp, bcp, ap, sp = [], [], [], [], []
+    for p in x.placements:
+        if _sharded_on(p, 0):
+            plan = (Shard(0), Shard(0), Shard(0), Replicate(), Shard(0))
+        elif _sharded_on(p, 2):
+            plan = (Shard(2), Shard(2), Replicate(), Shard(0), Shard(1))
+        else:
+            plan = (Replicate(),) * 5
+        for out, pl in zip((xp, dtp, bcp, ap, sp), plan):
+            out.append(pl)
+    return xp, dtp, bcp, ap, sp
+
+
+# ---------------------------------------------------------------------------
+# Model-layout entry points
+# ---------------------------------------------------------------------------
 
 
 def decode_attention(
@@ -32,23 +158,30 @@ def decode_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash-decode GQA.  Returns [B, Hq, Dh]."""
+    if isinstance(q, DTensor) or isinstance(k, DTensor):
+        mesh = (q if isinstance(q, DTensor) else k).device_mesh
+        q, k = (t if isinstance(t, DTensor) else from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                                             t.shape) for t in (q, k))
+        qp, kp, lp = decode_attention_placements(q, k)
+        out = decode_attention(to_local_as(q, mesh, qp), to_local_as(k, mesh, kp),
+                               to_local_as(v, mesh, kp), to_local_as(lengths, mesh, lp),
+                               window=window, softcap=softcap, scale=scale)
+        return from_local(out, mesh, qp, q.shape)
     b, hq, dh = q.shape
     hkv = k.shape[2]
     g = hq // hkv
     if g * hkv != hq:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"decode_attention has no path for device {q.device}")
     qg = q.reshape(b, hkv, g, dh)
     # [B, Hkv, S, Dh] views: the kernel reads rows by stride, no copy.
-    kk = k.transpose(1, 2)
-    vv = v.transpose(1, 2)
-    if q.device.type == "cuda":
-        out = decode_attention_cuda(qg, kk, vv, lengths.to(torch.int32),
-                                    window=window, softcap=softcap, scale=scale)
-    elif q.device.type == "cpu":
-        out = decode_attention_ref(qg, kk, vv, lengths, window=window,
-                                   softcap=softcap, scale=scale)
+    args = (qg, k.transpose(1, 2), v.transpose(1, 2), lengths.to(torch.int32), int(window),
+            softcap, scale)
+    if _is_cuda_tensor(q):
+        out = _decode_attention_cuda_impl(*args)
     else:
-        raise ValueError(f"decode_attention has no path for device {q.device}")
+        out = torch.ops.repro_torch.decode_attention(*args)
     return out.reshape(b, hq, dh)
 
 
@@ -67,13 +200,9 @@ def ssd_scan(
     the reference seeds the state, so ``initial_state`` must be None."""
     if initial_state is not None:
         raise NotImplementedError("ssd_scan starts from a zero state")
-    ck = min(chunk, x.shape[1])
-    if x.device.type == "cuda":
-        # The kernel reads the model layout by strides and pads a ragged
-        # last chunk itself.
-        return ssd_scan_cuda(x, dt.float(), bmat, cmat, a.float(), chunk=ck)
-    if x.device.type == "cpu":
-        y, state = ssd_scan_chunked_ref(x.transpose(1, 2), dt.transpose(1, 2),
-                                        torch.stack([bmat, cmat], dim=2), a, chunk=ck)
-        return y.transpose(1, 2), state
-    raise ValueError(f"ssd_scan has no path for device {x.device}")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"ssd_scan has no path for device {x.device}")
+    args = (x, dt.float(), bmat, cmat, a.float(), min(chunk, x.shape[1]))
+    if _is_cuda_tensor(x):
+        return _ssd_scan_cuda_impl(*args)
+    return torch.ops.repro_torch.ssd_scan(*args)

@@ -5,19 +5,28 @@ preemption handling, the straggler governor.
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5 --ckpt-dir ck --resume
   PYTHONPATH=src python -m repro_torch.launch.train --full --steps 6
 
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3 --mesh 1x1
+
 Runs on the card unless ``--device cpu`` (and raises without CUDA).  The
 data loader's state rides in each checkpoint's ``extra``, so a resumed run
 sees the batches a straight run would; SIGTERM (a preemption notice)
 writes a checkpoint and exits.  Checkpoints are the reference's format:
-either framework resumes the other's.  One process on one device; the
-reference's ``mesh`` (elastic restore onto whatever mesh is alive) waits
-for the port's distribution layer.
+either framework resumes the other's.
+
+With a mesh (``Trainer(mesh=...)``, ``--mesh DATAxMODEL`` over the ranks of
+the process group, which one process starts alone), the state is
+distributed per ``TRAIN_RULES`` (FSDP over ``data``, tensor parallelism over
+``model``), a resume restores the newest checkpoint onto this mesh whatever
+mesh wrote it, each global batch from the loader is distributed over the
+batch axes, and the step runs inside ``logical_sharding_context``.  Every
+rank draws the same seed and the same batches and keeps its own shards.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import math
 import signal
 import sys
@@ -25,6 +34,7 @@ import time
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.configs import get_arch
@@ -32,10 +42,24 @@ from repro_torch.core.controller import StragglerGovernor
 from repro_torch.core.substrate import ControlLoop, StepTimingSubstrate
 from repro_torch.data.pipeline import HostDataLoader, SyntheticTokenDataset
 from repro_torch.device import resolve_device
+from repro_torch.distributed.autosharding import distribute_local, logical_sharding_context
+from repro_torch.distributed.sharding import (
+    TRAIN_RULES,
+    partition_spec_for,
+    placements_for,
+    tree_placements,
+)
+from repro_torch.launch.mesh import make_host_mesh, parse_mesh
 from repro_torch.models.transformer import TransformerLM
-from repro_torch.optim.adamw import AdamW
+from repro_torch.optim.adamw import AdamW, local_shard
 from repro_torch.optim.schedule import warmup_cosine
-from repro_torch.train.step import TrainState, init_train_state, make_train_step
+from repro_torch.pytree import tree_map
+from repro_torch.train.step import (
+    TrainState,
+    init_train_state,
+    make_train_step,
+    train_state_axes,
+)
 
 
 class Trainer:
@@ -55,8 +79,11 @@ class Trainer:
         total_steps: int = 1000,
         config_override=None,
         device=None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = TRAIN_RULES
         spec = get_arch(arch_id)
         self.cfg = config_override or (spec.smoke if smoke else spec.config)
         self.model = TransformerLM(self.cfg, remat=remat)
@@ -96,10 +123,18 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(0)
         state = init_train_state(self.model, self.opt, gen, self.device,
                                  grad_compression=self.grad_compression)
+        placements = None
+        if self.mesh is not None:
+            axes = train_state_axes(self.model, self.opt,
+                                    grad_compression=self.grad_compression)
+            placements = tree_map(lambda pl: (self.mesh, pl),
+                                  tree_placements(self.mesh, state, axes, self.rules))
+            state = tree_map(lambda leaf, mp: distribute_local(leaf, *mp), state, placements)
         if resume and self.ckpt is not None:
-            step, restored, extra = self.ckpt.restore_latest(state)
+            step, restored, extra = self.ckpt.restore_latest(state, placements=placements)
             if step is not None:
-                print(f"[train] resumed from step {step}")
+                where = f" (elastic onto {tuple(self.mesh.shape)})" if self.mesh else ""
+                print(f"[train] resumed from step {step}{where}")
                 if extra and "loader" in extra:
                     self.loader.load_state_dict(extra["loader"])
                 return restored
@@ -113,15 +148,33 @@ class Trainer:
 
         signal.signal(signal.SIGTERM, handler)
 
+    def _batch(self, array) -> torch.Tensor:
+        """A global batch from the loader on the device, distributed over the
+        batch axes on a mesh."""
+        t = torch.from_numpy(array).to(self.device)
+        if self.mesh is None:
+            return t
+        spec = partition_spec_for(("batch", "seq"), t.shape, self.mesh, self.rules)
+        return distribute_local(t, self.mesh, placements_for(spec, self.mesh))
+
+    def step(self, state: TrainState, tokens, labels):
+        """One train step on a global batch (numpy arrays from the loader):
+        (state, metrics)."""
+        ctx = (logical_sharding_context(self.mesh, self.rules) if self.mesh is not None
+               else contextlib.nullcontext())
+        with ctx:
+            state, metrics = self.step_fn(state, self._batch(tokens), self._batch(labels))
+        return state, {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
+
     def train(self, steps: int, *, resume: bool = False, log_every: int = 1) -> TrainState:
         self.install_preemption_handler()
         state = self.init_or_resume(resume)
-        start_step = int(state.opt.step)
+        start_step = int(local_shard(state.opt.step))
         for step in range(start_step, steps):
             t0 = time.time()
             tokens, labels = next(self.loader)
-            state, metrics = self.step_fn(state, torch.from_numpy(tokens).to(self.device),
-                                          torch.from_numpy(labels).to(self.device))
+            state, metrics = self.step(state, tokens, labels)
             loss = float(metrics["loss"])
             dt = time.time() - t0
             # Straggler governor window: this host's step service time, then
@@ -160,12 +213,17 @@ def main() -> None:
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--remat", default="none")
     ap.add_argument("--device", default=None, help="cpu for the plain path (default: the card)")
+    ap.add_argument("--mesh", default=None, help="DATAxMODEL over the process group's ranks")
     args = ap.parse_args()
+    mesh = None
+    if args.mesh:
+        data, model = parse_mesh(args.mesh)
+        mesh = make_host_mesh(data=data, model=model, device=args.device)
     trainer = Trainer(
         args.arch, smoke=args.smoke, global_batch=args.global_batch, seq_len=args.seq_len,
         microbatches=args.microbatches, ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         grad_compression=args.grad_compression, remat=args.remat, total_steps=args.steps,
-        device=args.device,
+        device=args.device, mesh=mesh,
     )
     trainer.train(args.steps, resume=args.resume)
 

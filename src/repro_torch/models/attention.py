@@ -16,6 +16,11 @@ per-layer windows (gemma2's local layers, SWA), logit soft-capping
 * ``attend_cross`` — attention against the encoder memory's K/V, unmasked
   and without RoPE: plain tensors for a prompt, the flash-decode kernel for
   one decode token (every memory row valid).
+
+A cache that is a DTensor is written on each device's shard
+(:func:`write_cache_prefix`, :func:`write_cache_token`): the new rows
+follow the cache's batch and head placements, and each device keeps the
+part of them that falls in its range of the sequence.
 """
 
 from __future__ import annotations
@@ -24,8 +29,11 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.autosharding import from_local, pin_grad, to_local_as
+from repro_torch.distributed.sharding import local_shape_and_offset
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, apply_rope, dense_init, rmsnorm
 
@@ -66,9 +74,31 @@ def attention_init(
     return params
 
 
+def _whole_heads(w: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """A meshed weight whose head dimension (``head_dim``) is sharded, the
+    rules' fallback for a head count that a mesh dimension does not divide,
+    gathered along it: the products split their columns into whole heads."""
+    if isinstance(w, DTensor) and any(isinstance(p, Shard) and p.dim == head_dim
+                                      for p in w.placements):
+        return w.redistribute(w.device_mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == head_dim else p
+            for p in w.placements])
+    return w
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[B, S, D] x [D, H, K] -> [B, S, H, K]."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    """[B, S, D] x [D, H, K] -> [B, S, H, K].  Meshed with a head count
+    that a mesh dimension does not divide, the weight's head dimension and
+    the product's flat H x K columns are gathered on it before the columns
+    split into heads, and so is the gradient on the way back."""
+    w2 = _whole_heads(w, w.ndim - 1).reshape(w.shape[0], -1)
+    if not isinstance(w2, DTensor) or all(w.shape[1] % n == 0 for n in w2.device_mesh.shape):
+        return (x @ w2).reshape(*x.shape[:-1], *w.shape[1:])
+    mesh = w2.device_mesh
+    y = x @ pin_grad(w2)
+    y = y.redistribute(mesh, [Replicate() if isinstance(p, Shard) and p.dim == y.ndim - 1
+                              else p for p in y.placements])
+    return pin_grad(y.reshape(*x.shape[:-1], *w.shape[1:]))
 
 
 def project_qkv(
@@ -84,9 +114,9 @@ def project_qkv(
     k = _project(x, params["wk"])
     v = _project(x, params["wv"])
     if "bq" in params:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
+        q = q + _whole_heads(params["bq"], 1)
+        k = k + _whole_heads(params["bk"], 1)
+        v = v + _whole_heads(params["bv"], 1)
     if "q_norm" in params:
         q = rmsnorm(q, params["q_norm"])
         k = rmsnorm(k, params["k_norm"])
@@ -117,7 +147,12 @@ def _grouped_values(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def _out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """[B, S, Hq, Dh] x [Hq, Dh, D] -> [B, S, D]."""
-    return out.reshape(*out.shape[:2], -1) @ wo.reshape(-1, wo.shape[-1])
+    flat = out.reshape(*out.shape[:2], -1)
+    wo2 = _whole_heads(wo, 1).reshape(-1, wo.shape[-1])
+    if isinstance(flat, DTensor) and any(wo.shape[0] % n for n in flat.device_mesh.shape):
+        # The gradients must split back into whole heads.
+        flat, wo2 = pin_grad(flat), pin_grad(wo2)
+    return flat @ wo2
 
 
 def _attention_core(
@@ -148,6 +183,35 @@ def _attention_core(
                                                              device=scores.device))
     probs = torch.softmax(scores.float(), dim=-1).to(dtype)
     return _grouped_values(probs, v)
+
+
+def _on_shards(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               *rows: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v, *rows)`` -> [B, S, Hq, Dh] (q [B, S, Hq, Dh], k/v
+    [B, T, Hkv, Dh], ``rows`` [B, ...] such as positions), meshed on each
+    device's shards: batch rows and whole groups of
+    query heads with their KV heads are independent, so a mesh dimension
+    that shards either's batch shards all three, one that shards heads (and
+    divides both head counts) shards all three's heads, and any other is
+    gathered.  Local gradients are then exact on every shard."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, *rows)
+    mesh = q.device_mesh
+    hq, hkv = q.shape[2], k.shape[2]
+    k_pl = k.placements if isinstance(k, DTensor) else [Replicate()] * mesh.ndim
+    pl = []
+    for i, (pq, pk) in enumerate(zip(q.placements, k_pl)):
+        n = mesh.size(i)
+        if Shard(0) in (pq, pk):
+            pl.append(Shard(0))
+        elif Shard(2) in (pq, pk) and hq % n == 0 and hkv % n == 0:
+            pl.append(Shard(2))
+        else:
+            pl.append(Replicate())
+    row_pl = [p if p == Shard(0) else Replicate() for p in pl]
+    out = fn(*(to_local_as(t, mesh, pl, pl) for t in (q, k, v)),
+             *(to_local_as(r, mesh, row_pl) for r in rows))
+    return from_local(out, mesh, pl, (*q.shape[:3], v.shape[3]))
 
 
 def _blocked(core, q: torch.Tensor, q_block: int, *args) -> torch.Tensor:
@@ -189,11 +253,14 @@ def attend_full(
     scale = query_scale if query_scale is not None else dh**-0.5
     q = q * scale
 
-    def core(qc, pc):
-        return _attention_core(qc, k, v, pc, positions, window=window,
-                               softcap_value=softcap_value, causal=causal, dtype=x.dtype)
+    def attend(q, k, v, pos):
+        def core(qc, pc):
+            return _attention_core(qc, k, v, pc, pos, window=window,
+                                   softcap_value=softcap_value, causal=causal, dtype=x.dtype)
 
-    return _out_project(_blocked(core, q, q_block, positions), params["wo"])
+        return _blocked(core, q, q_block, pos)
+
+    return _out_project(_on_shards(attend, q, k, v, positions), params["wo"])
 
 
 def attend_cross(
@@ -219,11 +286,14 @@ def attend_cross(
         return _out_project(out[:, None].to(x.dtype), params["wo"])
     q = q * dh**-0.5
 
-    def core(qc):
-        probs = torch.softmax(_grouped_scores(qc, memory_k).float(), dim=-1).to(x.dtype)
-        return _grouped_values(probs, memory_v)
+    def attend(q, k, v):
+        def core(qc):
+            probs = torch.softmax(_grouped_scores(qc, k).float(), dim=-1).to(x.dtype)
+            return _grouped_values(probs, v)
 
-    return _out_project(_blocked(core, q, q_block or Q_BLOCK), params["wo"])
+        return _blocked(core, q, q_block or Q_BLOCK)
+
+    return _out_project(_on_shards(attend, q, memory_k, memory_v), params["wo"])
 
 
 def project_memory_kv(params: Params, memory: torch.Tensor
@@ -247,6 +317,46 @@ def init_kv_cache(
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _cache_local(cache: DTensor, new: torch.Tensor, new_dims: Tuple[Optional[int], ...]):
+    """(this device's shard of ``cache`` [B, S, H, D], its offset along S,
+    ``new``'s shard laid out like it): ``new_dims[d]`` is the dimension of
+    ``new`` that cache dimension ``d`` shards, or None (S)."""
+    mesh = cache.device_mesh
+    placements = [Shard(new_dims[p.dim]) if isinstance(p, Shard) and new_dims[p.dim] is not None
+                  else Replicate() for p in cache.placements]
+    _, offset = local_shape_and_offset(cache.shape, mesh, cache.placements)
+    return cache.to_local(), offset[1], to_local_as(new, mesh, placements)
+
+
+def write_cache_prefix(cache: torch.Tensor, new: torch.Tensor) -> None:
+    """cache[:, :s] = new ([B, s, H, D]), in place."""
+    s = new.shape[1]
+    if not isinstance(cache, DTensor):
+        cache[:, :s] = new.to(cache.dtype)
+        return
+    local, lo, new_l = _cache_local(cache, new, (0, None, 2, 3))
+    a, b = max(lo, 0), min(lo + local.shape[1], s)
+    if a < b:
+        local[:, a - lo:b - lo] = new_l[:, a:b].to(local.dtype)
+
+
+def write_cache_token(cache: torch.Tensor, idx: torch.Tensor, new: torch.Tensor) -> None:
+    """cache[r, idx[r]] = new[r] for every row r (new [B, H, D]), in place."""
+    if not isinstance(cache, DTensor):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, idx] = new.to(cache.dtype)
+        return
+    local, lo, new_l = _cache_local(cache, new, (0, None, 1, 2))
+    idx_l = to_local_as(idx, cache.device_mesh, [
+        Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+        for p in cache.placements])
+    pos = idx_l - lo
+    mine = (pos >= 0) & (pos < local.shape[1])
+    pos = pos.clamp(0, local.shape[1] - 1)
+    rows = torch.arange(local.shape[0], device=local.device)
+    local[rows, pos] = torch.where(mine[:, None, None], new_l.to(local.dtype), local[rows, pos])
+
+
 def attend_cached(
     params: Params,
     x: torch.Tensor,
@@ -261,7 +371,6 @@ def attend_cached(
     """One-token decode.  x: [B, 1, D]; cache k/v: [B, S_max, Hkv, Dh],
     updated in place; ``length`` [B] = tokens already in the cache (the new
     token lands at index ``length``).  Returns [B, 1, D]."""
-    b = x.shape[0]
     s_max = cache["k"].shape[1]
     positions = length[:, None]  # [B,1]
     q, k_new, v_new = project_qkv(params, x, positions, rope_theta=rope_theta)
@@ -269,9 +378,8 @@ def attend_cached(
     # write stays inside the cache: a slot that idles past max_len keeps
     # overwriting the last row.
     idx = length.clamp(max=s_max - 1).long()
-    rows = torch.arange(b, device=x.device)
-    cache["k"][rows, idx] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, idx] = v_new[:, 0].to(cache["v"].dtype)
+    write_cache_token(cache["k"], idx, k_new[:, 0])
+    write_cache_token(cache["v"], idx, v_new[:, 0])
     dh = q.shape[-1]
     scale = query_scale if query_scale is not None else dh**-0.5
     # The kernel counts valid tokens (mask pos < lengths); the new token

@@ -11,6 +11,10 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.distributed.autosharding import from_local, to_local_as
+from repro_torch.distributed.sharding import local_shape_and_offset
 
 Params = Dict[str, Any]
 
@@ -123,7 +127,33 @@ def mlp_apply(params: Params, x: torch.Tensor, activation: str = "silu") -> torc
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, table)
+    """Rows of ``table`` [V, D] at ``tokens``.  A meshed table looks up on
+    each device's shard: a mesh dimension that shards the vocabulary gives
+    each device the rows it holds (zero elsewhere), summed across it; one
+    that shards the batch of tokens keeps it; the table is gathered on any
+    other (its FSDP shards)."""
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = from_local(tokens, mesh, [Replicate()] * mesh.ndim, tokens.shape)
+    tp, ip, op, tg = [], [], [], []
+    for pt, pi in zip(table.placements, tokens.placements):
+        if isinstance(pt, Shard) and pt.dim == 0:
+            plan = (Shard(0), Replicate(), Partial(), Shard(0))
+        elif isinstance(pi, Shard) and pi.dim == 0:
+            plan = (Replicate(), Shard(0), Shard(0), Partial())
+        else:
+            plan = (Replicate(),) * 4
+        for out, pl in zip((tp, ip, op, tg), plan):
+            out.append(pl)
+    local = to_local_as(table, mesh, tp, tg)
+    _, offset = local_shape_and_offset(table.shape, mesh, tp)
+    ids = to_local_as(tokens, mesh, ip) - offset[0]
+    mine = (ids >= 0) & (ids < local.shape[0])
+    rows = F.embedding(ids.clamp(0, local.shape[0] - 1), local)
+    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype))
+    return from_local(rows, mesh, op, (*tokens.shape, table.shape[1]))
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

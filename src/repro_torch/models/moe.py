@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN with sort-based token dispatch (port of
-``repro/models/moe.py``'s single-shard path, ``_moe_apply_local`` at one
-shard).
+``repro/models/moe.py``'s ``_moe_apply_local``: at one shard, and on a mesh
+per batch shard, as the reference runs it under a mesh).
 
 Covers dbrx (16 experts, top-4) and llama4-maverick (128 experts, top-1,
 plus a shared expert).  The dispatch is the reference's sort/gather/scatter
@@ -30,8 +30,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.distributed.autosharding import BATCH_AXES, from_local, to_local_as
 
 from repro_torch.models.layers import Params, dense_init
+from repro_torch.pytree import tree_map
 
 
 def moe_shapes(d_model: int, d_ff: int, n_experts: int, stacked: Optional[int] = None,
@@ -53,6 +57,16 @@ def moe_shapes(d_model: int, d_ff: int, n_experts: int, stacked: Optional[int] =
             "w_down": lead + (shared_expert_ff, d_model),
         }
     return shapes
+
+
+#: Logical axes of the MoE leaves (after the stacked ``layers`` axis); the
+#: shared expert's leaves are an MLP's.
+MOE_AXES = {
+    "router": ("embed", "experts_r"),
+    "w_gate": ("experts", "embed", "ffn"),
+    "w_up": ("experts", "embed", "ffn"),
+    "w_down": ("experts", "ffn", "embed"),
+}
 
 
 def moe_init(d_model: int, d_ff: int, n_experts: int, dtype: torch.dtype,
@@ -105,12 +119,91 @@ def _act(x: torch.Tensor, activation: str) -> torch.Tensor:
     return F.silu(x) if activation == "silu" else F.gelu(x, approximate="tanh")
 
 
+def _expert_ffn(xe: torch.Tensor, params: Params, activation: str) -> torch.Tensor:
+    """[E, C, D] -> [E, C, D]: each expert's gated FFN on its buffer."""
+    g = torch.bmm(xe, params["w_gate"])
+    u = torch.bmm(xe, params["w_up"])
+    return torch.bmm(_act(g, activation) * u, params["w_down"])
+
+
 def moe_apply(params: Params, x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, activation: str = "silu"
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (out [B, S, D], the Switch load-balance aux loss, a
     scalar f32).  All B x S tokens of the call share each expert's
     capacity."""
+    if isinstance(x, DTensor):
+        return _moe_apply_meshed(params, x, top_k=top_k, capacity_factor=capacity_factor,
+                                 activation=activation)
+    return _moe_apply(params, x, top_k=top_k, capacity_factor=capacity_factor,
+                      activation=activation)
+
+
+def _moe_apply_meshed(params: Params, x: DTensor, *, top_k: int, capacity_factor: float,
+                      activation: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE layer on a mesh, as the reference's ``_moe_apply_local``
+    runs under a mesh: the tokens are viewed as NS shards along the batch
+    axes (NS = their size when it divides the batch, else 1), and each
+    shard routes, ranks and dispatches its own tokens with a capacity of
+    its own, on the devices that hold its rows; the load-balance statistics
+    are averaged over the shards, so the aux loss is the whole call's.  The
+    experts' FFNs run where the experts live (the expert weights' mesh
+    dimensions, each device its experts' rows of the dispatch buffer; every
+    other dimension of the weights gathered), and their outputs are gathered
+    back before the combine.  The sort, rank and scatter have no DTensor
+    strategy, so each device runs them on its plain local tokens."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    rep = [Replicate()] * mesh.ndim
+    ns = 1
+    for i, name in enumerate(names):
+        if name in BATCH_AXES:
+            ns *= mesh.size(i)
+    sharded = ns > 1 and x.shape[0] % ns == 0
+    if not sharded:
+        ns = 1
+    rows = [Shard(0) if sharded and n in BATCH_AXES else Replicate() for n in names]
+    # Local gradients of weights every device of a row shard uses are partial
+    # sums over the row shards.
+    partial = [Partial() if isinstance(r, Shard) else Replicate() for r in rows]
+    ep = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in params["w_gate"].placements]
+    ep_grad = [p if isinstance(p, Shard) else g for p, g in zip(ep, partial)]
+    local = {k: (tree_map(lambda t: to_local_as(t, mesh, rep, partial), v) if k == "shared"
+                 else to_local_as(v, mesh, ep, ep_grad) if k.startswith("w_")
+                 else to_local_as(v, mesh, rep, partial)) for k, v in params.items()}
+    e = params["router"].shape[-1]
+    expert_dims = [n for n, p in zip(names, ep) if isinstance(p, Shard)]
+    sub = mesh[tuple(expert_dims)] if expert_dims else None
+
+    def experts(xe, _params, act):
+        # This shard's [E, C, D] -> its experts' rows -> every expert's.
+        if sub is None:
+            return _expert_ffn(xe, local, act)
+        sub_rep, sub_ep = [Replicate()] * sub.ndim, [Shard(0)] * sub.ndim
+        mine = to_local_as(from_local(xe, sub, sub_rep, xe.shape), sub, sub_ep)
+        y = _expert_ffn(mine, local, act)
+        return to_local_as(from_local(y, sub, sub_ep, (e, *y.shape[1:])), sub, sub_rep)
+
+    def balance(me, assign):
+        if ns > 1:  # the mean over the row shards
+            me, assign = (to_local_as(from_local(v / ns, mesh, partial, v.shape), mesh, rep)
+                          for v in (me, assign))
+        return e * torch.sum(me * assign)
+
+    out, aux = _moe_apply(local, to_local_as(x, mesh, rows, rows), top_k=top_k,
+                          capacity_factor=capacity_factor, activation=activation,
+                          experts=experts, balance=balance)
+    return from_local(out, mesh, rows, x.shape), from_local(aux, mesh, rep, ())
+
+
+def _balance(me: torch.Tensor, assign: torch.Tensor) -> torch.Tensor:
+    return me.shape[0] * torch.sum(me * assign)
+
+
+def _moe_apply(params: Params, x: torch.Tensor, *, top_k: int, capacity_factor: float,
+               activation: str, experts=_expert_ffn, balance=_balance
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, d = x.shape
     e = params["router"].shape[-1]
     t = b * s
@@ -122,7 +215,7 @@ def moe_apply(params: Params, x: torch.Tensor, *, top_k: int,
     flat_idx = top_idx.reshape(-1)
     assign_mean = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
         0, flat_idx, torch.full(flat_idx.shape, 1.0 / (t * top_k), device=x.device))
-    aux = e * torch.sum(me * assign_mean)
+    aux = balance(me, assign_mean)
 
     cap = capacity(t, top_k, e, capacity_factor)
     sort_idx, _, slot, keep = dispatch(top_idx, e, cap)
@@ -134,9 +227,7 @@ def moe_apply(params: Params, x: torch.Tensor, *, top_k: int,
     buf[torch.where(keep, slot, e * cap)] = xf[token_of]
     xe = buf[:e * cap].view(e, cap, d)
 
-    g = torch.bmm(xe, params["w_gate"])
-    u = torch.bmm(xe, params["w_up"])
-    y = torch.bmm(_act(g, activation) * u, params["w_down"]).view(e * cap, d)
+    y = experts(xe, params, activation).view(e * cap, d)
 
     # Combine: each request's gated output back at its flat position, then
     # the sum over the k choices of each token.

@@ -23,7 +23,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.distributed.autosharding import constrain, from_local, to_local_as
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, dense_init, rmsnorm
 
@@ -65,6 +67,19 @@ def ssm_shapes(d_model: int, dims: Dict[str, int], stacked: int) -> Dict:
     }
 
 
+#: Logical axes of the SSM leaves (after the stacked ``layers`` axis).
+SSM_AXES = {
+    "in_proj": ("embed", "ssm_proj"),
+    "conv_w": ("conv", "ssm_conv_dim"),
+    "conv_b": ("ssm_conv_dim",),
+    "A_log": ("ssm_heads",),
+    "D": ("ssm_heads",),
+    "dt_bias": ("ssm_heads",),
+    "norm": ("ssm_inner",),
+    "out_proj": ("ssm_inner", "embed"),
+}
+
+
 def ssm_init(d_model: int, dims: Dict[str, int], dtype: torch.dtype,
              generator: torch.Generator, device: torch.device, *,
              stacked: int) -> Params:
@@ -93,7 +108,26 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     """x: [B, S, C]; w: [K, C] depthwise causal conv along S (no flip, as
     the reference's ``conv_general_dilated``).  The result is laid out
     [B, S, C] in memory, so the scan kernel reads its x, B and C views with
-    contiguous rows."""
+    contiguous rows.  Meshed, it runs on each device's shards: channels
+    where the weight shards them, batch rows where x shards them (the
+    weight's and bias's local gradients are then partial sums)."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        xp, wp, bp, wg = [], [], [], []
+        for px, pw in zip(x.placements, w.placements):
+            if isinstance(pw, Shard) and pw.dim == 1:
+                plan = (Shard(2), Shard(1), Shard(0), Shard(1))
+            elif isinstance(px, Shard) and px.dim == 0:
+                plan = (Shard(0), Replicate(), Replicate(), Partial())
+            else:
+                plan = (Replicate(),) * 4
+            for out, pl in zip((xp, wp, bp, wg), plan):
+                out.append(pl)
+        bg = [Shard(0) if isinstance(g, Shard) else g for g in wg]
+        out = _causal_depthwise_conv(to_local_as(x, mesh, xp, xp),
+                                     to_local_as(w, mesh, wp, wg),
+                                     to_local_as(b, mesh, bp, bg))
+        return from_local(out, mesh, xp, x.shape)
     k, c = w.shape
     pad = F.pad(x.transpose(1, 2), (k - 1, 0))  # [B, C, S + K - 1]
     out = F.conv1d(pad, w.t()[:, None, :], groups=c)  # [B, C, S]
@@ -236,9 +270,31 @@ def ssd(xs: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor, dt: torch.Tens
     on CPU tensors, through :class:`SSDScan` when an input requires grad.
     The kernel takes one group (G = 1); no ported configuration has more,
     so G > 1 on CUDA raises."""
+    if isinstance(xs, DTensor):
+        return _ssd_local(xs, bmat, cmat, dt, a, chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xs, bmat, cmat, dt, a)):
         return SSDScan.apply(xs, bmat, cmat, dt, a, chunk)
     return _scan(xs, bmat, cmat, dt, a, chunk)
+
+
+def _ssd_local(xs: DTensor, bmat, cmat, dt, a, chunk: int):
+    """The scan of DTensors on each device's shards (K4's placements,
+    :func:`repro_torch.kernels.ops.ssd_scan_placements`), differentiable:
+    on a mesh dimension that shards the heads, B's and C's local gradients
+    are partial sums over the local heads; on one that shards the batch,
+    ``a``'s are partial sums over the local rows."""
+    mesh = xs.device_mesh
+    xp, dtp, bcp, ap, sp = ops.ssd_scan_placements(xs)
+    heads = [isinstance(p, Shard) and p.dim == 2 for p in xp]
+    rows = [isinstance(p, Shard) and p.dim == 0 for p in xp]
+    bc_grad = [Partial() if h else p for h, p in zip(heads, bcp)]
+    a_grad = [Partial() if r else p for r, p in zip(rows, ap)]
+    y, state = ssd(to_local_as(xs, mesh, xp, xp), to_local_as(bmat, mesh, bcp, bc_grad),
+                   to_local_as(cmat, mesh, bcp, bc_grad), to_local_as(dt, mesh, dtp, dtp),
+                   to_local_as(a, mesh, ap, a_grad), chunk=chunk)
+    b, _, h, p = xs.shape
+    return (from_local(y, mesh, xp, xs.shape),
+            from_local(state, mesh, sp, (b, h, p, bmat.shape[-1])))
 
 
 def ssm_branch(params: Params, x: torch.Tensor, dims: Dict[str, int], *, chunk: int
@@ -250,6 +306,10 @@ def ssm_branch(params: Params, x: torch.Tensor, dims: Dict[str, int], *, chunk: 
     z, xbc, dt_raw = _split_proj(params, x, dims)
     xbc_c = F.silu(_causal_depthwise_conv(xbc, params["conv_w"], params["conv_b"]))
     xs, bmat, cmat, dt, a = _prep_inputs(params, xbc_c, dt_raw, dims)
+    # Meshed, the scan's heads shard as their weights do (the slices above
+    # come out gathered), so no device scans heads it does not hold.
+    xs = constrain(xs, ("batch", "seq", "ssm_heads", "ssm_head_dim"))
+    dt = constrain(dt, ("batch", "seq", "ssm_heads"))
     y, hfinal = ssd(xs, bmat, cmat, dt, a, chunk=chunk)
     y = y.reshape(b, s, dims["d_inner"])
     y = y + (params["D"].repeat_interleave(dims["head_dim"])

@@ -22,6 +22,14 @@ unbinds each stacked leaf once (its backward is one ``stack``, where one
 ``select`` a layer would add a zero tensor of the whole leaf per layer),
 and ``remat`` checkpoints each layer's body: "full" saves only its input,
 "dots" also the outputs of its matrix products (XLA's ``checkpoint_dots``).
+
+On a mesh the parameters and the decode state are DTensors
+(``distributed/``) and the model runs inside a
+``logical_sharding_context``: the residual stream is constrained to
+``ACT`` where blocks meet and where each sublayer's output rejoins it (as
+the reference constrains its block boundaries), and each layer's FSDP
+shards are gathered before it runs.  :meth:`TransformerLM.param_axes` and
+:meth:`TransformerLM.decode_state_axes` give every leaf's logical axes.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.autosharding import constrain, gather_fsdp
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -52,6 +61,7 @@ from repro_torch.models.layers import (
     softcap,
     unembed,
 )
+from repro_torch.pytree import tree_map
 
 FULL_WINDOW = 1 << 30  # "window" larger than any sequence = dense attention
 #: Activation-checkpointing policies of a layer's body under autograd.
@@ -61,6 +71,8 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.a
 #: Per-layer window patterns: all full; all sliding; gemma2's local (even)
 #: and global (odd) layers; hymba's full first, middle and last layers.
 WINDOW_PATTERNS = ("full", "swa", "gemma2", "hymba")
+#: Logical axes of the residual stream [B, S, D], where meshed blocks meet.
+ACT = ("batch", "seq", "embed_act")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,6 +262,43 @@ def param_shapes(cfg: ModelConfig) -> Dict:
     return leaves(_shapes(cfg))
 
 
+#: Logical axes of one attention tree's leaves and of an MLP's (after the
+#: stacked ``layers`` axis).
+ATTN_AXES = {
+    "wq": ("embed", "q_heads", "head_dim"),
+    "wk": ("embed", "kv_heads", "head_dim"),
+    "wv": ("embed", "kv_heads", "head_dim"),
+    "wo": ("q_heads", "head_dim", "embed"),
+    "bq": ("q_heads", "head_dim"),
+    "bk": ("kv_heads", "head_dim"),
+    "bv": ("kv_heads", "head_dim"),
+    "q_norm": ("head_dim",),
+    "k_norm": ("head_dim",),
+}
+MLP_AXES = {"w_gate": ("embed", "ffn"), "w_up": ("embed", "ffn"), "w_down": ("ffn", "embed")}
+_SUBTREE_AXES = {"attn": ATTN_AXES, "cross": ATTN_AXES, "mlp": MLP_AXES, "shared": MLP_AXES,
+                 "moe": moe_lib.MOE_AXES, "ssm": ssm_lib.SSM_AXES}
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The parameters' logical axes (the reference's ``param_axes``): a
+    tuple of axis names per leaf, in :func:`param_shapes`' structure.  A
+    stacked leaf leads with ``layers``; a layer's norms are ``embed``, as
+    are the final norms; the embedding and the LM head ``(vocab, embed)``."""
+    def walk(tree, parent, stacked):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, k, stacked or k in ("layers", "enc_layers"))
+            else:
+                ax = _SUBTREE_AXES.get(parent, {}).get(k) or (
+                    ("vocab", "embed") if k in ("embed", "lm_head") else ("embed",))
+                out[k] = ("layers",) + ax if stacked else ax
+        return out
+
+    return walk(_shapes(cfg), None, False)
+
+
 def _attn_shapes(cfg: ModelConfig, L: int, *, extras: bool = True) -> Dict:
     """One stacked attention tree; ``extras``: the config's QKV biases and
     QK-norm (the cross-attention has neither)."""
@@ -372,6 +421,22 @@ class TransformerLM:
         return checkpoint(body, *args, use_reentrant=False, context_fn=functools.partial(
             create_selective_checkpoint_contexts, _dots_policy))
 
+    def param_axes(self) -> Dict:
+        return param_axes(self.cfg)
+
+    def decode_state_axes(self) -> DecodeState:
+        """The decode state's logical axes, in :class:`DecodeState`'s
+        structure (the reference's ``decode_state_axes``)."""
+        cfg = self.cfg
+        kv_ax = {"k": ("layers", "batch", "kv_seq", "cache_heads", "cache_dim"),
+                 "v": ("layers", "batch", "kv_seq", "cache_heads", "cache_dim")}
+        ssm_ax = {"h": ("layers", "batch", "ssm_heads", "ssm_head_dim", "ssm_state"),
+                  "conv": ("layers", "batch", "conv", "ssm_conv_dim")}
+        return DecodeState(kv=kv_ax if cfg.uses_attention else None,
+                           ssm=ssm_ax if cfg.uses_ssm else None,
+                           cross_kv=kv_ax if cfg.n_encoder_layers else None,
+                           length=("batch",))
+
     # ------------------------------------------------------------------ init
     def _sublayer_init(self, L: int, generator: torch.Generator, dev: torch.device, *,
                        use_attn: bool, use_ssm: bool, cross: bool, ffn: Optional[str],
@@ -451,7 +516,7 @@ class TransformerLM:
                 raise ValueError(f"{cfg.name}: a prompt of {tokens.shape[1]} tokens cannot "
                                  f"hold {n} patch embeddings")
             x = torch.cat([frontend_embeds.to(x.dtype), x[:, n:]], dim=1)
-        return x
+        return constrain(x, ACT)
 
     def _norm(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         """The residual stream's norm: RMSNorm or LayerNorm (``cfg.norm``)."""
@@ -471,17 +536,18 @@ class TransformerLM:
             m, aux = moe_lib.moe_apply(layer["moe"], h, top_k=cfg.top_k,
                                        capacity_factor=cfg.capacity_factor,
                                        activation=cfg.activation)
-            return x + m, aux
+            return x + constrain(m, ACT), aux
         if "mlp" not in layer:
             return x, None
         h = self._norm(x, layer["pre_mlp_norm"])
-        m = mlp_apply(layer["mlp"], h, activation=cfg.activation)
+        m = constrain(mlp_apply(layer["mlp"], h, activation=cfg.activation), ACT)
         if cfg.use_post_norms:
             m = self._norm(m, layer["post_mlp_norm"])
         return x + m, None
 
     def _attn_out(self, layer: Params, a: torch.Tensor) -> torch.Tensor:
         """The attention sub-block's output before the residual add."""
+        a = constrain(a, ACT)
         if self.cfg.use_post_norms:
             return self._norm(a, layer["post_attn_norm"])
         return a
@@ -489,7 +555,7 @@ class TransformerLM:
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         table = params["embed"] if cfg.tied_embeddings else params["lm_head"]
-        logits = unembed(x, table)
+        logits = unembed(x, gather_fsdp(table))
         if cfg.final_softcap:
             logits = softcap(logits, cfg.final_softcap)
         return logits
@@ -507,9 +573,11 @@ class TransformerLM:
         positions = torch.arange(t, device=frames.device)[None, :].expand(b, t)
         x = frames.to(cfg.dtype)
         for layer in _unstack(params["enc_layers"], cfg.n_encoder_layers):
+            x = constrain(x, ACT)
+            layer = tree_map(gather_fsdp, layer)
             h = self._norm(x, layer["pre_attn_norm"])
-            x = x + attn.attend_full(layer["attn"], h, positions, rope_theta=None,
-                                     window=FULL_WINDOW, causal=False)
+            x = x + constrain(attn.attend_full(layer["attn"], h, positions, rope_theta=None,
+                                               window=FULL_WINDOW, causal=False), ACT)
             x, _ = self._ffn(layer, x)
         return self._norm(x, params["enc_final_norm"])
 
@@ -527,7 +595,8 @@ class TransformerLM:
                              "embeddings (frontend_embeds)")
         enc = self.encode(params, frontend_embeds)
         layers = layers or _decoder_layers(cfg, params["layers"])
-        kv = [attn.project_memory_kv(layer["cross"], enc) for layer in layers]
+        kv = [attn.project_memory_kv(tree_map(gather_fsdp, layer["cross"]), enc)
+              for layer in layers]
         return {"k": torch.stack([k for k, _ in kv]), "v": torch.stack([v for _, v in kv])}
 
     def _cross(self, layer: Params, x: torch.Tensor, memory, i: int) -> torch.Tensor:
@@ -536,7 +605,8 @@ class TransformerLM:
         if memory is None:
             return x
         h = self._norm(x, layer["pre_cross_norm"])
-        return x + attn.attend_cross(layer["cross"], h, memory["k"][i], memory["v"][i])
+        return x + constrain(attn.attend_cross(layer["cross"], h, memory["k"][i],
+                                               memory["v"][i]), ACT)
 
     def _block(self, layer: Params, x: torch.Tensor, positions: torch.Tensor, window: int,
                i: int, kv: Optional[Dict[str, torch.Tensor]],
@@ -547,13 +617,15 @@ class TransformerLM:
         loss or None).  Writes its K/V prefix into ``kv`` and its SSM
         branch's final scan and conv states into ``ssm``."""
         cfg = self.cfg
+        x = constrain(x, ACT)
+        layer = tree_map(gather_fsdp, layer)
 
         def ssm_branch(h):
             out, st = ssm_lib.ssm_branch(layer["ssm"], h, cfg.ssm_dims, chunk=cfg.ssm_chunk)
             if ssm is not None:
                 ssm["h"][i] = st["h"]
                 ssm["conv"][i] = st["conv"]
-            return out
+            return constrain(out, ACT)
 
         if "attn" not in layer:  # pure SSM block
             h = self._norm(x, layer["pre_ssm_norm"])
@@ -561,8 +633,8 @@ class TransformerLM:
         h = self._norm(x, layer["pre_attn_norm"])
         if kv is not None:
             _, k, v = attn.project_qkv(layer["attn"], h, positions, rope_theta=cfg.rope_theta)
-            kv["k"][i, :, :x.shape[1]] = k.to(kv["k"].dtype)
-            kv["v"][i, :, :x.shape[1]] = v.to(kv["v"].dtype)
+            attn.write_cache_prefix(kv["k"][i], k)
+            attn.write_cache_prefix(kv["v"][i], v)
         a = attn.attend_full(
             layer["attn"], h, positions, rope_theta=cfg.rope_theta,
             window=window, softcap_value=cfg.attn_softcap,
@@ -655,10 +727,12 @@ class TransformerLM:
                 cfg.ssm_dims)
             state.ssm["h"][i] = new["h"]
             state.ssm["conv"][i] = new["conv"]
-            return y
+            return constrain(y, ACT)
 
         layers = _decoder_layers(cfg, params["layers"])
         for i, (layer, window) in enumerate(zip(layers, cfg.window_sizes())):
+            x = constrain(x, ACT)
+            layer = tree_map(gather_fsdp, layer)
             if "attn" not in layer:  # pure SSM block: the recurrence
                 h = self._norm(x, layer["pre_ssm_norm"])
                 x, _ = self._ffn(layer, x + ssm_step(layer, h, i))

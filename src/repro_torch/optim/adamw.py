@@ -7,6 +7,11 @@ is the reference's formula in the reference's order of operations, written
 in place into ``m``, ``v``, the master copy and the parameters, a bounded
 flat chunk of a leaf at a time: the card holds no whole-leaf temporaries
 beside the state (qwen2.5-3b's largest leaf is 3.25 GB in f32).
+
+On a mesh every leaf is a DTensor whose gradient, moments and master copy
+share its placements, so the elementwise update runs on each device's
+local shards; the global norm sums each shard's squares once across the
+mesh (a replicated leaf counts once, not once per device).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import dataclasses
 from typing import Any, Iterator, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.pytree import tree_leaves, tree_map
 
@@ -22,11 +28,16 @@ from repro_torch.pytree import tree_leaves, tree_map
 CHUNK = 1 << 25
 
 
+def local_shard(t: Any) -> Any:
+    """A DTensor's shard on this device (the tensor itself otherwise)."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def flat_chunks(*tensors: Optional[torch.Tensor]) -> Iterator[List[Optional[torch.Tensor]]]:
-    """Matching flat chunks of same-shaped contiguous tensors (None stays
-    None): elementwise passes over them compute what one pass over the
-    whole would."""
-    flats = [None if t is None else t.view(-1) for t in tensors]
+    """Matching flat chunks of same-shaped contiguous tensors, or of the
+    local shards of DTensors placed alike (None stays None): elementwise
+    passes over them compute what one pass over the whole would."""
+    flats = [None if t is None else local_shard(t).view(-1) for t in tensors]
     n = flats[0].numel()
     for start in range(0, n, CHUNK):
         yield [None if f is None else f[start:start + CHUNK] for f in flats]
@@ -58,6 +69,20 @@ class AdamW:
         return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
                         m=tree_map(zeros, params), v=tree_map(zeros, params), master=master)
 
+    def init_shapes(self, param_specs: Any) -> OptState:
+        """The state's leaves as meta tensors (the dry run's shapes)."""
+        def f32(p):
+            return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+        return OptState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                        m=tree_map(f32, param_specs), v=tree_map(f32, param_specs),
+                        master=tree_map(f32, param_specs) if self.master else None)
+
+    def state_axes(self, param_axes: Any) -> OptState:
+        """Logical axes matching init's tree (the params' for every leaf)."""
+        return OptState(step=(), m=param_axes, v=param_axes,
+                        master=param_axes if self.master else None)
+
     @torch.no_grad()
     def update(self, grads: Any, state: OptState, params: Any, lr: torch.Tensor
                ) -> Tuple[Any, OptState]:
@@ -65,7 +90,8 @@ class AdamW:
         ``(params, state)``, the same objects, updated.  Params are written
         back in their own dtype (from the master copy when there is one)."""
         state.step.add_(1)
-        step = state.step.to(torch.float32)
+        step = local_shard(state.step).to(torch.float32)
+        lr = local_shard(lr)
         bc1 = 1.0 - self.b1 ** step
         bc2 = 1.0 - self.b2 ** step
         masters = (tree_leaves(state.master) if state.master is not None
@@ -95,7 +121,10 @@ def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]
     of all leaves in f32), each leaf rounded back to its dtype; written in
     place.  Returns ``(grads, global norm)``."""
     leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves))
+    sumsq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves)
+    if isinstance(sumsq, DTensor):  # partial sums over the sharded mesh dims
+        sumsq = sumsq.full_tensor()
+    gnorm = torch.sqrt(sumsq)
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     for g in leaves:
         for (gc,) in flat_chunks(g):

@@ -21,7 +21,8 @@ import torch
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.transformer import TransformerLM
+from repro_torch.distributed.autosharding import constrain
+from repro_torch.models.transformer import TransformerLM, param_shapes
 from repro_torch.optim.adamw import AdamW, OptState, clip_by_global_norm
 from repro_torch.pytree import tree_leaves, tree_map, tree_unflatten
 
@@ -48,7 +49,10 @@ def chunked_cross_entropy(model: TransformerLM, params: Any, hidden: torch.Tenso
     labels = labels.long()
 
     def one(h, y):
-        logits = model.logits(params, h).to(torch.float32)  # [B, c, V]
+        # Meshed, the chunk's vocab shards are gathered: the gold-label
+        # gather reads across them.
+        logits = constrain(model.logits(params, h).to(torch.float32),
+                           ("batch", "seq", "gathered"))  # [B, c, V]
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, y[..., None])[..., 0]
         return torch.sum(logz - gold)
@@ -99,6 +103,12 @@ def make_grad_fn(model: TransformerLM, *, microbatches: int = 1, aux_weight: flo
     the batch's rows split into equal consecutive parts and the gradients
     accumulate in f32, each divided by their count, as do loss and aux."""
     loss_fn = make_loss_fn(model, aux_weight=aux_weight, loss_chunk=loss_chunk)
+    param_axes = model.param_axes()
+
+    def _constrain_grads(grads):
+        """Meshed, pin gradients to the parameter placements: the batch
+        axes' partial sums become a reduce-scatter onto the FSDP shards."""
+        return tree_map(lambda g, ax: constrain(g, ax), grads, param_axes)
 
     def grads_of(params, tokens, labels, frontend_embeds):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
@@ -106,7 +116,7 @@ def make_grad_fn(model: TransformerLM, *, microbatches: int = 1, aux_weight: flo
             total, (loss, aux) = loss_fn(tree_unflatten(params, leaves), tokens, labels,
                                          frontend_embeds)
         grads = torch.autograd.grad(total, leaves, materialize_grads=True)
-        return tree_unflatten(params, list(grads)), loss.detach(), aux.detach()
+        return _constrain_grads(tree_unflatten(params, list(grads))), loss.detach(), aux.detach()
 
     def compute_grads(params, tokens, labels, frontend_embeds=None):
         if microbatches <= 1:
@@ -115,13 +125,15 @@ def make_grad_fn(model: TransformerLM, *, microbatches: int = 1, aux_weight: flo
         if b % microbatches:
             raise ValueError(f"batch {b} does not split into {microbatches} microbatches")
         mb = b // microbatches
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                       params)
+        acc = _constrain_grads(tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                                        params))
         loss_acc = aux_acc = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for i in range(microbatches):
             rows = slice(i * mb, (i + 1) * mb)
-            fe = frontend_embeds[rows] if frontend_embeds is not None else None
-            grads, loss, aux = grads_of(params, tokens[rows], labels[rows], fe)
+            fe = (constrain(frontend_embeds[rows], ("batch", "seq", "embed_act"))
+                  if frontend_embeds is not None else None)
+            grads, loss, aux = grads_of(params, constrain(tokens[rows], ("batch", "seq")),
+                                        constrain(labels[rows], ("batch", "seq")), fe)
             for a, g in zip(tree_leaves(acc), tree_leaves(grads)):
                 a.add_(g.to(torch.float32) / microbatches)
             del grads
@@ -171,6 +183,23 @@ def make_eval_step(model: TransformerLM, *, loss_chunk: int = 512) -> Callable:
         return chunked_cross_entropy(model, params, hidden, labels, chunk=loss_chunk)
 
     return eval_step
+
+
+def train_state_shapes(model: TransformerLM, optimizer: AdamW, *,
+                       grad_compression: bool = False) -> TrainState:
+    """The train state's leaves as meta tensors (the dry run's shapes)."""
+    specs = tree_map(lambda sd: torch.empty(sd[0], dtype=sd[1], device="meta"),
+                     param_shapes(model.cfg))
+    f32 = tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"), specs)
+    return TrainState(params=specs, opt=optimizer.init_shapes(specs),
+                      ef_residual=f32 if grad_compression else None)
+
+
+def train_state_axes(model: TransformerLM, optimizer: AdamW, *,
+                     grad_compression: bool = False) -> TrainState:
+    axes = model.param_axes()
+    return TrainState(params=axes, opt=optimizer.state_axes(axes),
+                      ef_residual=axes if grad_compression else None)
 
 
 def init_train_state(model: TransformerLM, optimizer: AdamW, generator: torch.Generator,

@@ -45,7 +45,10 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.tiering, repro_torch.tiering.hook, "
             "repro_torch.memsim.batched.tiering, repro_torch.launch.train, "
             "repro_torch.train.step, repro_torch.optim, repro_torch.checkpoint, "
-            "repro_torch.data, repro_torch.pytree; "
+            "repro_torch.data, repro_torch.pytree, repro_torch.distributed, "
+            "repro_torch.distributed.autosharding, repro_torch.launch.mesh, "
+            "repro_torch.launch.dryrun, repro_torch.roofline.analysis, "
+            "repro_torch.roofline.op_costs; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules, "
             "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -62,6 +65,7 @@ def test_entry_points_without_device_raise_on_cpu_only_machine():
     from repro_torch.core.device_model import platform_a
     from repro_torch.core.littles_law import OpClass
     from repro_torch.core.mva import analyze
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import build_cluster
     from repro_torch.launch.train import Trainer
     from repro_torch.memsim.batched import run_sweep_batched
@@ -76,6 +80,10 @@ def test_entry_points_without_device_raise_on_cpu_only_machine():
         resolve_device("cuda:0")
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer("qwen2.5-3b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer("qwen2.5-3b", smoke=True, mesh=object())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh()
     jobs = [j for _, _, js in plan("corun_sweep", {"threads": 2, "mlp": 96}) for j in js]
     with pytest.raises(RuntimeError, match="CUDA"):
         run_sweep_batched(jobs)
@@ -86,3 +94,13 @@ def test_entry_points_without_device_raise_on_cpu_only_machine():
     with pytest.raises(RuntimeError, match="CUDA"):
         analyze(platform_a(), OpClass.LOAD, 16, 0)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_dryrun_cli_refuses_without_cuda_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the dry run runs on its device type")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                           "llama31-8b", "--shape", "decode_32k"], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "CUDA is not available" in proc.stderr
