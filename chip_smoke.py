@@ -195,10 +195,29 @@ Phases, each printed as one JSON line:
      ok, the device's allocated bytes unchanged, each cell's parameter
      bytes a device equal to bytes_per_device of their placements; each
      cell's trace time, counts and H100 roofline terms, and the phase's
-     wall.
+     wall;
+ 34. scalar_lane: the scalar DES (host Python) on the card's host:
+     tests/data/seed_fig_goldens.json's fig3 load column and fig5 load
+     through run_bw_test / run_corun (rel 0.01, ToR inserts equal),
+     miku_trace_des.json's decisions from a live MIKU co-run (equal), and
+     the wall and events per second of BENCH_des.json's fig5 load co-run
+     beside the host's CPU;
+ 35. lanes_check: corun_sweep's 96 jobs on the batched lane on the card
+     (K3 launches must be 60) and on the scalar DES over a pool of
+     min(8, cores) spawn workers: worst bandwidth error below 15% and mean
+     below 3%, and on the grid's five cells of tests/test_batched.py:172-206
+     their own bounds (5% and 10% on bandwidth, 10% on the slow tier's
+     service time, restricted windows at most 3 apart); both walls;
+ 36. lane_fallback: a mixed list on the card, a tiering job whose policy the
+     vector twin cannot run and two MIKU co-runs: the fallback recorded
+     with the policy's name, its result equal to the scalar lane's (every
+     field), K3 launched for the co-runs (6), every job a result;
+ 37. fig2: run_scenario("fig2_tiering") (its cells on the scalar DES): each
+     op's upper_ddr_only and lower_cxl_only equal to the fig3 goldens of
+     that op, every column printed, and the wall.
 The figures' plain lane runs in CPU worker processes from the build on.
 They run in this order: 1-5, 21, 25, 22, 26, 24, 23, 12, 20, 13, 6, 7, 9, 14, 16, 18, 19,
-17, 15, 8, 10, 11, 27-33.  Every line carries ``elapsed_s``, the seconds since the script started.
+34-37, 17, 15, 8, 10, 11, 27-33.  Every line carries ``elapsed_s``, the seconds since the script started.
 The line before the last lists every kernel's numbers; the last line is the
 device summary.  Any failed check exits non-zero; without CUDA (or without
 the rest of the repository beside this file) it exits non-zero at once.
@@ -653,6 +672,10 @@ def main() -> None:
     figures3 = figures3_phase(dev, plain)
     tiering = tiering_phase(dev, plain)
     traced = trace_phase(dev)
+    scalar_lane_phase(smi)
+    lanes = lanes_check(dev)
+    fallback = lane_fallback(dev)
+    fig2_phase(dev)
     k3_88 = k3_instance_timing(dev, figures3.pop("firsts"),
                                next(lib for lib in libs if lib.name.startswith("fluid_solver"))
                                .with_suffix(".ptxas.txt"))
@@ -748,6 +771,10 @@ def main() -> None:
         "tiering_launches": tiering["k3_launches"],
         "tiering_instances": tiering["k3_instances"],
         "trace_launches": traced["k3_launches"],
+        # corun_sweep held against the scalar DES, and the batched lane
+        # beside a job that falls back to it.
+        "lanes_check_launches": lanes["k3_launches"],
+        "lane_fallback_launches": fallback["k3_launches"],
         **k3_row,
     }, {
         "name": "ssd_scan",
@@ -1182,6 +1209,308 @@ def sweep_phase(dev):
          top_kernels=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3,
                            calls=e.count) for e in top])
     return main
+
+
+# -- the scalar DES lane: goldens, the lanes held against each other, the
+# -- batched lane's fallback, fig2 ------------------------------------------------
+
+#: The reference's bounds of the batched lane against the scalar DES
+#: (tests/test_batched.py:172-222): over corun_sweep's 96 cells the worst and
+#: the mean relative bandwidth error; on its five cells of
+#: test_corun_racing_equivalence / test_corun_miku_equivalence (platform A,
+#: 16 threads, mlp 160) their own bounds.
+LANES_WORST_BOUND = 0.15
+LANES_MEAN_BOUND = 0.03
+LANES_RACING_BW = 0.05
+LANES_RACING_SERVICE = 0.10
+LANES_MIKU_DDR = 0.05
+LANES_MIKU_CXL = 0.10
+LANES_MAX_RESTRICTED_DIFF = 3
+#: The reference's rel bound on the pinned figure goldens
+#: (tests/test_substrate.py:136-151).
+GOLDENS_REL = 0.01
+
+
+def host_cpu() -> str:
+    """The host's CPU as ``/proc/cpuinfo``'s first processor names it (its
+    model name, else its vendor, family and model fields), the machine and
+    the core count: the DES runs on the host, so its walls are the host's."""
+    import platform
+
+    fields = {}
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                if value.strip() not in ("", "unknown"):
+                    fields.setdefault(key.strip(), value.strip())
+    keys = (("model name",) if "model name" in fields else
+            ("vendor_id", "cpu family", "model", "stepping", "CPU implementer",
+             "CPU part", "Hardware"))
+    model = ", ".join(f"{k} {fields[k]}" for k in keys if k in fields) or "unknown"
+    return f"{model} ({platform.machine()}, {os.cpu_count()} cores)"
+
+
+def des_mismatches(a, b) -> list:
+    """The fields in which two scalar-lane SimResults differ, compared at
+    tolerance 0 (as tests/test_torch_des.py compares the port with the
+    reference)."""
+    def decision(d):
+        if hasattr(d, "items") and hasattr(d, "tiers"):
+            return {t: (x.max_concurrency, x.rate_factor, x.phase.value) for t, x in d.items()}
+        return (d.max_concurrency, d.rate_factor, d.phase.value)
+
+    out = []
+    for name in a.stats.keys() | b.stats.keys():
+        x, y = a.stats.get(name), b.stats.get(name)
+        if x is None or y is None or (x.completed, x.bytes, x.latency_sum, x.latency_samples) \
+                != (y.completed, y.bytes, y.latency_sum, y.latency_samples):
+            out.append(f"stats[{name}]")
+    for t in a.tier_counters:
+        x, y = a.tier_counters[t], b.tier_counters.get(t)
+        if y is None or (x.inserts, x.occupancy_time, dict(x.class_counts)) \
+                != (y.inserts, y.occupancy_time, dict(y.class_counts)):
+            out.append(f"tier_counters[{t}]")
+    for key in ("tor_peak", "tor_inserts", "tor_occupancy_integral",
+                "per_tier_occupancy_integral", "tiering"):
+        if getattr(a, key) != getattr(b, key):
+            out.append(key)
+    if [decision(d) for d in a.decisions] != [decision(d) for d in b.decisions]:
+        out.append("decisions")
+    return out
+
+
+def scalar_lane_phase(smi: str):
+    """The scalar DES on the card's host: tests/data/seed_fig_goldens.json's
+    fig3 load column and fig5 load through ``run_bw_test`` / ``run_corun``
+    (rel 0.01, ToR inserts equal), miku_trace_des.json's decisions from a
+    live MIKU co-run (equal), and the wall and events per second of the
+    fig5 load co-run (BENCH_des.json's ``fig5_corun_load_16t_300us``;
+    events are completed requests, as benchmarks/bench_des.py counts
+    them).  The golden files are read as data."""
+    from repro_torch.core.des import run_bw_test, run_corun
+    from repro_torch.core.device_model import platform_a
+    from repro_torch.core.littles_law import OpClass
+    from repro_torch.memsim.calibration import default_miku
+
+    data = os.path.join(HERE, "tests", "data")
+    with open(os.path.join(data, "seed_fig_goldens.json")) as f:
+        gold = json.load(f)
+    with open(os.path.join(data, "miku_trace_des.json")) as f:
+        trace = [w["decision"] for w in json.load(f)["windows"]]
+    p = platform_a()
+    fig3 = []
+    for row in gold["fig3"]:
+        if row["op"] != "load":
+            continue
+        res = run_bw_test(p, op=OpClass.LOAD, tier=row["tier"], n_threads=16, sim_ns=120_000)
+        got = res.bandwidth(f"bw-{row['tier']}-load")
+        fig3.append(dict(tier=row["tier"], gbps=got, golden=row["bandwidth_gbps"],
+                         rel_err=abs(got - row["bandwidth_gbps"]) / row["bandwidth_gbps"]))
+    walls, completed = [], 0
+    for _ in range(3):
+        t0 = time.perf_counter()
+        both = run_corun(p, op=OpClass.LOAD, n_threads=16, sim_ns=300_000)
+        walls.append(time.perf_counter() - t0)
+        completed = sum(s.completed for s in both.stats.values())
+    g = gold["fig5"]["load"]
+    fig5 = dict(ddr_gbps=both.bandwidth("ddr"), cxl_gbps=both.bandwidth("cxl"),
+                tor_inserts=both.tor_inserts, golden=g,
+                rel_err=max(abs(both.bandwidth(w) - g[f"{w}_gbps"]) / g[f"{w}_gbps"]
+                            for w in ("ddr", "cxl")))
+    t0 = time.perf_counter()
+    live = run_corun(p, op=OpClass.STORE, n_threads=16, sim_ns=400_000,
+                     controller=default_miku(p))
+    miku_wall = time.perf_counter() - t0
+    got_trace = [dict(max_concurrency=d.max_concurrency, rate_factor=d.rate_factor,
+                      phase=d.phase.value) for d in live.decisions]
+    walls.sort()
+    emit("scalar_lane", fig3_load=fig3, fig5_load=fig5, goldens_rel=GOLDENS_REL,
+         miku_trace_windows=len(trace), miku_trace_equal=got_trace == trace,
+         miku_corun_wall_s=miku_wall, bench_config="fig5_corun_load_16t_300us",
+         corun_wall_s=dict(best=walls[0], median=walls[1], runs=walls),
+         completed_requests=completed, events_per_s=completed / walls[0],
+         host_cpu=host_cpu(), card=smi)
+    for row in fig3:
+        check(row["rel_err"] <= GOLDENS_REL,
+              f"scalar_lane: fig3 load {row['tier']} {row['gbps']} vs golden {row['golden']}")
+    check(fig5["rel_err"] <= GOLDENS_REL and fig5["tor_inserts"] == g["tor_inserts"],
+          f"scalar_lane: fig5 load {fig5} vs the golden")
+    check(got_trace == trace, "scalar_lane: the live MIKU co-run's decisions differ from "
+          "miku_trace_des.json")
+    return dict(events_per_s=completed / walls[0], corun_wall_s=walls[0])
+
+
+def lanes_check(dev):
+    """corun_sweep's 96 jobs on the batched lane on the card (K3's count set
+    to 0 just before and read just after: 60 launches, as in the sweep
+    phase) and on the scalar DES over a pool of spawn workers, held against
+    each other by the reference's bounds: worst and mean bandwidth error
+    over the grid, and on its five cells of tests/test_batched.py:172-206
+    their own bounds, restricted windows at most 3 apart."""
+    import torch
+
+    from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.memsim.batched import fluid
+    from repro_torch.memsim.sweep import run_sweep
+    from repro_torch.scenarios import plan
+
+    planned = plan("corun_sweep")
+    jobs = [j for _, _, js in planned for j in js]
+    cells = [cell for cell, _, js in planned for _ in js]
+    fs.WINDOW_SOLVE_LAUNCHES.reset()
+    fluid.COUNTS.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = run_sweep(jobs, device=dev)
+    torch.cuda.synchronize()
+    batched_wall = time.perf_counter() - t0
+    launches, windows = fs.WINDOW_SOLVE_LAUNCHES.count, fluid.COUNTS.windows
+    procs = min(8, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    scalar = run_sweep(jobs, lane="scalar", processes=procs)
+    scalar_wall = time.perf_counter() - t0
+    errs, restricted_diffs, named = [], [], []
+    for cell, b, s in zip(cells, batched, scalar):
+        e = {w: abs(b.bandwidth(w) - s.bandwidth(w)) / max(s.bandwidth(w), 1e-9)
+             for w in ("ddr", "cxl")}
+        errs.extend(e.values())
+        rs = sum(1 for d in s.decisions if d.restricted)
+        rb = sum(1 for d in b.decisions if d.restricted)
+        if cell["miku"]:
+            restricted_diffs.append(abs(rs - rb))
+        if (cell["platform"], cell["threads"], cell["mlp"]) == ("A", 16, 160):
+            svc = [r.tier_counters["cxl"].mean_service_time for r in (b, s)]
+            named.append(dict(op=cell["op"].value, miku=cell["miku"], rel_err=e,
+                              cxl_service_rel_err=abs(svc[0] - svc[1]) / max(svc[1], 1e-9),
+                              decisions=(len(b.decisions), len(s.decisions)),
+                              restricted=(rb, rs)))
+    worst, mean = max(errs), sum(errs) / len(errs)
+    emit("lanes_check", scenario="corun_sweep", cells=len(jobs), k3_launches=launches,
+         windows=windows, batched_wall_s=batched_wall, scalar_wall_s=scalar_wall,
+         scalar_processes=procs, worst_rel_err=worst, mean_rel_err=mean,
+         worst_bound=LANES_WORST_BOUND, mean_bound=LANES_MEAN_BOUND,
+         restricted_window_diffs=sum(restricted_diffs),
+         restricted_window_diff_max=max(restricted_diffs),
+         cells_with_restricted_diff=sum(d > 0 for d in restricted_diffs),
+         reference_cells=named, host_cpu=host_cpu())
+    check(launches == windows == 60, f"lanes_check: {launches} K3 launches for {windows} "
+          "windows, not 60")
+    check(worst < LANES_WORST_BOUND and mean < LANES_MEAN_BOUND,
+          f"lanes_check: worst {worst}, mean {mean} against the scalar DES")
+    check(len(named) == 6, f"lanes_check: {len(named)} reference cells in the grid")
+    for row in named:
+        where = f"lanes_check {row['op']} miku={row['miku']}"
+        if not row["miku"]:
+            check(max(row["rel_err"].values()) <= LANES_RACING_BW
+                  and row["cxl_service_rel_err"] <= LANES_RACING_SERVICE,
+                  f"{where}: {row}")
+        elif row["op"] != "nt_store":
+            check(row["rel_err"]["ddr"] <= LANES_MIKU_DDR
+                  and row["rel_err"]["cxl"] <= LANES_MIKU_CXL
+                  and row["decisions"][0] == row["decisions"][1]
+                  and abs(row["restricted"][0] - row["restricted"][1])
+                  <= LANES_MAX_RESTRICTED_DIFF, f"{where}: {row}")
+    return dict(k3_launches=launches, scalar_wall_s=scalar_wall, worst=worst, mean=mean)
+
+
+class FrozenPolicy:
+    """tests/test_batched.py:305-344's tiering policy outside the vectorized
+    hierarchy: the scalar hook runs it, the vector twin cannot."""
+
+    name = "frozen_test_policy"
+
+    def decide(self, pagemap, ctx):
+        del pagemap, ctx
+        return []
+
+
+def lane_fallback(dev):
+    """A mixed list on the card: the FrozenPolicy tiering job, which the
+    batched lane cannot stack, and two MIKU co-runs that stack.  The
+    fallback is recorded with the policy's name, its result equals
+    ``run_sweep(lane="scalar")`` bit for bit, K3 runs the co-runs (its
+    count set to 0 just before and read just after) and every job has a
+    result."""
+    import torch
+
+    from repro_torch.core.device_model import platform_a
+    from repro_torch.core.littles_law import OpClass
+    from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.memsim.batched import fluid
+    from repro_torch.memsim.batched.lane import partition_jobs, run_sweep_batched
+    from repro_torch.memsim.sweep import SimJob, run_sweep
+    from repro_torch.memsim.workloads import bw_test
+    from repro_torch.tiering import HotSetPattern, RegionSpec, TieringSpec
+    from repro_torch.tiering.policies import POLICIES
+
+    p = platform_a()
+    spec = TieringSpec(regions=(RegionSpec(workload="cxl", n_pages=128,
+                                           placement={"cxl": 1.0}, pattern=HotSetPattern()),),
+                       policy=FrozenPolicy.name)
+    jobs = [SimJob(platform=p, workloads=[bw_test("cxl", OpClass.LOAD, 4, name="cxl")],
+                   sim_ns=60_000.0, tiering=spec)]
+    for op in (OpClass.LOAD, OpClass.STORE):
+        jobs.append(SimJob(platform=p, workloads=[
+            bw_test("ddr", op, 16, name="ddr", miku_managed=False),
+            bw_test("cxl", op, 16, name="cxl")], sim_ns=60_000.0, miku=True))
+    POLICIES[FrozenPolicy.name] = FrozenPolicy
+    try:
+        partition = partition_jobs(jobs)
+        fs.WINDOW_SOLVE_LAUNCHES.reset()
+        fluid.COUNTS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = run_sweep_batched(jobs, device=dev, partition=partition)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, windows = fs.WINDOW_SOLVE_LAUNCHES.count, fluid.COUNTS.windows
+        (scalar,) = run_sweep(jobs[:1], lane="scalar")
+    finally:
+        POLICIES.pop(FrozenPolicy.name, None)
+    fallbacks = partition[1]
+    diff = des_mismatches(results[0], scalar)
+    emit("lane_fallback", jobs=len(jobs), fallbacks=fallbacks, k3_launches=launches,
+         windows=windows, wall_s=wall, fallback_equals_scalar=not diff, mismatches=diff,
+         tiering=results[0].tiering,
+         batched_gbps=[{w: r.bandwidth(w) for w in r.stats} for r in results[1:]])
+    check([i for i, _ in fallbacks] == [0] and FrozenPolicy.name in fallbacks[0][1],
+          f"lane_fallback: fallbacks {fallbacks}")
+    check(not diff, f"lane_fallback: the fallback differs from the scalar run in {diff}")
+    check(launches == windows == 6, f"lane_fallback: {launches} K3 launches for {windows} "
+          "windows, not 6")
+    # Every demand workload moved data (the fallback's migration workload
+    # stays gated closed: its policy enqueues no copy).
+    check(all(r is not None for r in results) and all(
+        _finite(r.bandwidth(w)) and r.bandwidth(w) > 0
+        for r in results for w in ("ddr", "cxl") if w in r.stats),
+        "lane_fallback: a job without a result")
+    return dict(k3_launches=launches)
+
+
+def fig2_phase(dev):
+    """``run_scenario("fig2_tiering")`` on the default device (its cells run
+    on the scalar DES): each op's upper_ddr_only and lower_cxl_only equal
+    seed_fig_goldens.json's fig3 row of that op (the same jobs), every
+    column finite."""
+    from repro_torch.scenarios import run_scenario
+
+    with open(os.path.join(HERE, "tests", "data", "seed_fig_goldens.json")) as f:
+        fig3 = {(r["op"], r["tier"]): r["bandwidth_gbps"] for r in json.load(f)["fig3"]}
+    t0 = time.perf_counter()
+    rows = run_scenario("fig2_tiering", device=dev)
+    wall = time.perf_counter() - t0
+    emit("fig2", rows=rows, wall_s=wall, host_cpu=host_cpu())
+    check(len(rows) == 3, f"fig2: {len(rows)} rows")
+    for r in rows:
+        check((r["upper_ddr_only"], r["lower_cxl_only"])
+              == (fig3[(r["op"], "ddr")], fig3[(r["op"], "cxl")]),
+              f"fig2 {r['op']}: upper/lower {r['upper_ddr_only']}/{r['lower_cxl_only']} "
+              "differ from the fig3 goldens")
+        check(all(_finite(v) and v > 0 for k, v in r.items() if isinstance(v, float)),
+              f"fig2 {r['op']}: non-finite or zero column {r}")
 
 
 # -- the smoke serve CLI, fig11, the grid figures, MVA ---------------------------

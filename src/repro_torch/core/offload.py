@@ -160,7 +160,7 @@ class TransferQueue:
         self._decision = Decision(
             max_concurrency=None, rate_factor=1.0, phase=None  # type: ignore[arg-type]
         )
-        self.control = ControlLoop(self, controller, window_ns=window_ns)
+        self.control = ControlLoop(self, controller, window_ns=window_ns, record=False)
         reg = default_registry()
         self._m_transfers = reg.counter("offload.transfers")
         self._m_bytes = reg.counter("offload.bytes")

@@ -1,7 +1,7 @@
 """Control-plane substrate: windowed counters and the feedback loop.
 
-A copy of what the serving path uses from ``repro.core.substrate``.  A
-substrate exposes ``clock_ns``, ``counters_delta()`` (a per-tier
+A copy of what the serving path, the trainer and the DES use from
+``repro.core.substrate``.  A substrate exposes ``clock_ns``, ``counters_delta()`` (a per-tier
 :class:`~repro_torch.core.littles_law.TierWindow`, consumed on read) and
 ``apply(decision)``; :class:`ControlLoop` owns *when*: window scheduling,
 feeding deltas to the decision law and recording its decisions.
@@ -14,7 +14,7 @@ per-host step times for the straggler governor.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 from repro_torch.core.littles_law import TierCounters, TierWindow
 from repro_torch.obs.metrics import default_registry
@@ -118,13 +118,17 @@ def window_record_jsonable(rec: WindowRecord) -> dict:
 class ControlLoop:
     """Drives a decision law over a substrate's windows.
 
-    The host calls :meth:`fire` exactly when a window elapses (the transfer
-    queue interleaves boundaries with transfer completions in time order;
-    the trainer fires once a step).  A :class:`TierWindow` delta goes to the
-    law whole, a plain tuple splatted (the straggler governor's
-    ``(step_times,)``).  ``controller=None`` keeps the window cadence but
-    makes no decisions; ``max_history`` caps the decisions kept (a trainer
-    fires one window a step, forever).
+    Event-driven hosts call :meth:`fire` exactly when a window elapses (the
+    DES schedules :attr:`next_window_ns` as an event; the transfer queue
+    interleaves boundaries with transfer completions in time order; the
+    trainer fires once a step); hosts that move their clock in large steps
+    call :meth:`poll`, which fires every boundary passed.  A
+    :class:`TierWindow` delta goes to the law whole, a plain tuple splatted
+    (the straggler governor's ``(step_times,)``).  ``controller=None``
+    keeps the window cadence but makes no decisions.  ``record`` keeps a
+    :class:`WindowRecord` of each decided window in :attr:`records`, and
+    ``on_window`` is called with it; ``max_history`` caps the decisions and
+    records kept (a trainer fires one window a step, forever).
     """
 
     def __init__(
@@ -133,18 +137,27 @@ class ControlLoop:
         controller: Optional[Any] = None,
         *,
         window_ns: float = 1_000_000.0,
+        record: bool = True,
         max_history: Optional[int] = None,
+        on_window: Optional[Callable[[WindowRecord], None]] = None,
     ) -> None:
         self.substrate = substrate
         self.controller = controller
         self.window_ns = float(window_ns)
         self.next_window_ns = float(window_ns)
         self.decisions: List[Any] = []
+        self.records: List[WindowRecord] = []
         self.windows_run = 0
+        self._record = record
         self._max_history = max_history
+        self._on_window = on_window
         reg = default_registry()
         self._m_windows = reg.counter("control.windows")
         self._m_decisions = reg.counter("control.decisions")
+
+    def due(self, now: Optional[float] = None) -> bool:
+        now = self.substrate.clock_ns if now is None else now
+        return now >= self.next_window_ns
 
     def fire(self) -> Optional[Any]:
         """Run one window now and advance the schedule by ``window_ns``."""
@@ -158,10 +171,29 @@ class ControlLoop:
         self.decisions.append(decision)
         self._m_decisions.inc()
         self.windows_run += 1
-        if self._max_history is not None and len(self.decisions) > 2 * self._max_history:
-            del self.decisions[:-self._max_history]
+        if self._record or self._on_window is not None:
+            rec = WindowRecord(index=self.windows_run, t_ns=self.substrate.clock_ns,
+                               delta=delta, decision=decision)
+            if self._record:
+                self.records.append(rec)
+            if self._on_window is not None:
+                self._on_window(rec)
+        m = self._max_history
+        if m is not None:
+            if len(self.decisions) > 2 * m:
+                del self.decisions[:-m]
+            if len(self.records) > 2 * m:
+                del self.records[:-m]
         self.substrate.apply(decision)
         return decision
+
+    def poll(self, now: Optional[float] = None) -> List[Any]:
+        """Fire every window boundary the clock has passed (in order)."""
+        now = self.substrate.clock_ns if now is None else now
+        fired: List[Any] = []
+        while now >= self.next_window_ns:
+            fired.append(self.fire())
+        return fired
 
     def telemetry(self) -> dict:
         """Summary counters for reports."""

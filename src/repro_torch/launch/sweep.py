@@ -6,10 +6,13 @@ its rows (counterpart of ``benchmarks/run.py --scenario X --lane batched``).
   PYTHONPATH=src python -m repro_torch.launch.sweep fig9_service --set tier=cxl --device cpu
   PYTHONPATH=src python -m repro_torch.launch.sweep fig11_llm --device cpu
   PYTHONPATH=src python -m repro_torch.launch.sweep migrate_interference --trace trace.json
+  PYTHONPATH=src python -m repro_torch.launch.sweep fig2_tiering --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.sweep corun_sweep --lane scalar --processes 4
 
-Grid scenarios run on the batched lane, ``fig11_llm`` on the serving
-engines (its tokens/s are the simulated queue clock's).  Runs on the card
-unless ``--device cpu``.  Prints one CSV row per row of the scenario;
+Grid scenarios run on the batched lane (``--lane scalar``: one event-driven
+DES per job on the host, over ``--processes`` workers), ``fig2_tiering`` on
+the scalar DES, ``fig11_llm`` on the serving engines (its tokens/s are the
+simulated queue clock's).  Runs on the card unless ``--device cpu``.  Prints one CSV row per row of the scenario;
 ``--trace PATH`` (grid scenarios) also writes every job's per-window
 telemetry records to PATH as JSON.
 """
@@ -45,6 +48,10 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--trace", metavar="PATH", default=None,
                     help="write each job's per-window records to PATH as JSON")
+    ap.add_argument("--lane", choices=("batched", "scalar"), default="batched",
+                    help="the grid scenarios' lane (default batched)")
+    ap.add_argument("--processes", type=int, default=None,
+                    help="worker processes of the scalar lane (default serial)")
     args = ap.parse_args(argv)
     if args.list:
         for sc in SCENARIOS.values():
@@ -55,11 +62,11 @@ def main(argv=None) -> None:
         ap.error("a scenario name (or --list) is required")
     overrides = parse_set_args(args.scenario, args.sets)
     t0 = time.perf_counter()
+    kw = dict(device=args.device, lane=args.lane, processes=args.processes)
     if args.trace:
-        rows, traces = run_scenario(args.scenario, overrides, device=args.device,
-                                    trace=True)
+        rows, traces = run_scenario(args.scenario, overrides, trace=True, **kw)
     else:
-        rows = run_scenario(args.scenario, overrides, device=args.device)
+        rows = run_scenario(args.scenario, overrides, **kw)
     wall = time.perf_counter() - t0
     if args.trace:
         with open(args.trace, "w") as f:

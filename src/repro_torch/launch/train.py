@@ -109,7 +109,7 @@ class Trainer:
         self.governor = StragglerGovernor(n_hosts=1)
         self.step_substrate = StepTimingSubstrate(n_hosts=1)
         self.straggler_loop = ControlLoop(self.step_substrate, self.governor, window_ns=1.0,
-                                          max_history=64)
+                                          record=False, max_history=64)
         self.grad_compression = grad_compression
         #: The newest steps' ``{"step", "loss", "seconds"}``, wall time of
         #: each step's host loop (the loss read back ends it).

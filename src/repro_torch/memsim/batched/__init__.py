@@ -10,7 +10,8 @@ computation (counterpart of ``repro.memsim.batched``).
 * :mod:`.tiering` — the vector twin of the tiering hook (host numpy): page
   hotness, migration queues and policies stacked over a group's cells;
 * :mod:`.lane` — :func:`run_sweep_batched`, grouping cells by window
-  cadence and rung table.
+  cadence and rung table, and falling the jobs it cannot stack back to
+  the scalar DES.
 """
 
 from repro_torch.memsim.batched.lane import (

@@ -21,7 +21,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.des import export_state
-from repro_torch.memsim.sweep import SimJob
+from repro_torch.memsim.sweep import PEREDGE_REFUSAL, SimJob
 
 
 @dataclasses.dataclass
@@ -47,10 +47,7 @@ def plan_cell(job: SimJob) -> CellPlan:
     carries the migration workloads (gated closed) and the initial
     PageMap-derived routing."""
     if job.miku and job.miku_law not in ("pertier", "merged"):
-        raise NotImplementedError(
-            f"miku_law={job.miku_law!r} is not ported yet; the per-tier and "
-            "merged laws run on the batched lane"
-        )
+        raise NotImplementedError(PEREDGE_REFUSAL)
     hook = job.tiering.build() if job.tiering is not None else None
     export = export_state(job.platform, job.workloads,
                           granularity=job.granularity,

@@ -5,8 +5,8 @@ retirement order is load-bearing and a window's job volume is tiny, so the
 state stays on the host beside the fluid engine's device arrays, which
 hand it each window's completions and the ladder's views.
 
-The reference's scalar lane drives one :class:`~repro_torch.tiering.hook.
-TieringHook` per simulation: a PageMap of decayed per-page hotness, a
+The scalar lane drives one :class:`~repro_torch.tiering.hook.TieringHook`
+per simulation: a PageMap of decayed per-page hotness, a
 MigrationEngine of per-slow-tier FIFO copy queues, and a policy that turns
 both into promotion/demotion jobs each control window.  This module stacks
 all of that across a whole cell group:
@@ -53,10 +53,9 @@ def _num(x: float):
 def build_tiering(group) -> Optional["VectorTiering"]:
     """The group's stacked tiering twin (None when no cell has a hook).
 
-    Raises ``NotImplementedError`` naming a policy the twin cannot express
-    (a foreign registration in :data:`repro_torch.tiering.policies.POLICIES`):
-    the reference falls such a job back to the scalar DES, which the port
-    does not have."""
+    Raises ``ValueError`` naming a policy the twin cannot express (a
+    foreign registration in :data:`repro_torch.tiering.policies.POLICIES`):
+    the lane catches it and runs that job on the scalar DES."""
     if not any(p.tiering is not None for p in group.plans):
         return None
     return VectorTiering(group.plans, group.n_tiers)
@@ -183,10 +182,10 @@ class VectorTiering:
                 self.pol[ci] = _POL_STATIC
                 base = None
             else:
-                raise NotImplementedError(
+                raise ValueError(
                     f"the batched lane cannot vectorize tiering policy "
                     f"{getattr(pol, 'name', type(pol).__name__)!r} (it runs static, "
-                    "hotness_lru and miku_coordinated; no scalar lane is ported)"
+                    "hotness_lru and miku_coordinated)"
                 )
             if base is not None:
                 self.promote_pw[ci] = base.promote_per_window

@@ -1,8 +1,9 @@
 """Mergeable log-bucketed latency histograms: a copy of
 ``repro.obs.histogram.LatencyHistogram``, trimmed to what the batched
 lane's ``latency_hist`` cells record, what the scenarios read back
-(:meth:`LatencyHistogram.percentile`) and the per-window telemetry records
-(:meth:`LatencyHistogram.to_jsonable`).
+(:meth:`LatencyHistogram.percentile`), the per-window telemetry records
+(:meth:`LatencyHistogram.to_jsonable`) and the DES's exact merges of its
+per-(workload, tier) sample lists (:func:`merge_all`).
 
 The bucket layout is fixed: each power-of-two octave ``[2^(e-1), 2^e)`` is
 split into 16 linear sub-buckets.  For ``v > 0`` with ``m, e =
@@ -85,6 +86,19 @@ class LatencyHistogram:
         h.vmax = float(arr.max())
         return h
 
+    def merge(self, other: "LatencyHistogram") -> "LatencyHistogram":
+        """Exact merge: a new histogram with per-bucket counts added."""
+        out = LatencyHistogram()
+        out.counts = dict(self.counts)
+        for idx, c in other.counts.items():
+            out.counts[idx] = out.counts.get(idx, 0.0) + c
+        out.n = self.n + other.n
+        out.zero = self.zero + other.zero
+        out.total = self.total + other.total
+        out.vmin = min(self.vmin, other.vmin)
+        out.vmax = max(self.vmax, other.vmax)
+        return out
+
     def mean(self) -> float:
         return self.total / self.n if self.n else 0.0
 
@@ -128,3 +142,11 @@ class LatencyHistogram:
             "max": self.vmax if self.n else None,
             "counts": {str(idx): c for idx, c in sorted(self.counts.items())},
         }
+
+
+def merge_all(hists: Iterable[LatencyHistogram]) -> LatencyHistogram:
+    """Fold :meth:`LatencyHistogram.merge` over an iterable."""
+    out = LatencyHistogram()
+    for h in hists:
+        out = out.merge(h)
+    return out

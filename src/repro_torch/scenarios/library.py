@@ -1,7 +1,8 @@
 """The port's scenario registry: the paper's figures it can run.
 
 Copies of the reference's scenarios (``repro/scenarios/library.py``), in
-its declaration order: the grid figures fig3-fig10 and ``loaded_latency``
+its declaration order: ``fig2_tiering`` (a ``run_cell`` scenario on the
+scalar DES), the grid figures fig3-fig10 and ``loaded_latency``
 (their single-workload cells take the exact lane, the rest the fluid
 engine), the §6 case study ``fig11_llm`` (a ``run_cell`` scenario on the
 port's serving engines), the big-data and hashmap figures fig13 and fig14,
@@ -12,8 +13,8 @@ MIKU-governed request class) and ``tiering_policies`` (hot-set drift
 against the tiering policy), and the NUMA-remote striping study on
 ``A-numa``.  The port keeps its own
 registry (:data:`SCENARIOS`) and registers nothing into the reference's;
-:data:`UNPORTED` names the reference's other scenarios and what each waits
-for.
+:data:`UNPORTED` names the reference's other scenarios (the fabric's and the
+open-loop ones) and what each waits for.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Dict, List
 from repro_torch.core.des import WorkloadSpec
 from repro_torch.core.device_model import PlatformModel
 from repro_torch.core.littles_law import OpClass
-from repro_torch.memsim.sweep import SimJob
+from repro_torch.memsim.sweep import SimJob, run_sweep
 from repro_torch.memsim.workloads import alternating_bw_pair, bw_test, lat_share, lat_test
 from repro_torch.scenarios.spec import Axis, Metric, Scenario
 from repro_torch.tiering import HotSetPattern, RegionSpec, TieringSpec
@@ -70,6 +71,49 @@ def _platform_axis(default="A") -> Axis:
 
 def _op_axis(default=_OPS) -> Axis:
     return Axis("op", default, "memory instruction class")
+
+
+# -- Fig. 2: tiered memory management schemes ----------------------------------
+
+
+def _fig2_run_cell(platform, cell, device) -> List[dict]:
+    """Two stages: measure the upper/lower split first, then run the
+    placement schemes at the measured interleave fraction (why this is a
+    ``run_cell`` scenario, not a static grid).  Both stages run on the
+    scalar DES, as the reference pins them; ``device`` is unused."""
+    del device
+    op = cell["op"]
+    out: Dict[str, float] = {}
+    up, low = run_sweep(
+        [
+            _job(platform, [bw_test("ddr", op, 16, name="a")], _BW_SIM_NS),
+            _job(platform, [bw_test("cxl", op, 16, name="a")], _BW_SIM_NS),
+        ],
+        lane="scalar",
+    )
+    out["upper_ddr_only"] = up.bandwidth("a")
+    out["lower_cxl_only"] = low.bandwidth("a")
+    frac = out["upper_ddr_only"] / max(out["upper_ddr_only"] + out["lower_cxl_only"], 1e-9)
+    migration = WorkloadSpec(name="kmigrated", op=OpClass.STORE, tier="cxl", n_cores=2,
+                             mlp=64, ddr_fraction=0.5, miku_managed=False)
+    interleaved = [
+        bw_test("ddr", op, 16, name="a", ddr_fraction=frac, miku_managed=False),
+        bw_test("cxl", op, 16, name="b", ddr_fraction=frac, miku_managed=False),
+    ]
+    nat, inter, osm = run_sweep(
+        [
+            _job(platform, [bw_test("ddr", op, 16, name="a", miku_managed=False),
+                            bw_test("cxl", op, 16, name="b")], _CORUN_SIM_NS),
+            _job(platform, interleaved, _CORUN_SIM_NS),
+            _job(platform, interleaved + [migration], _CORUN_SIM_NS),
+        ],
+        lane="scalar",
+    )
+    out["native"] = nat.bandwidth("a") + nat.bandwidth("b")
+    out["interleave"] = inter.bandwidth("a") + inter.bandwidth("b")
+    out["os_managed"] = osm.bandwidth("a") + osm.bandwidth("b")
+    out["ideal_combined"] = out["upper_ddr_only"] + out["lower_cxl_only"]
+    return [{"platform": cell["platform"], "op": op.value, **out}]
 
 
 # -- Fig. 3: single-threaded and peak bandwidth per tier ----------------------
@@ -709,6 +753,20 @@ def _numa_reduce(platform, cell, jobs, results) -> List[dict]:
 
 SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
     Scenario(
+        name="fig2_tiering",
+        title="Aggregated bandwidth of tiered-memory management schemes",
+        axes=(_platform_axis(), _op_axis()),
+        metrics=(
+            Metric("upper_ddr_only", "GB/s", "one copy, WSS fully in DDR"),
+            Metric("lower_cxl_only", "GB/s", "one copy, WSS fully in CXL"),
+            Metric("native", "GB/s", "application-directed placement"),
+            Metric("interleave", "GB/s", "page-interleaved at the bw ratio"),
+            Metric("os_managed", "GB/s", "interleaved + page-migration tax"),
+            Metric("ideal_combined", "GB/s", "upper + lower"),
+        ),
+        run_cell=_fig2_run_cell,
+    ),
+    Scenario(
         name="fig3_bandwidth",
         title="DDR vs CXL single/multi-thread bandwidth",
         axes=(
@@ -966,10 +1024,8 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
 )}
 
 #: The reference's other scenarios, each with what it waits for (ROADMAP
-#: queue A, item 5).
-_SCALAR = "the scalar DES lane"
+#: queue A.4.2 and A.4.3).
 UNPORTED: Dict[str, str] = {
-    "fig2_tiering": f"a run_cell scenario pinned to {_SCALAR}",
     "fabric_spine_congestion": "the fabric law",
     "fabric_port_overflow": "the fabric law",
     "fabric_miku": "the fabric law",

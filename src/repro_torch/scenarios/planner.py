@@ -3,8 +3,8 @@
 
 Grid axes expand in declaration order, row-major, so the port's rows line
 up with ``repro.scenarios.run_scenario``'s.  A grid scenario's jobs run in
-one batched sweep on the port's device; a ``run_cell`` scenario runs cell
-by cell.  ``trace=True`` records every grid job's per-window telemetry and
+one sweep, on the batched lane on the port's device or on the scalar DES;
+a ``run_cell`` scenario runs cell by cell.  ``trace=True`` records every grid job's per-window telemetry and
 returns it beside the rows, in the reference's ``ResultTable.traces``
 schema.
 """
@@ -73,11 +73,12 @@ def plan(
 
 def run_scenario(
     name: str, overrides: Optional[Dict[str, Any]] = None, device=None, *,
-    trace: bool = False,
+    trace: bool = False, lane: str = "batched", processes: Optional[int] = None,
 ):
     """Run a scenario on ``device`` (the card unless ``"cpu"``) and return
-    its rows in cell order: a grid scenario on the batched lane, a
-    ``run_cell`` scenario cell by cell.
+    its rows in cell order: a grid scenario's jobs in one sweep on ``lane``
+    (``"batched"``, or ``"scalar"``: one DES per job on the host, over
+    ``processes`` workers), a ``run_cell`` scenario cell by cell.
 
     ``trace=True`` (grid scenarios only; a ``run_cell`` scenario raises
     ``ValueError``) sets ``record_windows`` on every job and returns
@@ -98,7 +99,7 @@ def run_scenario(
         planned = [(cell, pm, [dataclasses.replace(j, record_windows=True) for j in js])
                    for cell, pm, js in planned]
     jobs = [j for _, _, js in planned for j in js]
-    results = run_sweep(jobs, lane="batched", device=dev)
+    results = run_sweep(jobs, lane=lane, device=dev, processes=processes)
     traces: List[Dict[str, Any]] = []
     i = 0
     for cell, pm, cell_jobs in planned:

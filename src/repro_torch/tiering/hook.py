@@ -1,22 +1,26 @@
 """Tiering hook: TieringSpec (picklable config) -> TieringHook (per job).
 
-A copy of ``repro.tiering.hook`` trimmed to what the batched lane needs:
+A copy of ``repro.tiering.hook``.  The DES
+(:class:`~repro_torch.core.des.TieredMemorySim`) drives a hook through
+three duck-typed entry points:
 
 * ``migration_workloads(platform)`` — the per-slow-tier MIGRATE
   pseudo-workloads (``mig-<tier>``) appended to the job's workload list
-  (kernel migration daemons: a few cores issuing page-copy traffic).
-* ``bind(export, platform)`` — resolve tier codes, build the
-  PageMap/engine/policy, write the *initial* PageMap-derived routing into
-  the job's exported state and gate the migration workloads closed.
-* ``summary()`` — the end-of-run summary of ``SimResult.tiering``.
+  (kernel migration daemons: a few cores issuing page-copy traffic);
+* ``bind(sim)`` — resolve tier codes, build the PageMap/engine/policy,
+  write the *initial* PageMap-derived routing into the sim's issue tables
+  and gate the migration workloads closed;
+* ``on_window(sim)`` — once a control window, after the ControlLoop fired:
+  drain migration completions into page moves, feed demand completions to
+  the hotness tracker, run the policy, re-resolve each tracked workload's
+  routing and re-gate migration issue.
 
-The reference binds to a live ``TieredMemorySim`` and writes into its issue
-tables.  The port has no event DES, so :meth:`TieringHook.bind` works on the
-exported state of :func:`repro_torch.core.des.export_state` instead and
-leaves it equal to what the reference's bound sim exports.  The scalar
-per-window pass (``on_window``) needs the event DES, which is not ported
-(ROADMAP queue A, "the scalar DES lane"); the batched lane's twin
-:class:`~repro_torch.memsim.batched.tiering.VectorTiering` runs that pass.
+The batched lane binds a hook to a job's exported state instead
+(``bind_export``, through :func:`repro_torch.core.des.export_state`), which
+it leaves equal to what a bound sim exports; its twin
+:class:`~repro_torch.memsim.batched.tiering.VectorTiering` runs the
+per-window pass for a whole cell group.  ``summary()`` is the end-of-run
+summary of ``SimResult.tiering``.
 """
 
 from __future__ import annotations
@@ -25,13 +29,14 @@ import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
-from repro_torch.core.des import WorkloadSpec
+from repro_torch.core.controller import TierDecisions
+from repro_torch.core.des import WorkloadSpec, cumulative_fractions
 from repro_torch.core.device_model import PlatformModel
 from repro_torch.core.invariants import require
 from repro_torch.core.littles_law import OpClass
 from repro_torch.tiering.engine import MigrationEngine
 from repro_torch.tiering.pagemap import HotSetPattern, PageMap
-from repro_torch.tiering.policies import make_policy
+from repro_torch.tiering.policies import PolicyContext, make_policy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +80,7 @@ MIG_PREFIX = "mig-"
 
 
 class TieringHook:
-    """Per-job tiering state, bound to the job's exported state."""
+    """Per-job tiering state machine (see the module docstring)."""
 
     def __init__(self, spec: TieringSpec) -> None:
         self.spec = spec
@@ -99,14 +104,17 @@ class TieringHook:
             for tier in platform.tier_names[1:]
         ]
 
-    def bind(self, export: dict, platform: PlatformModel) -> None:
-        """Attach to a job's exported state (its workload list already holds
-        :meth:`migration_workloads`): resolve regions, write the initial
-        routing vectors and gate the migration workloads closed."""
+    # -- binding -----------------------------------------------------------
+    def _build(self, platform: PlatformModel, w_names: List[str], granularity: int,
+               effmlp: List[int]) -> None:
+        """The PageMap, engine and policy of a job whose workload list (the
+        migration workloads included) is ``w_names``; gates the migration
+        workloads closed in ``effmlp`` (effective MLP 0 until there is
+        backlog), remembering each one's own."""
         spec = self.spec
-        names = tuple(export["tier_names"])
+        names = platform.tier_names
         self.pagemap = PageMap(names, spec.fast_capacity_pages, decay=spec.hotness_decay)
-        wl_names = set(export["w_names"])
+        wl_names = set(w_names)
         for region in spec.regions:
             if region.workload not in wl_names:
                 raise ValueError(
@@ -118,49 +126,160 @@ class TieringHook:
         self.policy = make_policy(spec.policy, **spec.policy_args)
         # One page's copy = page_bytes of traffic on its slow link, issued
         # as MIGRATE macro-requests of (access_bytes x granularity) each.
-        g = export["granularity"]
         self.engine = MigrationEngine({
-            code: math.ceil(spec.page_bytes / (platform.tiers[code].access_bytes * g))
+            code: math.ceil(spec.page_bytes
+                            / (platform.tiers[code].access_bytes * granularity))
             for code in range(1, len(names))
         })
-        wi_by_name = {n: i for i, n in enumerate(export["w_names"])}
+        wi_by_name = {n: i for i, n in enumerate(w_names)}
         self._region_wi = {r.workload: wi_by_name[r.workload] for r in spec.regions}
         self._mig_wi: Dict[int, int] = {
             code: wi_by_name[f"{MIG_PREFIX}{tier}"]
             for code, tier in enumerate(names) if code > 0
         }
-        # Gate migration issue closed until there is backlog (effective MLP
-        # 0), remembering each pseudo-workload's own.
-        self._mig_effmlp = {wi: export["w_effmlp"][wi] for wi in self._mig_wi.values()}
+        self._mig_effmlp = {wi: effmlp[wi] for wi in self._mig_wi.values()}
         for wi in self._mig_wi.values():
-            export["w_effmlp"][wi] = 0
-        self._apply_placements(export)
+            effmlp[wi] = 0
 
-    def _apply_placements(self, export: dict) -> None:
-        """Write each tracked workload's PageMap-derived routing vector into
-        the export, as the reference's bound sim exports it: the
-        ``ddr_fraction`` pair on two-tier platforms, the fractions implied
-        by the cumulative draw boundaries (the last one open) on others."""
-        require(self.pagemap is not None, "tiering-bind",
-                "_apply_placements before bind(): the hook has no PageMap")
-        n = export["n_tiers"]
+    def bind(self, sim) -> None:
+        """Attach to a constructed :class:`~repro_torch.core.des.
+        TieredMemorySim` (its workload list holds
+        :meth:`migration_workloads`): resolve the regions, gate the migration
+        workloads and write the initial routing into its issue tables."""
+        self._build(sim.platform, [w.name for w in sim.workloads], sim.granularity,
+                    sim._w_effmlp)
+        self._stat_mark = list(sim._stat_completed)
+        self._apply_placements(sim)
+
+    def bind_export(self, export: dict, platform: PlatformModel) -> None:
+        """Attach to a job's exported state instead of a live sim (the
+        batched lane's planning): the export's routing vectors and effective
+        MLPs become a bound sim's."""
+        self._build(platform, list(export["w_names"]), export["granularity"],
+                    export["w_effmlp"])
         for name, wi in self._region_wi.items():
             fr = self.pagemap.regions[name].tier_fractions()
-            vec = [0.0] * n
-            if n == 2:
+            if export["n_tiers"] == 2:
                 frac = float(fr[0])
-                vec[0], vec[1] = frac, 1.0 - frac
+                export["w_tier_frac"][wi] = [frac, 1.0 - frac]
             else:
                 cum, acc = [], 0.0
                 for f in fr:
                     acc += float(f)
                     cum.append(acc)
-                prev = 0.0
-                for t in range(n):
-                    hi = 1.0 if t == n - 1 else min(cum[t], 1.0)
-                    vec[t] = max(0.0, hi - prev)
-                    prev = hi
-            export["w_tier_frac"][wi] = vec
+                export["w_tier_frac"][wi] = cumulative_fractions(cum)
+
+    # -- per-window pass ---------------------------------------------------
+    def on_window(self, sim) -> bool:
+        """One per-window tiering pass: sample accesses into the PageMap,
+        drain completed copies, run the policy, re-resolve placements and
+        budgets.  Returns True when routing or budgets changed."""
+        require(self.pagemap is not None, "tiering-bind",
+                "on_window before bind(): the hook has no PageMap yet")
+        self._windows += 1
+        completed = sim._stat_completed
+        deltas = [c - m for c, m in zip(completed, self._stat_mark)]
+        self._stat_mark = list(completed)
+
+        # 1. Completed MIGRATE traffic retires jobs and flips pages.
+        promoted = demoted = 0
+        mig_done: Dict[str, int] = {}
+        for code, wi in self._mig_wi.items():
+            if deltas[wi]:
+                mig_done[sim.platform.tier_names[code]] = deltas[wi]
+                p, d = self.engine.on_completions(code, deltas[wi], self.pagemap)
+                promoted += p
+                demoted += d
+
+        # 2. Demand completions are the sampled access stream that feeds the
+        #    hotness tracker.
+        for name, wi in self._region_wi.items():
+            self.pagemap.record_window(name, deltas[wi])
+
+        # 3. The policy, under the control plane's latest view.
+        ctx = PolicyContext(
+            window=self._windows,
+            tier_names=sim.platform.tier_names,
+            engine=self.engine,
+            decisions=self._latest_decisions(sim),
+            budgets=self._budgets(sim),
+        )
+        jobs = self.policy.decide(self.pagemap, ctx)
+        enqueued = self.engine.enqueue(jobs)
+        self.deferred_jobs += ctx.deferred
+
+        # 4. Routing re-resolution and migration issue gating: only a window
+        #    that moved routing or re-opened migration issue makes the DES
+        #    re-pump its issue path.
+        changed = self._apply_placements(sim)
+        for code, wi in self._mig_wi.items():
+            want = self._mig_effmlp[wi] if self.engine.pending_reqs(code) else 0
+            if sim._w_effmlp[wi] != want:
+                sim._w_effmlp[wi] = want
+                changed = True
+
+        self.window_log.append({
+            "window": self._windows,
+            "t_ns": sim.now,
+            "promoted": promoted,
+            "demoted": demoted,
+            "enqueued": enqueued,
+            "deferred": ctx.deferred,
+            "backlog_pages": self.engine.backlog_pages(),
+            "migrated_bytes": self.engine.migrated_bytes,
+            "mig_reqs_completed": mig_done,
+            "fast_fraction": {
+                name: self.pagemap.fast_fraction(name) for name in self._region_wi
+            },
+        })
+        return changed
+
+    @staticmethod
+    def _latest_decisions(sim) -> Optional[TierDecisions]:
+        ds = sim.control.decisions
+        if ds and isinstance(ds[-1], TierDecisions):
+            return ds[-1]
+        return None
+
+    @staticmethod
+    def _budgets(sim) -> Optional[Dict[str, int]]:
+        budgets = getattr(sim.controller, "migration_budgets", None)
+        return budgets() if callable(budgets) else None
+
+    def _apply_placements(self, sim) -> bool:
+        """Write each tracked workload's PageMap-derived routing into the
+        sim's issue tables (two-tier platforms stay on the single-draw
+        ``ddr_fraction`` path) and refold its throttle.  Returns whether any
+        routing entry changed."""
+        require(self.pagemap is not None, "tiering-bind",
+                "_apply_placements before bind(): the hook has no PageMap")
+        n = sim._n_tiers
+        changed = False
+        for name, wi in self._region_wi.items():
+            fr = self.pagemap.regions[name].tier_fractions()
+            if n == 2:
+                frac = float(fr[0])
+                if sim._w_frac[wi] != frac:
+                    sim._w_frac[wi] = frac
+                    sim._w_cum[wi] = None
+                    sim._w_placed_slow[wi] = ()
+                    sim._recompute_throttle(wi)
+                    changed = True
+            else:
+                acc = 0.0
+                cum = []
+                for f in fr:
+                    acc += float(f)
+                    cum.append(acc)
+                cum[-1] = float("inf")
+                cum = tuple(cum)
+                if sim._w_cum[wi] != cum:
+                    sim._w_frac[wi] = None
+                    sim._w_cum[wi] = cum
+                    sim._w_placed_slow[wi] = tuple(i for i in range(1, n) if fr[i] > 0.0)
+                    sim._recompute_throttle(wi)
+                    changed = True
+        return changed
 
     def summary(self) -> dict:
         """End-of-run summary (pages promoted/demoted, migrated bytes,

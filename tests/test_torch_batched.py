@@ -29,6 +29,7 @@ from repro.memsim.batched.stacking import BatchGroup as RefGroup
 from repro.memsim.batched.stacking import plan_cell as ref_plan_cell
 from repro.memsim.calibration import default_miku as ref_default_miku
 from repro.memsim.sweep import SimJob as RefJob
+from repro.memsim.sweep import run_sweep as ref_run_sweep
 from repro.memsim.workloads import bw_test as ref_bw_test
 from repro.scenarios import plan as ref_plan
 from repro.scenarios import run_scenario as ref_run_scenario
@@ -502,9 +503,9 @@ def test_run_scenario_rows_match_reference(monkeypatch):
 
 
 def test_lane_refuses_what_is_still_not_ported():
-    """The per-edge law (it needs the fabric) and the scalar lane are not
-    ported: the lane names them instead of falling back.  The merged law
-    and per-window telemetry now run (tests/test_torch_corun3.py and
+    """The per-edge law (it needs the fabric) is still refused, and named;
+    the scalar lane now runs and equals the reference's.  The merged law
+    and per-window telemetry run batched (tests/test_torch_corun3.py and
     tests/test_torch_fig13_14.py hold them to the reference)."""
     p = platform_a()
     two = [bw_test("ddr", OpClass.LOAD, 4, name="ddr", miku_managed=False),
@@ -522,8 +523,14 @@ def test_lane_refuses_what_is_still_not_ported():
     assert plans[1].merged and len(plans[1].units) == 1 and plans[3] is None
     with pytest.raises(NotImplementedError, match="peredge"):
         run_sweep_batched([peredge], device="cpu")
-    with pytest.raises(NotImplementedError, match="scalar DES"):
-        run_sweep([single], lane="scalar", device="cpu")
+    (got,) = run_sweep([single], lane="scalar", device="cpu")
+    ref_single = RefJob(platform=ref_platform_a(),
+                        workloads=[ref_bw_test("ddr", RefOp.LOAD, 16)], sim_ns=20_000.0)
+    (want,) = ref_run_sweep([ref_single], lane="scalar")
+    name = single.workloads[0].name
+    assert (got.stats[name].completed, got.stats[name].latency_samples, got.tor_inserts) \
+        == (want.stats[name].completed, want.stats[name].latency_samples, want.tor_inserts)
+    assert got.bandwidth(name) == want.bandwidth(name) > 0
     with pytest.raises(ValueError, match="miku_law"):
         SimJob(platform=p, workloads=two, sim_ns=1.0, miku_law="bogus")
 

@@ -49,7 +49,7 @@ from repro_torch.memsim.batched.fluid import COUNTS
 from repro_torch.memsim.batched.lane import run_sweep_batched
 from repro_torch.memsim.batched.stacking import BatchGroup, plan_cell
 from repro_torch.memsim.batched.tiering import build_tiering
-from repro_torch.memsim.sweep import SimJob
+from repro_torch.memsim.sweep import SimJob, run_sweep
 from repro_torch.memsim.workloads import bw_test
 from repro_torch.scenarios import plan, run_scenario
 from repro_torch.tiering import HotSetPattern, RegionSpec, TieringSpec
@@ -394,9 +394,12 @@ def test_a_foreign_policy_is_refused_by_name(monkeypatch):
         return SimJob(platform=PLATFORMS["A"], workloads=wls, sim_ns=20_000.0,
                       tiering=spec)
 
-    with pytest.raises(NotImplementedError, match="foreign"):
-        run_sweep_batched([job("foreign")], device="cpu")
-    with pytest.raises(NotImplementedError, match="foreign"):
+    # The scalar DES runs it (the reference's fallback), bit for bit.
+    (fell,) = run_sweep_batched([job("foreign")], device="cpu")
+    (scalar,) = run_sweep([job("foreign")], lane="scalar")
+    assert fell.tiering == scalar.tiering and fell.tiering["policy"] == "foreign"
+    assert fell.stats["app"].latency_samples == scalar.stats["app"].latency_samples
+    with pytest.raises(ValueError, match="foreign"):
         build_tiering(BatchGroup([(0, plan_cell(job("foreign")))]))
     # A subclass of a vectorized policy runs as that policy, as in the
     # reference's twin.

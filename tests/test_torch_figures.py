@@ -193,8 +193,8 @@ def test_mva_analyze_matches_reference(op, fast, slow):
 def test_registry_refuses_what_it_cannot_plan():
     with pytest.raises(ValueError, match="run_cell"):
         plan("fig11_llm")
-    with pytest.raises(NotImplementedError, match="scalar DES"):
-        run_scenario("fig2_tiering", device="cpu")
+    with pytest.raises(NotImplementedError, match="the fabric"):
+        run_scenario("fabric_miku", device="cpu")
     with pytest.raises(KeyError, match="unknown scenario"):
         plan("fig99")
 
@@ -204,9 +204,10 @@ def test_sweep_cli_lists_every_scenario(capsys):
 
     main(["--list"])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == len(SCENARIOS) == 19
+    assert len(lines) == len(SCENARIOS) == 20
     assert [line.split(":")[0] for line in lines] == list(SCENARIOS)
-    assert "fig11_llm" in SCENARIOS and "arch=llama31-8b" in lines[9]
+    assert lines[0].startswith("fig2_tiering:")
+    assert "fig11_llm" in SCENARIOS and "arch=llama31-8b" in lines[10]
 
 
 def test_sweep_cli_prints_fig9_rows_on_cpu(capsys):
