@@ -16,10 +16,13 @@ of the rate (1e-3), not of the leaf.  With compression the int8 rounding of
 (g + residual) / scale is discontinuous: an element within f32 noise of a
 half-quantum rounds the other way in one framework.  So there each
 ef_residual element is held within one quantum (twice the residual's
-bound) and all but 0.1% of them within 1e-2 of a quantum (the residual is
-g less its rounding, a difference of numbers up to 127 quanta, so 1e-6 of
-the gradient is 1e-4 of a quantum); every other leaf is held as without
-compression on all but 0.1% of its elements (the flipped ones)."""
+bound); an element beyond 1e-2 of a quantum is a flip (the residual is g
+less its rounding, a difference of numbers up to 127 quanta, so 1e-6 of
+the gradient is 1e-4 of a quantum), and the flips over the whole state
+are at most 0.1% of the ef_residual elements.  A flip moves m, v, the
+master and the param at its own index only, so every element of those
+leaves at an index that did not flip is held to the uncompressed bounds,
+on every leaf however small."""
 
 import dataclasses
 
@@ -102,24 +105,38 @@ def test_train_step_matches_reference(case):
     assert metrics[0][1]["lr"] == 0.0 and metrics[1][1]["lr"] > 0.0
     if arch == "dbrx-132b":
         assert all(tm["aux_loss"] > 0 for _, tm in metrics)
+    flips = {}  # ef_residual leaf suffix -> its elements that rounded the other way
+    n_residual = 0
+    for key, w in want.items():
+        if not key.startswith("ef_residual/"):
+            continue
+        w = np.asarray(w, np.float32)
+        err = np.abs(got[key] - w)
+        quantum = 2 * max(float(np.abs(w).max()), 1e-30)  # |residual| <= quantum / 2
+        assert err.max() <= 1.01 * quantum, key
+        flips[key[len("ef_residual/"):]] = err > 1e-2 * quantum
+        n_residual += w.size
+    n_flips = sum(int(f.sum()) for f in flips.values())
+    assert n_flips <= 1e-3 * max(n_residual, 1), (n_flips, n_residual)
     for key, w in want.items():
         g = got[key]
         w = np.asarray(w, np.float32)
         assert g.shape == w.shape, key
-        scale = max(float(np.abs(w).max()), 1e-30)
-        err = np.abs(g - w)
         if key == "opt/step":
             assert int(g) == int(w) == STEPS
             continue
         if key.startswith("ef_residual/"):
-            quantum = 2 * scale  # |residual| <= quantum / 2
-            assert err.max() <= 1.01 * quantum, key
-            bad = err > 1e-2 * quantum
-        elif key.startswith(("opt/m/", "opt/v/")):
+            continue
+        scale = max(float(np.abs(w).max()), 1e-30)
+        err = np.abs(g - w)
+        if key.startswith(("opt/m/", "opt/v/")):
             bad = err > MOMENT_REL * scale
         else:
             bad = err > PARAM_TOL["atol"] + PARAM_TOL["rtol"] * np.abs(w)
-        if compression:
-            assert bad.mean() <= 1e-3, (key, int(bad.sum()), bad.size)
-        else:
-            assert not bad.any(), (key, float(err.max()), scale)
+        # A flipped element moves m, v, the master and the param at its own
+        # index only; every other element is held as without compression.
+        suffix = key.split("/", 2)[-1] if key.startswith("opt/") else key.split("/", 1)[-1]
+        flipped = flips.get(suffix)
+        if flipped is not None and flipped.shape == bad.shape:
+            bad = bad & ~flipped
+        assert not bad.any(), (key, float(err[bad].max()) if bad.any() else 0.0, scale)
