@@ -214,10 +214,27 @@ Phases, each printed as one JSON line:
      field), K3 launched for the co-runs (6), every job a result;
  37. fig2: run_scenario("fig2_tiering") (its cells on the scalar DES): each
      op's upper_ddr_only and lower_cxl_only equal to the fig3 goldens of
-     that op, every column printed, and the wall.
+     that op, every column printed, and the wall;
+ 38. fabric: the routed fabric on the card's host: the live spine co-run
+     under the per-edge law equal to tests/data/fabric_trace_goldens.json
+     (decisions, window records, fabric summary, bandwidths); the three
+     fabric scenarios through run_scenario(lane="batched") on the card,
+     every job a "fabric_topology" fallback, rows equal to the scalar
+     lane's, the acceptance (racing ddr_pct_of_alone < 10, peredge > 60,
+     spine restricted windows, stalls; port_limited 1 below the crossover
+     and 0 at 2048; peredge sparing host0's CXL better than pertier);
+ 39. fabric_direct: corun_sweep's 96 cells with A-direct in place of A,
+     batched on the card (K3 launches must be 60), every numeric field
+     equal to the A grid's; a per-edge co-run on A-direct falling back to
+     the scalar DES and equal to the per-tier co-run on A;
+ 40. open_loop: slo_knee's golden cell equal to
+     tests/data/slo_knee_trace_goldens.json, slo_knee's 20 rows and
+     flash_crowd's rows with their acceptance, and a mixed list of an
+     arrival job beside two MIKU co-runs batched on the card (K3 launches
+     must be 6), the fallback named "arrival" and equal to the scalar run.
 The figures' plain lane runs in CPU worker processes from the build on.
 They run in this order: 1-5, 21, 25, 22, 26, 24, 23, 12, 20, 13, 6, 7, 9, 14, 16, 18, 19,
-34-37, 17, 15, 8, 10, 11, 27-33.  Every line carries ``elapsed_s``, the seconds since the script started.
+34-40, 17, 15, 8, 10, 11, 27-33.  Every line carries ``elapsed_s``, the seconds since the script started.
 The line before the last lists every kernel's numbers; the last line is the
 device summary.  Any failed check exits non-zero; without CUDA (or without
 the rest of the repository beside this file) it exits non-zero at once.
@@ -676,6 +693,9 @@ def main() -> None:
     lanes = lanes_check(dev)
     fallback = lane_fallback(dev)
     fig2_phase(dev)
+    fabric_phase(dev)
+    direct = fabric_direct(dev)
+    open_loop = open_loop_phase(dev)
     k3_88 = k3_instance_timing(dev, figures3.pop("firsts"),
                                next(lib for lib in libs if lib.name.startswith("fluid_solver"))
                                .with_suffix(".ptxas.txt"))
@@ -775,6 +795,10 @@ def main() -> None:
         # beside a job that falls back to it.
         "lanes_check_launches": lanes["k3_launches"],
         "lane_fallback_launches": fallback["k3_launches"],
+        # corun_sweep on the all-transparent A-direct, and the batchable
+        # co-runs beside an open-loop job that falls back by name.
+        "fabric_direct_launches": direct["k3_launches"],
+        "open_loop_launches": open_loop["k3_launches"],
         **k3_row,
     }, {
         "name": "ssd_scan",
@@ -1219,6 +1243,8 @@ def sweep_phase(dev):
 #: the mean relative bandwidth error; on its five cells of
 #: test_corun_racing_equivalence / test_corun_miku_equivalence (platform A,
 #: 16 threads, mlp 160) their own bounds.
+#: The routed fabric's scenarios (their jobs fall back to the scalar DES).
+FABRIC_SCENARIOS = ("fabric_spine_congestion", "fabric_port_overflow", "fabric_miku")
 LANES_WORST_BOUND = 0.15
 LANES_MEAN_BOUND = 0.03
 LANES_RACING_BW = 0.05
@@ -1274,11 +1300,14 @@ def des_mismatches(a, b) -> list:
                 != (y.inserts, y.occupancy_time, dict(y.class_counts)):
             out.append(f"tier_counters[{t}]")
     for key in ("tor_peak", "tor_inserts", "tor_occupancy_integral",
-                "per_tier_occupancy_integral", "tiering"):
+                "per_tier_occupancy_integral", "tiering", "fabric", "arrival"):
         if getattr(a, key) != getattr(b, key):
             out.append(key)
     if [decision(d) for d in a.decisions] != [decision(d) for d in b.decisions]:
         out.append("decisions")
+    if json.dumps(a.window_records, sort_keys=True) != json.dumps(b.window_records,
+                                                                   sort_keys=True):
+        out.append("window_records")
     return out
 
 
@@ -1511,6 +1540,240 @@ def fig2_phase(dev):
               "differ from the fig3 goldens")
         check(all(_finite(v) and v > 0 for k, v in r.items() if isinstance(v, float)),
               f"fig2 {r['op']}: non-finite or zero column {r}")
+
+
+# -- the routed fabric and open-loop arrivals (their jobs run on the scalar DES) --
+
+
+def fabric_phase(dev):
+    """The routed fabric on the card's host.  The live spine co-run under the
+    per-edge law reproduces tests/data/fabric_trace_goldens.json (each
+    window's per-edge decisions and records, the fabric summary, the
+    bandwidths).  The three fabric scenarios run through
+    ``run_scenario(lane="batched")`` on the card: every job is a
+    ``"fabric_topology"`` fallback, each row equals the scalar lane's, and
+    tests/test_fabric.py's acceptance of fabric_spine_congestion holds, with
+    the crossover of fabric_port_overflow and the spared host of
+    fabric_miku."""
+    from repro_torch.core.des import TieredMemorySim
+    from repro_torch.core.littles_law import OpClass
+    from repro_torch.fabric import peredge_miku, spine_leaf_platform
+    from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.memsim.batched.lane import partition_jobs
+    from repro_torch.memsim.workloads import bw_test
+    from repro_torch.scenarios import plan, run_scenario
+
+    with open(os.path.join(HERE, "tests", "data", "fabric_trace_goldens.json")) as f:
+        blob = json.load(f)
+    pm = spine_leaf_platform()
+    op, n = OpClass(blob["op"]), blob["n_threads"]
+    wls = [bw_test("ddr", op, n, name="ddr", miku_managed=False, host="host0"),
+           bw_test("cxl", op, n, name="cxl0", host="host0"),
+           bw_test("cxl", op, n, name="cxl1", host="host1")]
+    t0 = time.perf_counter()
+    res = TieredMemorySim(pm, wls, seed=0, granularity=4, controller=peredge_miku(pm, 4),
+                          window_ns=blob["window_ns"], record_windows=True,
+                          control_scope="edge").run(blob["sim_ns"])
+    golden_wall = time.perf_counter() - t0
+    edges = tuple(blob["edge_names"])
+    decisions_equal = len(res.decisions) == len(blob["windows"]) and all(
+        d.tiers == edges and all(
+            (d.for_tier(e).max_concurrency, d.for_tier(e).rate_factor,
+             d.for_tier(e).phase.value)
+            == tuple(w["decision"][e][k] for k in ("max_concurrency", "rate_factor", "phase"))
+            for e in edges)
+        for d, w in zip(res.decisions, blob["windows"]))
+    golden = dict(windows=len(blob["windows"]), decisions_equal=decisions_equal,
+                  records_equal=res.window_records == blob["windows"],
+                  fabric_equal=res.fabric == blob["fabric"],
+                  bandwidths={w: res.bandwidth(w) for w in blob["bandwidths"]},
+                  bandwidths_equal=all(res.bandwidth(w) == bw
+                                       for w, bw in blob["bandwidths"].items()),
+                  completed=sum(s.completed for s in res.stats.values()), wall_s=golden_wall)
+    rows, walls, fallbacks = {}, {}, {}
+    fs.WINDOW_SOLVE_LAUNCHES.reset()
+    for name in FABRIC_SCENARIOS:
+        jobs = [j for _, _, js in plan(name) for j in js]
+        fallbacks[name] = [reason for _, reason in partition_jobs(jobs)[1]]
+        t0 = time.perf_counter()
+        rows[name] = run_scenario(name, device=dev, lane="batched")
+        walls[name] = time.perf_counter() - t0
+        check(len(fallbacks[name]) == len(jobs)
+              and set(fallbacks[name]) == {"fabric_topology"},
+              f"fabric {name}: fallbacks {fallbacks[name]} for {len(jobs)} jobs")
+    launches = fs.WINDOW_SOLVE_LAUNCHES.count
+    scalar = {name: run_scenario(name, device=dev, lane="scalar") for name in rows}
+    spine = {r["law"]: r for r in rows["fabric_spine_congestion"]}
+    port = {r["port_queue"]: r["port_limited"] for r in rows["fabric_port_overflow"]}
+    miku = {r["law"]: r for r in rows["fabric_miku"]}
+    emit("fabric", golden=golden, rows=rows, walls_s=walls, fallbacks=fallbacks,
+         rows_equal_scalar={name: rows[name] == scalar[name] for name in rows},
+         k3_launches=launches, host_cpu=host_cpu())
+    check(decisions_equal and golden["records_equal"] and golden["fabric_equal"]
+          and golden["bandwidths_equal"],
+          f"fabric: the spine co-run differs from fabric_trace_goldens.json: {golden}")
+    for name in rows:
+        check(rows[name] == scalar[name], f"fabric {name}: batched-lane rows differ from "
+              "the scalar lane's")
+    check(spine["racing"]["ddr_pct_of_alone"] < 10.0
+          and spine["peredge"]["ddr_pct_of_alone"] > 60.0
+          and spine["peredge"]["spine_restricted_windows"] > 0
+          and spine["racing"]["spine_stall_events"] > spine["peredge"]["spine_stall_events"],
+          f"fabric_spine_congestion: acceptance fails on {spine}")
+    check(port == {64: 1, 256: 1, 1024: 1, 2048: 0},
+          f"fabric_port_overflow: port_limited {port}")
+    check(miku["peredge"]["cxl0_pct_of_alone"] > miku["pertier"]["cxl0_pct_of_alone"],
+          f"fabric_miku: peredge spares host0's CXL no better than pertier: {miku}")
+    check(launches == 0, f"fabric: {launches} K3 launches for jobs that all fall back")
+
+
+def fabric_direct(dev):
+    """The degenerate all-transparent ``A-direct`` on the card: corun_sweep's
+    96 cells with A-direct in place of A, batched (K3's count set to 0 just
+    before and read just after: 60, as on A in lanes_check), each row equal
+    in every numeric field to the A grid's in this process; then one
+    per-edge co-run on A-direct, which falls back to the scalar DES by name
+    and equals the per-tier co-run on A (tests/test_fabric.py's degenerate
+    identity)."""
+    import torch
+
+    from repro_torch.core.device_model import PLATFORMS
+    from repro_torch.core.littles_law import OpClass
+    from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.memsim.batched import fluid
+    from repro_torch.memsim.batched.lane import partition_jobs, run_sweep_batched
+    from repro_torch.memsim.sweep import SimJob, run_sweep
+    from repro_torch.memsim.workloads import bw_test
+    from repro_torch.scenarios import run_scenario
+
+    grids = {}
+    for platforms in (("A-direct", "B"), ("A", "B")):
+        fs.WINDOW_SOLVE_LAUNCHES.reset()
+        fluid.COUNTS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = run_scenario("corun_sweep", {"platform": platforms}, device=dev)
+        torch.cuda.synchronize()
+        grids[platforms[0]] = dict(rows=rows, wall_s=time.perf_counter() - t0,
+                                   k3_launches=fs.WINDOW_SOLVE_LAUNCHES.count,
+                                   windows=fluid.COUNTS.windows)
+    direct, plain = grids["A-direct"], grids["A"]
+    diff = [i for i, (a, b) in enumerate(zip(direct["rows"], plain["rows"]))
+            if {k: v for k, v in a.items() if k != "platform"}
+            != {k: v for k, v in b.items() if k != "platform"}]
+
+    def corun(platform, law, host):
+        wls = [bw_test("ddr", OpClass.LOAD, 16, name="ddr", miku_managed=False, host=host),
+               bw_test("cxl", OpClass.LOAD, 16, name="cxl", host=host)]
+        return SimJob(platform=PLATFORMS[platform], workloads=wls, sim_ns=120_000.0,
+                      miku=True, miku_law=law, record_windows=True)
+
+    edge_job = corun("A-direct", "peredge", "host0")
+    partition = partition_jobs([edge_job])
+    t0 = time.perf_counter()
+    (edge,) = run_sweep_batched([edge_job], device=dev, partition=partition)
+    edge_wall = time.perf_counter() - t0
+    (tier,) = run_sweep([corun("A", "pertier", None)], lane="scalar")
+    mismatch = des_mismatches(edge, tier)
+    emit("fabric_direct", cells=len(direct["rows"]), k3_launches=direct["k3_launches"],
+         windows=direct["windows"], a_k3_launches=plain["k3_launches"],
+         wall_s=direct["wall_s"], a_wall_s=plain["wall_s"], rows_differing=diff,
+         identity_fallbacks=partition[1], identity_mismatches=mismatch,
+         identity_decisions=len(edge.decisions), identity_wall_s=edge_wall,
+         identity_gbps={w: edge.bandwidth(w) for w in edge.stats})
+    check(len(direct["rows"]) == 96 and not diff,
+          f"fabric_direct: rows {diff} differ from the A grid's")
+    check(direct["k3_launches"] == direct["windows"] == 60,
+          f"fabric_direct: {direct['k3_launches']} K3 launches for {direct['windows']} "
+          "windows, not 60")
+    check(partition[1] == [(0, "fabric_topology")],
+          f"fabric_direct: the per-edge co-run's fallback {partition[1]}")
+    check(not mismatch and edge.decisions and edge.fabric is None,
+          f"fabric_direct: the per-edge co-run on A-direct differs from the per-tier one "
+          f"on A in {mismatch}")
+    return dict(k3_launches=direct["k3_launches"])
+
+
+def open_loop_phase(dev):
+    """Open-loop arrivals on the card's host: slo_knee's golden cell
+    reproduces tests/data/slo_knee_trace_goldens.json's windows, slo_knee's
+    20 rows and flash_crowd's rows keep their acceptance (run on the
+    batched lane, whose arrival jobs fall back by name), and a mixed list of
+    one arrival job beside two MIKU co-runs runs batched on the card: K3
+    for the co-runs (its count set to 0 just before and read just after: 6),
+    the fallback named "arrival", its result the scalar lane's."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.core.device_model import platform_a
+    from repro_torch.core.littles_law import OpClass
+    from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.memsim.batched import fluid
+    from repro_torch.memsim.batched.lane import partition_jobs, run_sweep_batched
+    from repro_torch.memsim.sweep import SimJob, run_job, run_sweep
+    from repro_torch.memsim.workloads import bw_test, serve_test
+    from repro_torch.scenarios import plan, run_scenario
+    from repro_torch.workload import ArrivalSpec
+
+    with open(os.path.join(HERE, "tests", "data", "slo_knee_trace_goldens.json")) as f:
+        blob = json.load(f)
+    ((_, _, (job,)),) = plan("slo_knee", {"placement": blob["placement"],
+                                          "policy": blob["policy"], "rate": blob["rate"]})
+    t0 = time.perf_counter()
+    res = run_job(dc.replace(job, record_windows=True))
+    golden_wall = time.perf_counter() - t0
+    got = [{k: v for k, v in r.items() if k != "latency_hist"} for r in res.window_records]
+    golden_equal = json.loads(json.dumps(got)) == blob["windows"]
+    rows, walls = {}, {}
+    for name in ("slo_knee", "flash_crowd"):
+        t0 = time.perf_counter()
+        rows[name] = run_scenario(name, device=dev)
+        walls[name] = time.perf_counter() - t0
+    flash = {r["policy"]: r for r in rows["flash_crowd"]}
+
+    p = platform_a()
+    jobs = [SimJob(platform=p, workloads=[
+        serve_test(4, arrival=ArrivalSpec("poisson", rate=0.01, seed=7), ddr_fraction=0.5),
+        bw_test("cxl", OpClass.LOAD, 16, name="hog")], sim_ns=60_000.0, miku=True,
+        record_windows=True, latency_hist=True)]
+    for op in (OpClass.LOAD, OpClass.STORE):
+        jobs.append(SimJob(platform=p, workloads=[
+            bw_test("ddr", op, 16, name="ddr", miku_managed=False),
+            bw_test("cxl", op, 16, name="cxl")], sim_ns=60_000.0, miku=True))
+    partition = partition_jobs(jobs)
+    fs.WINDOW_SOLVE_LAUNCHES.reset()
+    fluid.COUNTS.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_sweep_batched(jobs, device=dev, partition=partition)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, windows = fs.WINDOW_SOLVE_LAUNCHES.count, fluid.COUNTS.windows
+    (scalar,) = run_sweep(jobs[:1], lane="scalar")
+    diff = des_mismatches(results[0], scalar)
+    emit("open_loop", golden_windows=len(blob["windows"]), golden_equal=golden_equal,
+         golden_wall_s=golden_wall, rows=rows, walls_s=walls, fallbacks=partition[1],
+         k3_launches=launches, windows=windows, mixed_wall_s=wall,
+         fallback_equals_scalar=not diff, mismatches=diff, arrival=results[0].arrival,
+         batched_gbps=[{w: r.bandwidth(w) for w in r.stats} for r in results[1:]],
+         host_cpu=host_cpu())
+    check(golden_equal, "open_loop: slo_knee's golden cell differs from "
+          "slo_knee_trace_goldens.json")
+    check(len(rows["slo_knee"]) == 20 and all(
+        r["generated"] == r["issued"] + r["shed"] + r["backlog"] and r["issued"] > 0
+        for r in rows["slo_knee"]), f"open_loop: slo_knee rows {rows['slo_knee']}")
+    check(flash["miku"]["peak_queue_depth"] < flash["racing"]["peak_queue_depth"]
+          and flash["miku"]["backlog"] == 0 < flash["racing"]["backlog"],
+          f"open_loop: flash_crowd's acceptance fails on {flash}")
+    check(partition[1] == [(0, "arrival")], f"open_loop: fallbacks {partition[1]}")
+    check(not diff, f"open_loop: the fallback differs from the scalar run in {diff}")
+    check(launches == windows == 6, f"open_loop: {launches} K3 launches for {windows} "
+          "windows, not 6")
+    check(all(_finite(r.bandwidth(w)) and r.bandwidth(w) > 0
+              for r in results for w in r.stats),
+          "open_loop: a job without a result")
+    return dict(k3_launches=launches)
 
 
 # -- the smoke serve CLI, fig11, the grid figures, MVA ---------------------------

@@ -21,12 +21,16 @@ returned per-tier core cap and token rate to slow-tier-bound workloads.
 :class:`TieredMemorySim` is the reference's flat-station engine (requests
 in parallel arrays recycled through a free-list, heap events packed into
 one integer, a latency reservoir on its own RNG) with the same draws in
-the same order, so its results equal the reference's bit for bit.  The
-reference's fabric hop stations, open-loop arrivals, runtime sanitizer,
-request tracer and edge-addressed control are not ported; neither
-:class:`WorkloadSpec` nor the platforms carry what they need.
-:func:`export_state` derives the static state the batched lane stacks
-without building the sim.
+the same order, so its results equal the reference's bit for bit.  It
+carries the reference's routed fabric (a platform's port-bearing links
+become hop stations with an entry limit and head-of-line backpressure,
+and ``control_scope="edge"`` addresses windows and decisions to control
+edges) and its open-loop arrivals (a workload with an ``arrival`` spec
+issues from a generated backlog).  With no fabric, an all-transparent
+one and no arrival spec, every branch of both is dead and the event chain
+is the flat-station one.  The reference's runtime sanitizer and request
+tracer are not ported.  :func:`export_state` derives the static state the
+batched lane stacks without building the sim.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ _EV_PHASE = 1
 _EV_WINDOW = 2
 _EV_TOKEN = 3
 _EV_RETIRE = 4  # data returned: the ToR entry frees, the core slot recycles
+_EV_ARRIVAL = 5  # open-loop arrival: one generated request joins its backlog
 _KIND_SHIFT = 32
 _SEQ_SHIFT = 36
 _ARG_MASK = 0xFFFFFFFF
@@ -82,7 +87,12 @@ class WorkloadSpec:
     ``dependent`` marks pointer chasing (MLP 1); ``sync`` the lat-share CAS
     loop; ``wss_mb`` with a finite ``llc_alloc_mb`` gives an LLC hit
     probability of min(1, alloc/wss).  ``ddr_fraction`` and ``placement``
-    interleave requests across tiers (mutually exclusive).
+    interleave requests across tiers (mutually exclusive).  ``host`` picks
+    the fabric host whose routes the requests take (default the topology's
+    first host; None on a platform without a fabric).  ``arrival`` (a
+    :class:`repro_torch.workload.ArrivalSpec`) makes the workload open-loop:
+    its cores issue only while its arrival backlog holds a request, and a
+    request's latency runs from its generation.
     """
 
     name: str
@@ -99,6 +109,8 @@ class WorkloadSpec:
     miku_managed: bool = True
     ddr_fraction: Optional[float] = None
     placement: Optional[Dict[str, float]] = None
+    host: Optional[str] = None
+    arrival: Optional[object] = None
 
     def effective_mlp(self, granularity: int = 1) -> int:
         """Outstanding simulated requests per core (macro-request units)."""
@@ -110,10 +122,23 @@ class WorkloadSpec:
 def validate_workloads(
     platform: PlatformModel, workloads: Sequence[WorkloadSpec]
 ) -> None:
-    """Raise :class:`UnknownTierError` for a tier the platform lacks and
-    ``ValueError`` for a malformed placement vector."""
+    """Raise :class:`UnknownTierError` for a tier (or fabric host) the
+    platform lacks and ``ValueError`` for a malformed placement vector, a
+    host on a fabric-less platform or an arrival that is no spec."""
     known = platform.tier_names
+    fabric = getattr(platform, "fabric", None)
     for w in workloads:
+        if w.host is not None:
+            if fabric is None:
+                raise ValueError(
+                    f"workload {w.name!r}: host {w.host!r} set but the "
+                    "platform carries no fabric topology"
+                )
+            if w.host not in fabric.hosts:
+                raise UnknownTierError(
+                    w.host, tuple(fabric.hosts), kind="fabric host",
+                    known_desc="topology hosts",
+                )
         if w.placement is not None and w.ddr_fraction is not None:
             raise ValueError(
                 f"workload {w.name!r}: placement and ddr_fraction are "
@@ -138,6 +163,12 @@ def validate_workloads(
                     f"workload {w.name!r}: placement fractions sum to "
                     f"{total}, expected 1.0"
                 )
+        if w.arrival is not None and not hasattr(w.arrival, "kind"):
+            raise ValueError(
+                f"workload {w.name!r}: arrival= expects a "
+                "repro.workload.arrivals.ArrivalSpec, got "
+                f"{type(w.arrival).__name__}"
+            )
 
 
 @dataclasses.dataclass
@@ -188,6 +219,13 @@ class SimResult:
     #: Tiering summary (pages promoted/demoted, migrated bytes, deferrals,
     #: final fast fractions); None unless the job carried a tiering spec.
     tiering: Optional[dict] = None
+    #: Per port-bearing link (keyed by link name): stall events, peak entry
+    #: occupancy and the entry limit (macro-request units); None unless some
+    #: route crosses a port.
+    fabric: Optional[dict] = None
+    #: Per open-loop workload: generated, issued, shed and the final backlog
+    #: (generated == issued + shed + backlog); None without an arrival spec.
+    arrival: Optional[dict] = None
     #: Wall-clock phase profile (setup, event loop, window passes); None
     #: unless the scalar job ran with ``profile=True``.
     profile: Optional[dict] = None
@@ -209,7 +247,10 @@ class TieredMemorySim:
     windowing, and the sim schedules its boundaries as events.  A tiering
     hook (:class:`repro_torch.tiering.hook.TieringHook`, duck-typed)
     contributes its migration workloads up front and runs its per-window
-    pass after each window's decision.
+    pass after each window's decision.  ``control_scope="edge"`` addresses
+    windows and decisions to control edges (each slow tier's device edge,
+    then each port-bearing link, as ``repro_torch.fabric.edge_names``
+    orders them) instead of slow tiers.
     """
 
     def __init__(
@@ -224,6 +265,7 @@ class TieredMemorySim:
         latency_reservoir: int = LATENCY_RESERVOIR,
         record_windows: bool = False,
         tiering=None,
+        control_scope: str = "tier",
         latency_hist: bool = False,
         profiler=None,
     ):
@@ -370,9 +412,120 @@ class TieredMemorySim:
                 self._rr_core.append(core)
                 self._out.append(0)
 
+        # Open-loop arrivals: a workload with an ``arrival`` spec is fed by a
+        # generator (its own seeded stream, never ``self.rng``) through
+        # _EV_ARRIVAL events into a backlog deque of (t_generated, key)
+        # pairs; its cores issue only while the backlog holds a request.
+        self._w_open: List[bool] = []
+        self._arr_q: List[deque] = []
+        self._arr_qlimit: List[Optional[int]] = []
+        self._arr_gen = [0] * n
+        self._arr_issued = [0] * n
+        self._arr_shed = [0] * n
+        self._arr_iter: List[Optional[object]] = []
+        self._arr_pending: List[Optional[Tuple[float, float]]] = []
+        for wi, w in enumerate(self.workloads):
+            arr = w.arrival
+            self._w_open.append(arr is not None)
+            self._arr_q.append(deque())
+            if arr is not None:
+                from repro_torch.workload.arrivals import arrival_iter
+
+                it = arrival_iter(arr, stream_seed=(seed << 8) ^ wi)
+                self._arr_qlimit.append(arr.queue_limit)
+                self._arr_iter.append(it)
+                self._arr_pending.append(next(it, None))
+            else:
+                self._arr_qlimit.append(None)
+                self._arr_iter.append(None)
+                self._arr_pending.append(None)
+        self._open_active = any(self._w_open)
+        self._arrival_log: List[dict] = []
+        self._arr_gen_mark = [0] * n
+        self._arr_issued_mark = [0] * n
+        self._arr_shed_mark = [0] * n
+
         # Return-flight latency per tier.
         self._pipe = tuple(d.pipeline_ns for d in tiers)
+
+        # The routed fabric (``platform.fabric``, duck-typed): each
+        # port-bearing link is a hop station after the LLC with an entry
+        # limit.  A routed request visits its hops in order before its
+        # device station, holding its ToR entry throughout, and a full
+        # downstream port stalls it in place (see the ``_hop_*`` methods).
+        # With no hop on any route ``_fabric_active`` is False and every
+        # fabric branch is dead.
+        fabric = getattr(platform, "fabric", None)
+        links = tuple(fabric.station_links) if fabric is not None else ()
+        self._link_names = tuple(l.name for l in links)
+        link0 = self._llc + 1  # first hop-station code
+        self._link0 = link0
+        n_st = link0 + len(links)
+        self._st_slots.extend(l.port_slots for l in links)
+        self._st_busy.extend(0 for _ in links)
+        self._st_q.extend(deque() for _ in links)
+        # Per-hop port state by station code (entries below link0 pad):
+        # ``_hop_occ`` counts entries held at the port (queued, in service
+        # or stall-held); ``_hop_stall`` queues (rid, upstream station)
+        # waiters, upstream -1 for a request stalled at admission.
+        self._hop_limit = [0] * n_st
+        self._hop_occ = [0] * n_st
+        self._hop_svc = [0.0] * n_st
+        self._hop_stall: List[deque] = [deque() for _ in range(n_st)]
+        self._hop_stall_events = [0] * n_st
+        self._hop_peak_occ = [0] * n_st
+        for i, link in enumerate(links):
+            st = link0 + i
+            self._hop_limit[st] = max(1, link.queue_entries // self.granularity)
+            self._hop_svc[st] = link.service_ns
+        # Per-(workload, tier) hop paths from the workload host's routes.
+        if fabric is not None:
+            link_st = {l.name: link0 + i for i, l in enumerate(links)}
+            self._w_hops = [
+                tuple(
+                    tuple(link_st[l.name]
+                          for l in fabric.route(
+                              w.host if w.host is not None else fabric.hosts[0],
+                              t).hops)
+                    for t in self._tier_names
+                )
+                for w in self.workloads
+            ]
+        else:
+            self._w_hops = [((),) * self._n_tiers for _ in self.workloads]
+        self._fabric_active = any(any(per_tier) for per_tier in self._w_hops)
+        # Per-request hop state in dicts: only routed requests pay.
+        self._hop_path: Dict[int, Tuple[int, ...]] = {}
+        self._hop_idx: Dict[int, int] = {}
+        self._hop_t: Dict[int, float] = {}  # hop-entry time (link edges)
+        self._dev_t: Dict[int, float] = {}  # device-entry time (device edges)
+        self._fabric_log: List[dict] = []
         self._n_windows = 0
+
+        # Control scope: "tier" addresses windows and decisions to slow
+        # tiers; "edge" to control edges, one device edge per slow tier
+        # (named by the tier), then one link edge per port-bearing link.
+        # With no links both schedules are one and the scopes bit-identical.
+        if control_scope not in ("tier", "edge"):
+            raise ValueError(
+                f"unknown control_scope {control_scope!r}; "
+                "expected 'tier' or 'edge'"
+            )
+        self._edge_scope = control_scope == "edge"
+        self._edge_names = tuple(self._tier_names[1:]) + self._link_names
+        self._edge_station = tuple(
+            list(range(1, self._n_tiers)) + list(range(link0, link0 + len(links)))
+        )
+        self._n_edges = len(self._edge_station)
+        # Per-link decision state by station code, written by ``apply``
+        # under edge scope and folded in by ``_recompute_throttle``.
+        self._link_cap: List[Optional[int]] = [None] * n_st
+        self._link_rate: List[float] = [1.0] * n_st
+        # Edge window accumulators (edge scope): a device edge meters its
+        # device-side residency, a link edge its port residency.
+        self._e_ins = [0] * self._n_edges
+        self._e_occ = [0.0] * self._n_edges
+        self._e_cls = [[0] * len(_OPS) for _ in range(self._n_edges)]
 
         # Accounting: flat per-workload accumulators, materialized into
         # WorkloadStats at the end of the run.
@@ -384,10 +537,13 @@ class TieredMemorySim:
         self._stat_res: List[List[float]] = [[] for _ in range(n)]
 
         # Tier counters: flat accumulators, copied into the cumulative
-        # counters the control loop reads window deltas from.
-        self._counters = TierSetWindowedCounters(names=self._tier_names)
-        self.tier_counters = {t: self._counters.tiers[i]
-                              for i, t in enumerate(self._tier_names)}
+        # counters the control loop reads window deltas from.  Under edge
+        # scope the names are [fast tier, *edges] (device edges named by
+        # their tier, so with no links they are the tier names).
+        cnames = ((self._tier_names[0],) + self._edge_names if self._edge_scope
+                  else self._tier_names)
+        self._counters = TierSetWindowedCounters(names=cnames)
+        self.tier_counters = {t: self._counters.tiers[i] for i, t in enumerate(cnames)}
         self._tc_ins = [0] * self._n_tiers
         self._tc_occ = [0.0] * self._n_tiers
         self._tc_cls = [[0] * len(_OPS) for _ in range(self._n_tiers)]
@@ -472,6 +628,24 @@ class TieredMemorySim:
         }
 
     def _materialize_counters(self) -> None:
+        if self._edge_scope:
+            # [fast tier, *edges]: index 0 from the fast tier's
+            # accumulators, the rest from the edge accumulators.
+            tiers = self._counters.tiers
+            fast = tiers[0]
+            fast.inserts = self._tc_ins[0]
+            fast.occupancy_time = self._tc_occ[0]
+            cls0 = self._tc_cls[0]
+            for i, op in enumerate(_OPS):
+                fast.class_counts[op] = cls0[i]
+            for e in range(self._n_edges):
+                tc = tiers[1 + e]
+                tc.inserts = self._e_ins[e]
+                tc.occupancy_time = self._e_occ[e]
+                cls = self._e_cls[e]
+                for i, op in enumerate(_OPS):
+                    tc.class_counts[op] = cls[i]
+            return
         for code, tc in enumerate(self._counters.tiers):
             tc.inserts = self._tc_ins[code]
             tc.occupancy_time = self._tc_occ[code]
@@ -488,19 +662,35 @@ class TieredMemorySim:
         :class:`~repro_torch.core.controller.TierDecisions` sets each slow
         tier's core cap and token rate (platform slow-tier order); a plain
         :class:`~repro_torch.core.controller.Decision` broadcasts to every
-        slow tier."""
+        slow tier.  Under edge scope the decisions come in edge order: a
+        device edge's land on its tier, a link edge's on its port."""
         n = self._n_tiers
         if isinstance(decision, TierDecisions):
             ds = decision.decisions
-            if len(ds) != n - 1:
+            if self._edge_scope:
+                if len(ds) != self._n_edges:
+                    raise ValueError(
+                        f"edge-addressed decision has {len(ds)} edge(s); "
+                        f"platform has {self._n_edges} control edge(s)"
+                    )
+                for e, d in enumerate(ds):
+                    st = self._edge_station[e]
+                    if st < n:
+                        self._tier_cap[st] = d.max_concurrency
+                        self._tier_rate[st] = d.rate_factor
+                    else:
+                        self._link_cap[st] = d.max_concurrency
+                        self._link_rate[st] = d.rate_factor
+            elif len(ds) != n - 1:
                 raise ValueError(
                     f"tier-addressed decision has {len(ds)} tier(s); "
                     f"platform has {n - 1} slow tier(s)"
                 )
-            for code in range(1, n):
-                d = ds[code - 1]
-                self._tier_cap[code] = d.max_concurrency
-                self._tier_rate[code] = d.rate_factor
+            else:
+                for code in range(1, n):
+                    d = ds[code - 1]
+                    self._tier_cap[code] = d.max_concurrency
+                    self._tier_rate[code] = d.rate_factor
         else:
             for code in range(1, n):
                 self._tier_cap[code] = decision.max_concurrency
@@ -549,9 +739,122 @@ class TieredMemorySim:
             tr = self._tier_rate[c]
             if tr < rate:
                 rate = tr
+        if self._fabric_active:
+            # A workload also obeys the link edges on its routes to the slow
+            # tiers it touches (left unrestricted under tier scope).
+            w_hops = self._w_hops[wi]
+            for c in codes:
+                for st in w_hops[c]:
+                    lc = self._link_cap[st]
+                    if lc is not None and (cap is None or lc < cap):
+                        cap = lc
+                    lr = self._link_rate[st]
+                    if lr < rate:
+                        rate = lr
         self._limit[wi] = cap
         self._rate[wi] = rate
         self._unthrottled[wi] = rate >= 1.0
+
+    # -- fabric hop stations --------------------------------------------------
+    # A routed request admitted to the ToR crosses its hops in route order
+    # before its tier's device station, holding its ToR entry throughout.
+    # It moves onto a hop only into a free port entry; otherwise it stalls
+    # in place: at admission holding only its ToR entry, or mid-route
+    # holding its upstream hop's server slot (head-of-line backpressure)
+    # until the downstream port frees an entry.
+
+    def _hop_admit(self, rid: int, hops: Tuple[int, ...]) -> None:
+        """Route a freshly admitted request onto its first hop, or stall it
+        at the ingress port."""
+        self._hop_path[rid] = hops
+        first = hops[0]
+        if self._hop_occ[first] < self._hop_limit[first]:
+            self._hop_idx[rid] = 0
+            self._hop_enter(rid, first)
+        else:
+            self._hop_idx[rid] = -1  # not on the fabric yet
+            self._hop_stall[first].append((rid, -1))
+            self._hop_stall_events[first] += 1
+
+    def _hop_enter(self, rid: int, station: int) -> None:
+        """Take one port entry at ``station`` and start (or queue for) its
+        service: the link's per-cacheline time times the request's size."""
+        occ = self._hop_occ[station] + 1
+        self._hop_occ[station] = occ
+        if occ > self._hop_peak_occ[station]:
+            self._hop_peak_occ[station] = occ
+        self._hop_t[rid] = self.now
+        self._r_station[rid] = station
+        service = self._hop_svc[station] * self._w_g[self._r_wl[rid]]
+        self._r_service[rid] = service
+        if self._st_busy[station] < self._st_slots[station]:
+            self._st_busy[station] += 1
+            self._push(self.now + service, _EV_COMPLETE, rid)
+        else:
+            self._st_q[station].append(rid)
+
+    def _hop_complete(self, rid: int, station: int) -> None:
+        """Service done at a hop: go on to the next hop or the device,
+        unless the downstream port is full; then stall holding this hop's
+        server slot."""
+        hops = self._hop_path[rid]
+        i = self._hop_idx[rid] + 1
+        if i < len(hops):
+            nxt = hops[i]
+            if self._hop_occ[nxt] >= self._hop_limit[nxt]:
+                self._hop_stall[nxt].append((rid, station))
+                self._hop_stall_events[nxt] += 1
+                return
+            self._hop_leave(rid, station)
+            self._hop_idx[rid] = i
+            self._hop_enter(rid, nxt)
+            return
+        # Last hop done: leave the fabric for the tier's device station.
+        self._hop_leave(rid, station)
+        del self._hop_path[rid], self._hop_idx[rid]
+        tier = self._r_tier[rid]
+        if self._edge_scope:
+            self._dev_t[rid] = self.now
+        self._r_station[rid] = tier
+        service = self._w_svc[self._r_wl[rid]][tier]
+        self._r_service[rid] = service
+        if self._st_busy[tier] < self._st_slots[tier]:
+            self._st_busy[tier] += 1
+            self._push(self.now + service, _EV_COMPLETE, rid)
+        else:
+            self._st_q[tier].append(rid)
+
+    def _hop_leave(self, rid: int, station: int) -> None:
+        """Free the server slot (starting the next queued request) and the
+        port entry at ``station``, and wake stalled waiters into it."""
+        q = self._st_q[station]
+        if q:
+            nxt = q.popleft()
+            self._push(self.now + self._r_service[nxt], _EV_COMPLETE, nxt)
+        else:
+            self._st_busy[station] -= 1
+        self._hop_occ[station] -= 1
+        if self._edge_scope:
+            e = self._n_tiers - 1 + (station - self._link0)
+            self._e_ins[e] += 1
+            self._e_occ[e] += self.now - self._hop_t[rid]
+            self._e_cls[e][self._w_op[self._r_wl[rid]]] += 1
+        del self._hop_t[rid]
+        if self._hop_stall[station]:
+            self._hop_unstall(station)
+
+    def _hop_unstall(self, station: int) -> None:
+        """Admit stalled waiters into free entries at ``station``; waking a
+        mid-route waiter frees its upstream slot, which may cascade."""
+        stall = self._hop_stall[station]
+        while stall and self._hop_occ[station] < self._hop_limit[station]:
+            rid, upstream = stall.popleft()
+            if upstream >= 0:
+                self._hop_idx[rid] += 1
+                self._hop_leave(rid, upstream)
+            else:  # admission stall: its first entry onto the fabric
+                self._hop_idx[rid] = 0
+            self._hop_enter(rid, station)
 
     # -- event plumbing -------------------------------------------------------
     def _push(self, t: float, kind: int, arg: int) -> None:
@@ -594,6 +897,8 @@ class TieredMemorySim:
         rnd = self.rng.random
         free = self._r_free
         now = self.now
+        open_w, arr_q = self._w_open, self._arr_q
+        arr_issued = self._arr_issued
         misses = 0
         while len(irq) < cap and misses < n:
             gi = ptr
@@ -608,34 +913,50 @@ class TieredMemorySim:
             if lim is not None and rr_core[gi] >= lim:
                 misses += 1
                 continue
+            # Open-loop gate: issue only from a non-empty backlog; the head's
+            # key (a quantile, or -1) routes by placement without a draw.
+            if open_w[wi]:
+                aq = arr_q[wi]
+                if not aq:
+                    misses += 1
+                    continue
+                key = aq[0][1]
+            else:
+                key = -1.0
             frac = frac_of[wi]
             if frac is None:
                 cum = cum_of[wi]
                 if cum is None:
                     tier = cur_tier[wi]
                 else:  # placement lottery: one draw
-                    r = rnd()
+                    r = key if key >= 0.0 else rnd()
                     tier = 0
                     while r >= cum[tier]:
                         tier += 1
             else:
-                tier = _DDR if rnd() < frac else _CXL
+                r = key if key >= 0.0 else rnd()
+                tier = _DDR if r < frac else _CXL
             if not unthrottled[wi] and not self._take_token(wi, svc[wi][tier]):
                 misses += 1
                 continue
+            if open_w[wi]:
+                tissue = arr_q[wi].popleft()[0]
+                arr_issued[wi] += 1
+            else:
+                tissue = now
             if free:
                 rid = free.pop()
                 self._r_wl[rid] = wi
                 self._r_gi[rid] = gi
                 self._r_tier[rid] = tier
-                self._r_tissue[rid] = now
+                self._r_tissue[rid] = tissue
             else:
                 rid = len(self._r_wl)
                 self._r_wl.append(wi)
                 self._r_gi.append(gi)
                 self._r_tier.append(tier)
                 self._r_station.append(tier)
-                self._r_tissue.append(now)
+                self._r_tissue.append(tissue)
                 self._r_ttor.append(0.0)
                 self._r_service.append(0.0)
             out[gi] += 1
@@ -676,6 +997,10 @@ class TieredMemorySim:
         unthrottled = self._unthrottled
         free = self._r_free
         llc = self._llc
+        open_w, arr_q = self._w_open, self._arr_q
+        arr_issued = self._arr_issued
+        fabric_on = self._fabric_active
+        w_hops = self._w_hops
         while irq and self.tor_used < cap:
             rid = irq.popleft()
             self.tor_used += 1
@@ -695,15 +1020,19 @@ class TieredMemorySim:
             else:
                 station = tier
                 service = svc[wi][tier]
-            r_station[rid] = station
-            r_service[rid] = service
-            if st_busy[station] < st_slots[station]:
-                st_busy[station] += 1
-                self._seq += 1
-                push(heap, (now + service,
-                            (self._seq << _SEQ_SHIFT) | (_EV_COMPLETE << _KIND_SHIFT) | rid))
+            if fabric_on and station != llc and w_hops[wi][tier]:
+                # Routed: cross the fabric's hops before the device.
+                self._hop_admit(rid, w_hops[wi][tier])
             else:
-                st_q[station].append(rid)
+                r_station[rid] = station
+                r_service[rid] = service
+                if st_busy[station] < st_slots[station]:
+                    st_busy[station] += 1
+                    self._seq += 1
+                    push(heap, (now + service,
+                                (self._seq << _SEQ_SHIFT) | (_EV_COMPLETE << _KIND_SHIFT) | rid))
+                else:
+                    st_q[station].append(rid)
             if len(irq) < irq_cap:
                 ptr = self._rr_ptr
                 misses = 0
@@ -720,34 +1049,48 @@ class TieredMemorySim:
                     if lim is not None and rr_core[gi] >= lim:
                         misses += 1
                         continue
+                    if open_w[iwi]:
+                        aq = arr_q[iwi]
+                        if not aq:
+                            misses += 1
+                            continue
+                        key = aq[0][1]
+                    else:
+                        key = -1.0
                     frac = frac_of[iwi]
                     if frac is None:
                         icum = cum_of[iwi]
                         if icum is None:
                             itier = cur_tier[iwi]
                         else:
-                            r = rnd()
+                            r = key if key >= 0.0 else rnd()
                             itier = 0
                             while r >= icum[itier]:
                                 itier += 1
                     else:
-                        itier = _DDR if rnd() < frac else _CXL
+                        r = key if key >= 0.0 else rnd()
+                        itier = _DDR if r < frac else _CXL
                     if not unthrottled[iwi] and not self._take_token(iwi, svc[iwi][itier]):
                         misses += 1
                         continue
+                    if open_w[iwi]:
+                        tissue = arr_q[iwi].popleft()[0]
+                        arr_issued[iwi] += 1
+                    else:
+                        tissue = now
                     if free:
                         nrid = free.pop()
                         r_wl[nrid] = iwi
                         r_gi[nrid] = gi
                         r_tier[nrid] = itier
-                        r_tissue[nrid] = now
+                        r_tissue[nrid] = tissue
                     else:
                         nrid = len(r_wl)
                         r_wl.append(iwi)
                         r_gi.append(gi)
                         r_tier.append(itier)
                         r_station.append(itier)
-                        r_tissue.append(now)
+                        r_tissue.append(tissue)
                         r_ttor.append(0.0)
                         r_service.append(0.0)
                     out[gi] += 1
@@ -769,6 +1112,12 @@ class TieredMemorySim:
             self._tc_ins[tier] += 1
             self._tc_occ[tier] += residency
             self._tc_cls[tier][self._w_op[wi]] += 1
+            if self._edge_scope and tier != _DDR:
+                # Device edge: device-side residency only (see run()'s copy).
+                dres = now - self._dev_t.pop(rid, self._r_ttor[rid])
+                self._e_ins[tier - 1] += 1
+                self._e_occ[tier - 1] += dres
+                self._e_cls[tier - 1][self._w_op[wi]] += 1
         self._stat_completed[wi] += 1
         nbytes = self._w_bytes[wi][tier]
         self._stat_bytes[wi] += nbytes
@@ -795,6 +1144,31 @@ class TieredMemorySim:
             self._fill_irq()
         if self.irq and self.tor_used < self.tor_capacity:
             self._pump()
+
+    # -- open-loop arrivals ---------------------------------------------------
+    def _schedule_arrivals(self) -> None:
+        """Schedule each open-loop workload's first generated arrival."""
+        for wi, pend in enumerate(self._arr_pending):
+            if pend is not None:
+                self._push(pend[0], _EV_ARRIVAL, wi)
+
+    def _arrival(self, wi: int) -> None:
+        """One generated request lands: join the backlog (or shed at the
+        queue limit), schedule the next arrival and re-open the issue path."""
+        pend = self._arr_pending[wi]
+        self._arr_gen[wi] += 1
+        q = self._arr_q[wi]
+        lim = self._arr_qlimit[wi]
+        if lim is not None and len(q) >= lim:
+            self._arr_shed[wi] += 1
+        else:
+            q.append(pend)
+        nxt = next(self._arr_iter[wi], None)
+        self._arr_pending[wi] = nxt
+        if nxt is not None:
+            self._push(nxt[0], _EV_ARRIVAL, wi)
+        self._fill_irq()
+        self._pump()
 
     # -- phases / windows ------------------------------------------------------
     def _schedule_phases(self) -> None:
@@ -834,6 +1208,45 @@ class TieredMemorySim:
             self._hist_marks.append(
                 (self._n_windows, self.now, [[len(s) for s in row] for row in self._lat_wt])
             )
+        if self._fabric_active and self._record_windows:
+            # Each port's state at the boundary (the sim keeps the window
+            # index: with no controller the loop records nothing).
+            self._fabric_log.append({
+                "window": self._n_windows,
+                "t_ns": self.now,
+                "links": {
+                    name: {
+                        "queued": len(self._st_q[self._link0 + i]),
+                        "in_service": self._st_busy[self._link0 + i],
+                        "occupancy": self._hop_occ[self._link0 + i],
+                        "stalled": len(self._hop_stall[self._link0 + i]),
+                        "stall_events": self._hop_stall_events[self._link0 + i],
+                    }
+                    for i, name in enumerate(self._link_names)
+                },
+            })
+        if self._open_active and self._record_windows:
+            # The window's generated, issued and shed counts and the backlog
+            # at its end (queue growth is the open-loop overload signal).
+            gen, iss = self._arr_gen, self._arr_issued
+            shed = self._arr_shed
+            self._arrival_log.append({
+                "window": self._n_windows,
+                "t_ns": self.now,
+                "workloads": {
+                    w.name: {
+                        "generated": gen[wi] - self._arr_gen_mark[wi],
+                        "issued": iss[wi] - self._arr_issued_mark[wi],
+                        "shed": shed[wi] - self._arr_shed_mark[wi],
+                        "queue_depth": len(self._arr_q[wi]),
+                    }
+                    for wi, w in enumerate(self.workloads)
+                    if self._w_open[wi]
+                },
+            })
+            self._arr_gen_mark = list(gen)
+            self._arr_issued_mark = list(iss)
+            self._arr_shed_mark = list(shed)
         if self._tiering is not None and self._tiering.on_window(self):
             # The hook changed routing or budgets: re-open the issue path.
             self._fill_irq()
@@ -851,6 +1264,7 @@ class TieredMemorySim:
     # -- run --------------------------------------------------------------------
     def run(self, sim_ns: float) -> SimResult:
         self._schedule_phases()
+        self._schedule_arrivals()
         self._push(self.control.next_window_ns, _EV_WINDOW, 0)
         self._fill_irq()
         self._pump()
@@ -862,6 +1276,7 @@ class TieredMemorySim:
         ev_complete, ev_retire, ev_phase, ev_window = (
             _EV_COMPLETE, _EV_RETIRE, _EV_PHASE, _EV_WINDOW,
         )
+        ev_arrival = _EV_ARRIVAL
         complete_bits = ev_complete << kshift
         retire_bits = ev_retire << kshift
         # Loop-stable bindings for the two inlined hot handlers (these lists
@@ -894,6 +1309,13 @@ class TieredMemorySim:
         unthrottled = self._unthrottled
         llc = self._llc
         lat_ap = self._lat_ap
+        open_w, arr_q = self._w_open, self._arr_q
+        arr_issued = self._arr_issued
+        fabric_on = self._fabric_active
+        w_hops = self._w_hops
+        edge_on = self._edge_scope
+        e_ins, e_occ, e_cls = self._e_ins, self._e_occ, self._e_cls
+        dev_t = self._dev_t
         prof = self._prof
         if prof is not None:
             rl0 = prof.clock()
@@ -915,6 +1337,13 @@ class TieredMemorySim:
                     tc_ins[tier] += 1
                     tc_occ[tier] += residency
                     tc_cls[tier][w_op[wi]] += 1
+                    if edge_on and tier != _DDR:
+                        # Device edge: device-side residency only (from
+                        # _dev_t after fabric hops, else the whole ToR
+                        # residency, which is the same on a hop-free route).
+                        e_ins[tier - 1] += 1
+                        e_occ[tier - 1] += t - dev_t.pop(rid, r_ttor[rid])
+                        e_cls[tier - 1][w_op[wi]] += 1
                 stat_completed[wi] += 1
                 nbytes = w_bytes[wi][tier]
                 stat_bytes[wi] += nbytes
@@ -957,15 +1386,18 @@ class TieredMemorySim:
                     else:
                         station = atier
                         service = svc[awi][atier]
-                    r_station[arid] = station
-                    r_service[arid] = service
-                    if st_busy[station] < st_slots[station]:
-                        st_busy[station] += 1
-                        seq = self._seq + 1
-                        self._seq = seq
-                        push(heap, (t + service, (seq << _SEQ_SHIFT) | complete_bits | arid))
+                    if fabric_on and station != llc and w_hops[awi][atier]:
+                        self._hop_admit(arid, w_hops[awi][atier])
                     else:
-                        st_q[station].append(arid)
+                        r_station[arid] = station
+                        r_service[arid] = service
+                        if st_busy[station] < st_slots[station]:
+                            st_busy[station] += 1
+                            seq = self._seq + 1
+                            self._seq = seq
+                            push(heap, (t + service, (seq << _SEQ_SHIFT) | complete_bits | arid))
+                        else:
+                            st_q[station].append(arid)
                     if len(irq) < irq_cap:
                         ptr = self._rr_ptr
                         misses = 0
@@ -982,36 +1414,50 @@ class TieredMemorySim:
                             if lim is not None and rr_core[gi] >= lim:
                                 misses += 1
                                 continue
+                            if open_w[iwi]:
+                                aq = arr_q[iwi]
+                                if not aq:
+                                    misses += 1
+                                    continue
+                                key = aq[0][1]
+                            else:
+                                key = -1.0
                             frac = frac_of[iwi]
                             if frac is None:
                                 icum = cum_of[iwi]
                                 if icum is None:
                                     itier = cur_tier[iwi]
                                 else:
-                                    r = rnd()
+                                    r = key if key >= 0.0 else rnd()
                                     itier = 0
                                     while r >= icum[itier]:
                                         itier += 1
                             else:
-                                itier = _DDR if rnd() < frac else _CXL
+                                r = key if key >= 0.0 else rnd()
+                                itier = _DDR if r < frac else _CXL
                             if not unthrottled[iwi] and not self._take_token(
                                 iwi, svc[iwi][itier]
                             ):
                                 misses += 1
                                 continue
+                            if open_w[iwi]:
+                                tissue = arr_q[iwi].popleft()[0]
+                                arr_issued[iwi] += 1
+                            else:
+                                tissue = t
                             if free:
                                 nrid = free.pop()
                                 r_wl[nrid] = iwi
                                 r_gi[nrid] = gi
                                 r_tier[nrid] = itier
-                                r_tissue[nrid] = t
+                                r_tissue[nrid] = tissue
                             else:
                                 nrid = len(r_wl)
                                 r_wl.append(iwi)
                                 r_gi.append(gi)
                                 r_tier.append(itier)
                                 r_station.append(itier)
-                                r_tissue.append(t)
+                                r_tissue.append(tissue)
                                 r_ttor.append(0.0)
                                 r_service.append(0.0)
                             out[gi] += 1
@@ -1024,6 +1470,11 @@ class TieredMemorySim:
                 # queued request, start the return flight ------------------
                 rid = packed & amask
                 station = r_station[rid]
+                if station > llc:
+                    # A hop's service is done: go on along the route, or
+                    # stall holding this hop's server under backpressure.
+                    self._hop_complete(rid, station)
+                    continue
                 q = st_q[station]
                 if q:
                     nxt = q.popleft()
@@ -1042,6 +1493,8 @@ class TieredMemorySim:
                         push(heap, (t + pipeline, (seq << _SEQ_SHIFT) | retire_bits | rid))
                     else:
                         retire(rid)
+            elif kind == ev_arrival:
+                self._arrival(packed & amask)
             elif kind == ev_phase:
                 self._phase_flip(packed & amask)
             elif kind == ev_window:
@@ -1092,6 +1545,30 @@ class TieredMemorySim:
                                          for i, t in enumerate(self._tier_names)},
             window_records=self._window_records(),
             tiering=self._tiering.summary() if self._tiering is not None else None,
+            fabric=(
+                {
+                    name: {
+                        "stall_events": self._hop_stall_events[self._link0 + i],
+                        "peak_occupancy": self._hop_peak_occ[self._link0 + i],
+                        "entry_limit": self._hop_limit[self._link0 + i],
+                    }
+                    for i, name in enumerate(self._link_names)
+                }
+                if self._fabric_active else None
+            ),
+            arrival=(
+                {
+                    w.name: {
+                        "generated": self._arr_gen[wi],
+                        "issued": self._arr_issued[wi],
+                        "shed": self._arr_shed[wi],
+                        "backlog": len(self._arr_q[wi]),
+                    }
+                    for wi, w in enumerate(self.workloads)
+                    if self._w_open[wi]
+                }
+                if self._open_active else None
+            ),
             tier_latency_hist=tier_hists,
             profile=prof.snapshot() if prof is not None else None,
         )
@@ -1123,6 +1600,21 @@ class TieredMemorySim:
                     for wi, w in enumerate(self.workloads)
                 }
                 prev = lens
+            records.sort(key=lambda r: r["window"])
+        # The open-loop and fabric logs, merged in by window index (a base
+        # record for a window the control loop did not record).
+        for log, key, field in ((self._arrival_log, "arrival", "workloads"),
+                                (self._fabric_log, "fabric", "links")):
+            if not log:
+                continue
+            by_idx = {r["window"]: r for r in records}
+            for entry in log:
+                rec = by_idx.get(entry["window"])
+                if rec is None:
+                    rec = {"window": entry["window"], "t_ns": entry["t_ns"]}
+                    by_idx[entry["window"]] = rec
+                    records.append(rec)
+                rec[key] = entry[field]
             records.sort(key=lambda r: r["window"])
         if self._tiering is None:
             return records

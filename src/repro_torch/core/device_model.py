@@ -6,7 +6,10 @@ fast tier first), the paper's two platforms (Table 1), the three-tier
 variants of platform A (CXL behind a switch, the remote socket's DDR) and a
 :data:`PLATFORMS` table of the entries the grid scenarios name (A, B, their
 one-DIMM, one-expander ``-1to1`` variants, ``A-switch`` and ``A-numa``).
-The TPU-unit and fabric platforms are not ported yet.
+A platform may carry a routed switch fabric (:attr:`PlatformModel.fabric`,
+a :class:`repro_torch.fabric.FabricTopology`); importing
+:mod:`repro_torch.fabric` registers ``A-direct`` and ``A-spine``.  The
+TPU-unit platform is not ported yet.
 
 Every device is ``c`` deterministic servers with per-access service time
 ``s`` (64 B cachelines) plus a pipeline latency that holds no slot:
@@ -22,7 +25,7 @@ nt-store is one write access; writes are slower than reads.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.core.littles_law import ACCESS_MIX, OpClass
 
@@ -30,16 +33,25 @@ CACHELINE = 64  # bytes
 
 
 class UnknownTierError(ValueError):
-    """A workload or lookup named a tier its platform lacks; the message
-    lists every known tier."""
+    """A workload or lookup named a tier (or a fabric host or device) its
+    target lacks; the message lists every known name.  ``kind`` and
+    ``known_desc`` name the namespace when it is not the platform's tiers."""
 
-    def __init__(self, tier: str, known: Tuple[str, ...]):
+    def __init__(
+        self,
+        tier: str,
+        known: Tuple[str, ...],
+        *,
+        kind: str = "memory tier",
+        known_desc: str = "platform tiers",
+    ):
         super().__init__(
-            f"unknown memory tier {tier!r}; platform tiers are "
+            f"unknown {kind} {tier!r}; {known_desc} are "
             f"{', '.join(known)}"
         )
         self.tier = tier
         self.known = tuple(known)
+        self.kind = kind
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +147,10 @@ class PlatformModel:
     throttle, each keyed by its :attr:`DeviceModel.tier` name.
     ``tor_entries`` bounds tracked requests, ``irq_entries`` staged ones
     (both in cachelines); ``llc_service_ns``/``llc_slots`` model LLC hits,
-    which also hold ToR entries (paper §4.3).
+    which also hold ToR entries (paper §4.3).  ``fabric`` is an optional
+    routed switch-fabric topology (typed ``object``, so the core never
+    imports the fabric package); None, or a topology whose links are all
+    transparent, is the flat-station platform.
     """
 
     name: str
@@ -149,6 +164,7 @@ class PlatformModel:
     llc_slots: int
     llc_capacity_mb: float
     extra_tiers: Tuple[DeviceModel, ...] = ()
+    fabric: Optional[object] = None
 
     def __post_init__(self):
         names = tuple(d.tier for d in self.tiers)

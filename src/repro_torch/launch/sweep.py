@@ -8,11 +8,15 @@ its rows (counterpart of ``benchmarks/run.py --scenario X --lane batched``).
   PYTHONPATH=src python -m repro_torch.launch.sweep migrate_interference --trace trace.json
   PYTHONPATH=src python -m repro_torch.launch.sweep fig2_tiering --device cpu
   PYTHONPATH=src python -m repro_torch.launch.sweep corun_sweep --lane scalar --processes 4
+  PYTHONPATH=src python -m repro_torch.launch.sweep fabric_miku --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.sweep slo_knee --device cpu --lane scalar
 
 Grid scenarios run on the batched lane (``--lane scalar``: one event-driven
 DES per job on the host, over ``--processes`` workers), ``fig2_tiering`` on
 the scalar DES, ``fig11_llm`` on the serving engines (its tokens/s are the
-simulated queue clock's).  Runs on the card unless ``--device cpu``.  Prints one CSV row per row of the scenario;
+simulated queue clock's).  The fabric scenarios' and the open-loop ones'
+(``slo_knee``, ``flash_crowd``) jobs fall back to the scalar DES on either
+lane.  Runs on the card unless ``--device cpu``.  Prints one CSV row per row of the scenario;
 ``--trace PATH`` (grid scenarios) also writes every job's per-window
 telemetry records to PATH as JSON.
 """

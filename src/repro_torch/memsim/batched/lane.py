@@ -15,8 +15,10 @@ Fallbacks are the exception: a job whose plan or stack is inexpressible
 tables) reruns on the scalar DES (``run_sweep(lane="scalar")``).  A group
 that fails to stack is re-stacked cell by cell, so one such cell never
 drags its group-mates along, and every fallback is recorded as an
-``(index, reason)`` pair.  The per-edge law is refused on both lanes: it
-needs the fabric, which is not ported (ROADMAP A.4.2).
+``(index, reason)`` pair.  Two kinds of job fall back by name at the static
+screen (:func:`can_batch`), as in the reference: ``"fabric_topology"`` (a
+platform whose routes cross ports, or the per-edge law) and ``"arrival"``
+(an open-loop workload).
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ from repro_torch.device import resolve_device
 from repro_torch.memsim.batched import exact
 from repro_torch.memsim.batched.stacking import BatchGroup, CellPlan, plan_cell
 from repro_torch.memsim.batched.tiering import build_tiering
-from repro_torch.memsim.sweep import PEREDGE_REFUSAL
 
 #: (plans aligned with the job list — None where the job falls back,
 #:  [(job_index, reason), ...] for the fallbacks)
@@ -40,9 +41,21 @@ _DEFAULT_BLOCK = 1024
 
 def can_batch(job) -> Optional[str]:
     """Static screen: why the batched lane cannot run ``job``, or None
-    when it can."""
+    when it can.
+
+    A platform whose topology puts a port-bearing link on some route needs
+    the scalar DES's hop stations and backpressure, and so does the
+    per-edge law built for such routes, even on a hopless platform: both
+    give ``"fabric_topology"``.  An all-transparent topology (``A-direct``)
+    has no hops and batches normally.  An open-loop workload gives
+    ``"arrival"``: its backlog and shedding have no fluid counterpart."""
+    fabric = getattr(job.platform, "fabric", None)
+    if fabric is not None and fabric.has_hops:
+        return "fabric_topology"
     if job.miku and job.miku_law == "peredge":
-        return PEREDGE_REFUSAL
+        return "fabric_topology"
+    if any(w.arrival is not None for w in job.workloads):
+        return "arrival"
     return None
 
 
@@ -77,8 +90,7 @@ def run_sweep_batched(
     ladder rung table and chunked at ``block`` cells.  Fallback jobs run on
     the scalar lane (over ``processes`` workers when that says so), and a
     group's stacking failures are appended to ``partition``'s fallback list,
-    so a caller holding it sees every fallback.  A per-edge job raises
-    ``NotImplementedError`` there, as the scalar lane refuses it."""
+    so a caller holding it sees every fallback."""
     from repro_torch.memsim.batched import fluid as fluid_mod
     from repro_torch.memsim.sweep import run_sweep
 

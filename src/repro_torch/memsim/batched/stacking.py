@@ -21,7 +21,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.des import export_state
-from repro_torch.memsim.sweep import PEREDGE_REFUSAL, SimJob
+from repro_torch.memsim.sweep import SimJob
 
 
 @dataclasses.dataclass
@@ -46,8 +46,6 @@ def plan_cell(job: SimJob) -> CellPlan:
     with a tiering spec builds and binds its hook here, so the export
     carries the migration workloads (gated closed) and the initial
     PageMap-derived routing."""
-    if job.miku and job.miku_law not in ("pertier", "merged"):
-        raise NotImplementedError(PEREDGE_REFUSAL)
     hook = job.tiering.build() if job.tiering is not None else None
     export = export_state(job.platform, job.workloads,
                           granularity=job.granularity,

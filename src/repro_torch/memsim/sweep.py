@@ -39,8 +39,11 @@ class SimJob:
     miku_overrides: Dict[str, float] = dataclasses.field(default_factory=dict)
     #: Which decision law ``miku=True`` builds: "pertier" (one ladder per
     #: slow tier, the default), "merged" (one ladder over the folded slow
-    #: tiers, its decision broadcast) or "peredge".  Both lanes refuse
-    #: "peredge": it needs the fabric, not ported (ROADMAP A.4.2).
+    #: tiers, its decision broadcast) or "peredge" (one ladder per control
+    #: edge, the slow tiers' device edges and the fabric's port-bearing
+    #: links, the sim run with ``control_scope="edge"``; the same as
+    #: "pertier" on a platform without hops).  A peredge job always runs on
+    #: the scalar DES.
     miku_law: str = "pertier"
     #: Per-window telemetry records (``SimResult.window_records``) and
     #: latency histograms.
@@ -62,20 +65,19 @@ class SimJob:
             )
 
 
-PEREDGE_REFUSAL = ("miku_law='peredge' needs the fabric, which is not ported "
-                   "(ROADMAP A.4.2)")
-
-
 def run_job(job: SimJob) -> SimResult:
     """Run one job on the scalar DES (the pool's worker entry point)."""
     controller = None
     if job.miku:
         if job.miku_law == "peredge":
-            raise NotImplementedError(PEREDGE_REFUSAL)
-        from repro_torch.memsim.calibration import default_miku, merged_miku
+            from repro_torch.fabric import peredge_miku
 
-        build = merged_miku if job.miku_law == "merged" else default_miku
-        controller = build(job.platform, job.granularity, **job.miku_overrides)
+            controller = peredge_miku(job.platform, job.granularity, **job.miku_overrides)
+        else:
+            from repro_torch.memsim.calibration import default_miku, merged_miku
+
+            build = merged_miku if job.miku_law == "merged" else default_miku
+            controller = build(job.platform, job.granularity, **job.miku_overrides)
     prof = None
     if job.profile:
         prof = PhaseProfiler()
@@ -89,6 +91,7 @@ def run_job(job: SimJob) -> SimResult:
         window_ns=job.window_ns,
         record_windows=job.record_windows,
         tiering=job.tiering.build() if job.tiering is not None else None,
+        control_scope="edge" if job.miku and job.miku_law == "peredge" else "tier",
         latency_hist=job.latency_hist,
         profiler=prof,
     )
@@ -106,7 +109,8 @@ def run_sweep(
     """Run ``jobs``, results in job order.
 
     ``lane="batched"`` runs them on ``device`` (the card unless ``"cpu"``);
-    the few jobs it cannot stack fall back to the scalar lane.
+    the jobs it cannot stack (fabric, per-edge and open-loop jobs among
+    them) fall back to the scalar lane.
     ``lane="scalar"`` runs one DES per job on the host (``device`` unused):
     serially when ``processes`` is None or at most 1, else over a pool of
     that many worker processes.  The pool starts its workers with

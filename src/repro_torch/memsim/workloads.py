@@ -1,6 +1,6 @@
 """Canonical workload builders of the paper's benchmarks (§3); a copy of
-``repro.memsim.workloads`` without ``serve_test`` (open-loop arrivals are
-not ported)."""
+``repro.memsim.workloads``, with the open-loop ``serve_test`` of the SLO
+scenarios."""
 
 from __future__ import annotations
 
@@ -22,9 +22,11 @@ def bw_test(
     llc_alloc_mb: float = 0.0,
     phases: Optional[Sequence[Tuple[float, str]]] = None,
     ddr_fraction: Optional[float] = None,
+    host: Optional[str] = None,
 ) -> WorkloadSpec:
     """lmbench-style sequential bandwidth test: ``n_threads`` cores, each a
-    1 GB non-overlapping region (WSS >> LLC, so all accesses miss)."""
+    1 GB non-overlapping region (WSS >> LLC, so all accesses miss).
+    ``host`` pins the issuing fabric host on a routed platform."""
     return WorkloadSpec(
         name=name or f"bw-{tier}-{op.value}-{n_threads}t",
         op=op,
@@ -36,6 +38,7 @@ def bw_test(
         phases=phases,
         miku_managed=miku_managed,
         ddr_fraction=ddr_fraction,
+        host=host,
     )
 
 
@@ -45,9 +48,11 @@ def lat_test(
     n_threads: int = 1,
     *,
     name: Optional[str] = None,
+    host: Optional[str] = None,
 ) -> WorkloadSpec:
     """Pointer-chasing latency test: a randomly linked circular list, one
-    outstanding access per thread (512 MB WSS >> LLC)."""
+    outstanding access per thread (512 MB WSS >> LLC); ``host`` as in
+    :func:`bw_test`."""
     return WorkloadSpec(
         name=name or f"lat-{tier}-{op.value}-{n_threads}t",
         op=op,
@@ -55,6 +60,37 @@ def lat_test(
         n_cores=n_threads,
         dependent=True,
         wss_mb=512.0,
+        host=host,
+    )
+
+
+def serve_test(
+    n_threads: int = 4,
+    *,
+    name: str = "serve",
+    arrival: Optional[object] = None,
+    ddr_fraction: Optional[float] = None,
+    mlp: int = 8,
+    op: OpClass = OpClass.LOAD,
+    host: Optional[str] = None,
+) -> WorkloadSpec:
+    """Open-loop serving workload: ``n_threads`` worker cores of bounded
+    per-core concurrency draining an arrival-fed backlog
+    (:mod:`repro_torch.workload`).  ``ddr_fraction`` interleaves its
+    requests across DDR and CXL (the SLO scenarios' placement axis).  It is
+    never MIKU-managed: it is the latency-critical tenant the controller
+    protects, not the batch traffic it throttles."""
+    return WorkloadSpec(
+        name=name,
+        op=op,
+        tier="ddr",
+        n_cores=n_threads,
+        mlp=mlp,
+        wss_mb=2048.0,
+        miku_managed=False,
+        ddr_fraction=ddr_fraction,
+        host=host,
+        arrival=arrival,
     )
 
 

@@ -2,8 +2,9 @@
 ``repro.obs.histogram.LatencyHistogram``, trimmed to what the batched
 lane's ``latency_hist`` cells record, what the scenarios read back
 (:meth:`LatencyHistogram.percentile`), the per-window telemetry records
-(:meth:`LatencyHistogram.to_jsonable`) and the DES's exact merges of its
-per-(workload, tier) sample lists (:func:`merge_all`).
+(:meth:`LatencyHistogram.to_jsonable`, read back by ``flash_crowd``
+through :meth:`LatencyHistogram.from_jsonable`) and the DES's exact merges
+of its per-(workload, tier) sample lists (:func:`merge_all`).
 
 The bucket layout is fixed: each power-of-two octave ``[2^(e-1), 2^e)`` is
 split into 16 linear sub-buckets.  For ``v > 0`` with ``m, e =
@@ -16,7 +17,7 @@ fluid lane records one weighted entry per window.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
@@ -142,6 +143,20 @@ class LatencyHistogram:
             "max": self.vmax if self.n else None,
             "counts": {str(idx): c for idx, c in sorted(self.counts.items())},
         }
+
+    @classmethod
+    def from_jsonable(cls, blob: Optional[dict]) -> "LatencyHistogram":
+        """The histogram :meth:`to_jsonable` wrote (empty for a falsy blob)."""
+        h = cls()
+        if not blob:
+            return h
+        h.counts = {int(k): float(v) for k, v in blob.get("counts", {}).items()}
+        h.n = float(blob.get("n", 0.0))
+        h.zero = float(blob.get("zero", 0.0))
+        h.total = float(blob.get("total", 0.0))
+        h.vmin = blob["min"] if blob.get("min") is not None else math.inf
+        h.vmax = blob["max"] if blob.get("max") is not None else -math.inf
+        return h
 
 
 def merge_all(hists: Iterable[LatencyHistogram]) -> LatencyHistogram:

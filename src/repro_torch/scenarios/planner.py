@@ -18,16 +18,13 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from repro_torch.core.device_model import PLATFORMS, PlatformModel
 from repro_torch.device import resolve_device
 from repro_torch.memsim.sweep import SimJob, run_sweep
-from repro_torch.scenarios.library import SCENARIOS, UNPORTED
+from repro_torch.scenarios.library import SCENARIOS
 from repro_torch.scenarios.spec import Scenario
 
 
 def _scenario(name: str) -> Scenario:
     if name in SCENARIOS:
         return SCENARIOS[name]
-    if name in UNPORTED:
-        raise NotImplementedError(f"scenario {name!r} is not ported yet: "
-                                  f"{UNPORTED[name]}")
     raise KeyError(f"unknown scenario {name!r}; the port has {', '.join(SCENARIOS)}")
 
 

@@ -503,10 +503,12 @@ def test_run_scenario_rows_match_reference(monkeypatch):
 
 
 def test_lane_refuses_what_is_still_not_ported():
-    """The per-edge law (it needs the fabric) is still refused, and named;
-    the scalar lane now runs and equals the reference's.  The merged law
-    and per-window telemetry run batched (tests/test_torch_corun3.py and
-    tests/test_torch_fig13_14.py hold them to the reference)."""
+    """The per-edge law is not stacked: it falls back to the scalar DES by
+    name ("fabric_topology", as the reference's lane names it) and its
+    result is the scalar lane's; the scalar lane equals the reference's.
+    The merged law and per-window telemetry run batched
+    (tests/test_torch_corun3.py and tests/test_torch_fig13_14.py hold them
+    to the reference)."""
     p = platform_a()
     two = [bw_test("ddr", OpClass.LOAD, 4, name="ddr", miku_managed=False),
            bw_test("cxl", OpClass.LOAD, 4, name="cxl")]
@@ -518,11 +520,13 @@ def test_lane_refuses_what_is_still_not_ported():
     peredge = SimJob(platform=p, workloads=two, sim_ns=20_000.0, miku=True,
                      miku_law="peredge")
     plans, refused = partition_jobs([single, merged, windows, peredge])
-    assert [i for i, _ in refused] == [3]
-    assert "miku_law" in refused[0][1] and "fabric" in refused[0][1]
+    assert refused == [(3, "fabric_topology")]
     assert plans[1].merged and len(plans[1].units) == 1 and plans[3] is None
-    with pytest.raises(NotImplementedError, match="peredge"):
-        run_sweep_batched([peredge], device="cpu")
+    (fell_back,) = run_sweep_batched([peredge], device="cpu")
+    (scalar,) = run_sweep([peredge], lane="scalar")
+    assert fell_back.stats["cxl"].bytes == scalar.stats["cxl"].bytes > 0
+    assert [d.for_tier("cxl").max_concurrency for d in fell_back.decisions] == \
+        [d.for_tier("cxl").max_concurrency for d in scalar.decisions]
     (got,) = run_sweep([single], lane="scalar", device="cpu")
     ref_single = RefJob(platform=ref_platform_a(),
                         workloads=[ref_bw_test("ddr", RefOp.LOAD, 16)], sim_ns=20_000.0)

@@ -10,6 +10,7 @@ the copies to the reference on numpy-seeded inputs: the A-switch and
 A-numa tier sets, merge_tier_counters, MergedSlowPolicy, merged_miku's
 calibration and the exported tier routing of a ddr_remote placement."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -37,7 +38,7 @@ from repro_torch.memsim.batched.exact import exact_regime
 from repro_torch.memsim.batched.lane import can_batch, run_sweep_batched
 from repro_torch.memsim.batched.stacking import plan_cell
 from repro_torch.memsim.calibration import merged_miku
-from repro_torch.memsim.sweep import SimJob
+from repro_torch.memsim.sweep import SimJob, run_sweep
 from repro_torch.memsim.workloads import bw_test
 from repro_torch.scenarios import plan
 from test_torch_figures import _assert_job, _run_both
@@ -300,12 +301,20 @@ def test_export_of_ddr_remote_placement_matches_reference(seed):
 
 
 def test_peredge_law_is_still_refused():
+    """The batched lane still does not stack the per-edge law: it names the
+    fallback "fabric_topology" and the job runs on the scalar DES, where on
+    a hopless platform it equals the per-tier law."""
     wls = [bw_test(t, OpClass.LOAD, 4, name=t) for t in ("ddr", "cxl")]
     job = SimJob(platform=dm.PLATFORMS["A"], workloads=wls, sim_ns=20_000.0, miku=True,
                  miku_law="peredge")
-    assert "fabric" in can_batch(job)
-    with pytest.raises(NotImplementedError, match="peredge"):
-        run_sweep_batched([job], device="cpu")
+    assert can_batch(job) == "fabric_topology"
+    (got,) = run_sweep_batched([job], device="cpu")
+    pertier = dataclasses.replace(job, miku_law="pertier")
+    (want,) = run_sweep([pertier], lane="scalar")
+    assert (got.stats["cxl"].bytes, got.tor_inserts) == (want.stats["cxl"].bytes,
+                                                         want.tor_inserts)
+    assert [d.for_tier("cxl").max_concurrency for d in got.decisions] == \
+        [d.for_tier("cxl").max_concurrency for d in want.decisions]
     for law in ("pertier", "merged"):
         job = SimJob(platform=dm.PLATFORMS["A-switch"], workloads=wls, sim_ns=20_000.0,
                      miku=True, miku_law=law, record_windows=True)
@@ -335,10 +344,10 @@ def test_unported_scenarios_name_what_they_wait_for():
     from repro.scenarios.registry import names as ref_names
     from repro_torch.scenarios.library import SCENARIOS, UNPORTED
 
-    assert set(SCENARIOS).isdisjoint(UNPORTED)
-    assert set(SCENARIOS) | set(UNPORTED) == set(ref_names())
+    assert UNPORTED == {}
+    assert set(SCENARIOS) == set(ref_names()) and len(SCENARIOS) == 25
     assert set(NEW_SCENARIOS) <= set(SCENARIOS)
-    assert len(UNPORTED) == 5 and "fig2_tiering" in SCENARIOS
-    waits = ("the fabric law", "open-loop arrivals")
-    for name, reason in UNPORTED.items():
-        assert any(w in reason for w in waits), (name, reason)
+    assert "fig2_tiering" in SCENARIOS
+    for name in ("fabric_spine_congestion", "fabric_port_overflow", "fabric_miku",
+                 "slo_knee", "flash_crowd"):
+        assert plan(name), name

@@ -149,6 +149,8 @@ def assert_same_result(got, want):
         assert {t: h.to_jsonable() for t, h in gh.items()} == \
             {t: h.to_jsonable() for t, h in rh.items()}
     assert got.tiering == want.tiering
+    assert got.fabric == want.fabric
+    assert got.arrival == want.arrival
 
 
 @pytest.mark.parametrize("case", CASES)

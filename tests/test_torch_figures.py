@@ -193,8 +193,8 @@ def test_mva_analyze_matches_reference(op, fast, slow):
 def test_registry_refuses_what_it_cannot_plan():
     with pytest.raises(ValueError, match="run_cell"):
         plan("fig11_llm")
-    with pytest.raises(NotImplementedError, match="the fabric"):
-        run_scenario("fabric_miku", device="cpu")
+    with pytest.raises(KeyError, match="unknown platform"):
+        plan("slo_knee", {"platform": "A-fabricated"})
     with pytest.raises(KeyError, match="unknown scenario"):
         plan("fig99")
 
@@ -204,8 +204,9 @@ def test_sweep_cli_lists_every_scenario(capsys):
 
     main(["--list"])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == len(SCENARIOS) == 20
+    assert len(lines) == len(SCENARIOS) == 25
     assert [line.split(":")[0] for line in lines] == list(SCENARIOS)
+    assert lines[-1].startswith("flash_crowd:")
     assert lines[0].startswith("fig2_tiering:")
     assert "fig11_llm" in SCENARIOS and "arch=llama31-8b" in lines[10]
 

@@ -48,7 +48,9 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.data, repro_torch.pytree, repro_torch.distributed, "
             "repro_torch.distributed.autosharding, repro_torch.launch.mesh, "
             "repro_torch.launch.dryrun, repro_torch.roofline.analysis, "
-            "repro_torch.roofline.op_costs; "
+            "repro_torch.roofline.op_costs, repro_torch.fabric, "
+            "repro_torch.fabric.topology, repro_torch.workload, "
+            "repro_torch.workload.arrivals; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules, "
             "sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -103,12 +103,19 @@ def test_group_mates_of_a_fallback_stay_batched(frozen):
 
 
 def test_peredge_is_refused_on_both_lanes():
+    """Neither lane refuses the per-edge law any more: both run it on the
+    scalar DES (the batched lane by its "fabric_topology" fallback), and
+    both equal the reference's scalar run."""
     wls = [bw_test(t, OpClass.LOAD, 4, name=t) for t in ("ddr", "cxl")]
     job = SimJob(platform=platform_a(), workloads=wls, sim_ns=20_000.0, miku=True,
                  miku_law="peredge")
+    ref_job = RefJob(platform=ref_platform_a(),
+                     workloads=[ref_bw_test(t, RefOp.LOAD, 4, name=t) for t in ("ddr", "cxl")],
+                     sim_ns=20_000.0, miku=True, miku_law="peredge")
+    (want,) = ref_run_sweep([ref_job], lane="scalar")
     for lane in ("scalar", "batched"):
-        with pytest.raises(NotImplementedError, match="A.4.2"):
-            run_sweep([job], lane=lane, device="cpu")
+        (got,) = run_sweep([job], lane=lane, device="cpu")
+        assert_same_result(got, want)
 
 
 # -- the batched lane within the reference's bounds of the scalar DES ------------
