@@ -56,7 +56,8 @@ Phases, each printed as one JSON line:
  10. ssm_check: mamba2-2.7b at full width (64 layers), random weights from a
      seeded generator, one 300-token prefill and 3 decode steps through the
      kernel and through the plain ssd_chunked, logits compared (f32 gated,
-     bf16 printed); prefill_long: the bf16 model prefills one 2048-token
+     bf16 printed), and in f32 a 2048-token prefill (16 chunks) at the same
+     bounds; prefill_long: the bf16 model prefills one 2048-token
      prompt through K4 (wall, K4's profiled device time and share) and
      through the plain scan (wall, logits difference printed);
  11. serve_mamba2: build_cluster("mamba2-2.7b", full=True, mode="miku") with
@@ -231,10 +232,30 @@ Phases, each printed as one JSON line:
      tests/data/slo_knee_trace_goldens.json, slo_knee's 20 rows and
      flash_crowd's rows with their acceptance, and a mixed list of an
      arrival job beside two MIKU co-runs batched on the card (K3 launches
-     must be 6), the fallback named "arrival" and equal to the scalar run.
+     must be 6), the fallback named "arrival" and equal to the scalar run;
+ 41. sanitize_des: the runtime sanitizer on the card's host: the scalar
+     lane's 18 parity jobs sanitized and not, every stat, ToR insert and
+     decision equal, no violation, the windows each checked; the goldens
+     of 34, 38 and 40 under REPRO_SANITIZE=1; the reference's 500 us
+     two-tier co-run plain and sanitized, the overhead ratio within the
+     reference's bound (plain * 1.5 + 0.05 s);
+ 42. trace_des: the spine co-run traced at every 997th admission (64 at
+     most), its Chrome export equal to tests/data/spine_perfetto_golden.json;
+     a MIKU co-run traced at 16 with histograms, the profile and window
+     records, equal to the plain run, its spans conserving;
+ 43. obs_fallback: two MIKU co-runs batched on the card beside a sanitized
+     and a traced co-run, which fall back as "sanitize" and "trace", each
+     equal to its scalar run; K3 launches those of the two co-runs alone (6);
+ 44. sweep_cli: ``python -m repro_torch.launch.sweep fabric_spine_congestion
+     --sanitize --perfetto NAME`` in this process, its Chrome trace's schema,
+     and an unknown name's exit code 2 with the near miss;
+ 45. serve_traced: the serve phase's cluster again on its weights with
+     ``trace=4`` under REPRO_SANITIZE=1: tokens, result dict and timeline
+     equal to the serve run's, the transfer queue's sanitizer clean, the
+     sampled chunks' spans conserving and counted, K1 = 32 x decode steps.
 The figures' plain lane runs in CPU worker processes from the build on.
-They run in this order: 1-5, 21, 25, 22, 26, 24, 23, 12, 20, 13, 6, 7, 9, 14, 16, 18, 19,
-34-40, 17, 15, 8, 10, 11, 27-33.  Every line carries ``elapsed_s``, the seconds since the script started.
+They run in this order: 1-5, 45, 21, 25, 22, 26, 24, 23, 12, 20, 13, 6, 7, 9, 14, 16, 18,
+19, 34-44, 17, 15, 8, 10, 11, 27-33.  Every line carries ``elapsed_s``, the seconds since the script started.
 The line before the last lists every kernel's numbers; the last line is the
 device summary.  Any failed check exits non-zero; without CUDA (or without
 the rest of the repository beside this file) it exits non-zero at once.
@@ -664,7 +685,17 @@ def main() -> None:
     check(launches == cfg.n_layers * steps and launches > 0,
           f"kernel launches {launches} != layers x decode steps {cfg.n_layers * steps}")
 
-    del cluster, hbm, host, e  # free the llama weights before the next paths
+    # serve_traced runs the same cluster on these weights, traced and
+    # sanitized; the serve engines go first, so the memory peak stays one
+    # cluster's.
+    params = hbm.params
+    untraced = dict(res=res, wall_s=wall_s, timeline=cluster.timeline,
+                    tokens={e.cfg.name: sorted((r.rid, list(r.output)) for r in e.done)
+                            for e in cluster.engines})
+    del cluster, hbm, host, e
+    torch.cuda.empty_cache()
+    traced_serve = serve_traced(dev, params, untraced, smi)
+    del params, untraced  # free the llama weights before the next paths
     torch.cuda.empty_cache()
 
     families_check(dev)
@@ -696,6 +727,10 @@ def main() -> None:
     fabric_phase(dev)
     direct = fabric_direct(dev)
     open_loop = open_loop_phase(dev)
+    sanitize_des(smi)
+    trace_des(smi)
+    obs = obs_fallback(dev)
+    sweep_cli(smi)
     k3_88 = k3_instance_timing(dev, figures3.pop("firsts"),
                                next(lib for lib in libs if lib.name.startswith("fluid_solver"))
                                .with_suffix(".ptxas.txt"))
@@ -761,6 +796,8 @@ def main() -> None:
         "serve_moe_launches": moe["k1_launches"],
         # llama31-8b served on a 1 x 1 mesh, every leaf a DTensor.
         "dist_serve_launches": k1_dist_launches,
+        # The serve cluster again, its transfers traced and sanitized.
+        "serve_traced_launches": traced_serve["k1_launches"],
         **{group: {name[len(group) + 1:]: {k: sweep[name][k] for k in K1_FIELDS}
                    for name in sweep if name.startswith(group + "_")}
            for group in ("gemma2", "dh80", "dh160", "whisper", "hymba", "dbrx", "llama4")},
@@ -799,6 +836,9 @@ def main() -> None:
         # co-runs beside an open-loop job that falls back by name.
         "fabric_direct_launches": direct["k3_launches"],
         "open_loop_launches": open_loop["k3_launches"],
+        # The batchable co-runs beside a sanitized and a traced job, which
+        # fall back by name.
+        "obs_fallback_launches": obs["k3_launches"],
         **k3_row,
     }, {
         "name": "ssd_scan",
@@ -1774,6 +1814,468 @@ def open_loop_phase(dev):
               for r in results for w in r.stats),
           "open_loop: a job without a result")
     return dict(k3_launches=launches)
+
+
+# -- the runtime sanitizer, the request and transfer tracers, the sweep CLI --
+
+#: The reference's bound on the sanitizer's cost (tests/test_analysis.py's
+#: test_sanitizer_overhead_is_bounded, a 500 us two-tier co-run):
+#: sanitized wall < plain wall * 1.5 + 0.05 s.
+SANITIZE_OVERHEAD_FACTOR = 1.5
+SANITIZE_OVERHEAD_SLACK_S = 0.05
+#: serve_traced's transfer tracer: every 4th chunk.
+SERVE_TRACE_EVERY = 4
+
+
+@contextlib.contextmanager
+def sanitize_switch(value=None):
+    """REPRO_SANITIZE set to ``value`` (if one is given) within, and on exit
+    what it was before."""
+    saved = os.environ.get("REPRO_SANITIZE")
+    if value is not None:
+        os.environ["REPRO_SANITIZE"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_SANITIZE", None)
+        else:
+            os.environ["REPRO_SANITIZE"] = saved
+
+
+def des_parity_jobs():
+    """The scalar lane's 18 parity jobs (tests/test_torch_des.py's CASES,
+    built from the port's classes): flat and co-run bandwidth and latency
+    tests, MIKU per tier and merged on three tiers, NUMA placement, LLC
+    partitions, phases, telemetry, the three tiering policies, granularity
+    1 and two seeds."""
+    from repro_torch.core.des import WorkloadSpec
+    from repro_torch.core.device_model import PLATFORMS as P
+    from repro_torch.core.littles_law import OpClass as Op
+    from repro_torch.memsim import workloads as w
+    from repro_torch.memsim.sweep import SimJob
+    from repro_torch.tiering import HotSetPattern, RegionSpec, TieringSpec
+
+    def job(platform, workloads, sim_ns, **kw):
+        return SimJob(platform=P[platform], workloads=workloads, sim_ns=sim_ns, **kw)
+
+    def corun(op, **kw):
+        return [w.bw_test("ddr", op, 16, name="ddr", miku_managed=False),
+                w.bw_test("cxl", op, 16, name="cxl", **kw)]
+
+    def spec(policy):
+        return TieringSpec(regions=(RegionSpec(
+            workload="app", n_pages=256, placement={"cxl": 1.0},
+            pattern=HotSetPattern(hot_fraction=0.2, hot_weight=0.9, drift_pages=8.0)),),
+            policy=policy, fast_capacity_pages=128)
+
+    three = [w.bw_test("ddr", Op.LOAD, 8, name="ddr", miku_managed=False),
+             w.bw_test("cxl", Op.LOAD, 8, name="cxl"),
+             w.bw_test("cxl_sw", Op.LOAD, 8, name="sw")]
+    app = [w.bw_test("ddr", Op.LOAD, 8, name="app")]
+    return {
+        "bw_ddr_load": job("A", [w.bw_test("ddr", Op.LOAD, 16)], 40_000.0),
+        "bw_cxl_store": job("B", [w.bw_test("cxl", Op.STORE, 16)], 40_000.0),
+        "lat_test": job("A", [w.lat_test("cxl", Op.LOAD, 2)], 40_000.0, granularity=1),
+        "lat_share": job("A", [w.lat_share(4)], 30_000.0, granularity=1),
+        "corun_racing": job("A", corun(Op.LOAD), 50_000.0),
+        "corun_miku_pertier": job("A", corun(Op.STORE), 60_000.0, miku=True),
+        "switch_merged": job("A-switch", list(three), 50_000.0, miku=True,
+                             miku_law="merged"),
+        "switch_pertier": job("A-switch", list(three), 50_000.0, miku=True),
+        "numa_placement": job("A-numa", [
+            WorkloadSpec(name="striped", op=Op.LOAD, tier="ddr", n_cores=8,
+                         miku_managed=False,
+                         placement={"ddr": 0.5, "ddr_remote": 0.3, "cxl": 0.2}),
+            w.bw_test("cxl", Op.LOAD, 8, name="cxl")], 40_000.0, miku=True),
+        "llc_partition": job("A", [
+            w.bw_test("ddr", Op.LOAD, 8, name="hit", wss_mb=64.0, llc_alloc_mb=16.0),
+            w.bw_test("cxl", Op.LOAD, 8, name="cxl")], 40_000.0),
+        "alternating_phases": job("A", w.alternating_bw_pair(Op.LOAD, 8, 15_000.0),
+                                  50_000.0, miku=True),
+        "record_windows_hist": job("A", corun(Op.LOAD), 50_000.0, miku=True,
+                                   record_windows=True, latency_hist=True),
+        "tiering_static": job("A", list(app), 50_000.0, record_windows=True,
+                              tiering=spec("static")),
+        "tiering_hotness_lru": job("A-switch", list(app), 60_000.0, record_windows=True,
+                                   tiering=spec("hotness_lru")),
+        "tiering_miku_coordinated": job(
+            "A", app + [w.bw_test("cxl", Op.LOAD, 8, name="cxl")], 60_000.0, miku=True,
+            record_windows=True, tiering=spec("miku_coordinated")),
+        "granularity_1": job("A", corun(Op.NT_STORE), 20_000.0, granularity=1),
+        "seed_0": job("A", corun(Op.LOAD, ddr_fraction=0.3), 30_000.0, seed=0),
+        "seed_3": job("A", corun(Op.LOAD, ddr_fraction=0.3), 30_000.0, seed=3),
+    }
+
+
+def sanitized_goldens():
+    """The DES's pinned goldens through the runners scalar_lane, fabric and
+    open_loop hold them with, under ``REPRO_SANITIZE=1`` (every sim they
+    build is sanitized, raising on a violation): seed_fig_goldens.json's
+    fig3 load column and fig5 load (rel 0.01, ToR inserts equal),
+    miku_trace_des.json's 40 decisions, fabric_trace_goldens.json's spine
+    co-run and slo_knee_trace_goldens.json's cell (equal).  Returns, per
+    golden, whether it holds and its sanitizer summaries."""
+    import dataclasses as dc
+
+    from repro_torch.core.des import TieredMemorySim, run_bw_test, run_corun
+    from repro_torch.core.device_model import platform_a
+    from repro_torch.core.littles_law import OpClass
+    from repro_torch.fabric import peredge_miku, spine_leaf_platform
+    from repro_torch.memsim.calibration import default_miku
+    from repro_torch.memsim.sweep import run_job
+    from repro_torch.memsim.workloads import bw_test
+    from repro_torch.scenarios import plan
+
+    def load(name):
+        with open(os.path.join(HERE, "tests", "data", name)) as f:
+            return json.load(f)
+
+    p = platform_a()
+    gold, out, summaries = load("seed_fig_goldens.json"), {}, {}
+    with sanitize_switch("1"):
+        for row in gold["fig3"]:
+            if row["op"] == "load":
+                res = run_bw_test(p, op=OpClass.LOAD, tier=row["tier"], n_threads=16,
+                                  sim_ns=120_000)
+                got = res.bandwidth(f"bw-{row['tier']}-load")
+                out[f"fig3_{row['tier']}"] = \
+                    abs(got - row["bandwidth_gbps"]) / row["bandwidth_gbps"] <= GOLDENS_REL
+                summaries[f"fig3_{row['tier']}"] = res.sanitizer
+        g = gold["fig5"]["load"]
+        res = run_corun(p, op=OpClass.LOAD, n_threads=16, sim_ns=300_000)
+        out["fig5"] = res.tor_inserts == g["tor_inserts"] and all(
+            abs(res.bandwidth(w) - g[f"{w}_gbps"]) / g[f"{w}_gbps"] <= GOLDENS_REL
+            for w in ("ddr", "cxl"))
+        summaries["fig5"] = res.sanitizer
+        want = [w["decision"] for w in load("miku_trace_des.json")["windows"]]
+        res = run_corun(p, op=OpClass.STORE, n_threads=16, sim_ns=400_000,
+                        controller=default_miku(p))
+        out["miku"] = [dict(max_concurrency=d.max_concurrency, rate_factor=d.rate_factor,
+                            phase=d.phase.value) for d in res.decisions] == want
+        summaries["miku"] = res.sanitizer
+        blob = load("fabric_trace_goldens.json")
+        pm, op, n = spine_leaf_platform(), OpClass(blob["op"]), blob["n_threads"]
+        wls = [bw_test("ddr", op, n, name="ddr", miku_managed=False, host="host0"),
+               bw_test("cxl", op, n, name="cxl0", host="host0"),
+               bw_test("cxl", op, n, name="cxl1", host="host1")]
+        res = TieredMemorySim(pm, wls, seed=0, granularity=4, controller=peredge_miku(pm, 4),
+                              window_ns=blob["window_ns"], record_windows=True,
+                              control_scope="edge").run(blob["sim_ns"])
+        out["fabric"] = (res.window_records == blob["windows"]
+                         and res.fabric == blob["fabric"]
+                         and all(res.bandwidth(w) == bw
+                                 for w, bw in blob["bandwidths"].items()))
+        summaries["fabric"] = res.sanitizer
+        blob = load("slo_knee_trace_goldens.json")
+        ((_, _, (job,)),) = plan("slo_knee", {"placement": blob["placement"],
+                                              "policy": blob["policy"], "rate": blob["rate"]})
+        res = run_job(dc.replace(job, record_windows=True))
+        got = [{k: v for k, v in r.items() if k != "latency_hist"} for r in res.window_records]
+        out["slo_knee"] = json.loads(json.dumps(got)) == blob["windows"]
+        summaries["slo_knee"] = res.sanitizer
+    return out, summaries
+
+
+def sanitize_des(smi: str):
+    """The runtime sanitizer on the card's host.  The scalar lane's 18
+    parity jobs run with ``sanitize=True`` and without: every stat, the
+    ToR inserts and the decisions equal, no violation, the windows each
+    checked printed.  The pinned goldens hold with every sim sanitized.
+    The reference's 500 us two-tier co-run, plain and sanitized, three
+    times each, interleaved (the host's walls spread): the overhead ratio
+    of the best walls and the reference's own bound on it."""
+    import dataclasses as dc
+
+    from repro_torch.core.des import TieredMemorySim
+    from repro_torch.core.device_model import platform_a
+    from repro_torch.core.littles_law import OpClass
+    from repro_torch.memsim.sweep import run_job
+    from repro_torch.memsim.workloads import bw_test
+
+    t0 = time.perf_counter()
+    jobs, mism, checked, violations = des_parity_jobs(), {}, {}, {}
+    for name, job in jobs.items():
+        plain = run_job(job)
+        san = run_job(dc.replace(job, sanitize=True))
+        mism[name] = des_mismatches(san, plain)
+        checked[name] = san.sanitizer["windows_checked"]
+        violations[name] = san.sanitizer["violations"]
+    jobs_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    goldens, summaries = sanitized_goldens()
+    goldens_wall = time.perf_counter() - t0
+    p = platform_a()
+    wls = [bw_test("ddr", OpClass.LOAD, 16), bw_test("cxl", OpClass.LOAD, 16)]
+    walls = {"plain": [], "sanitized": []}
+    for _ in range(3):
+        for key, sanitize in (("plain", False), ("sanitized", True)):
+            t0 = time.perf_counter()
+            TieredMemorySim(p, wls, seed=0, sanitize=sanitize).run(500_000.0)
+            walls[key].append(time.perf_counter() - t0)
+    plain_s, san_s = min(walls["plain"]), min(walls["sanitized"])
+    bound_s = plain_s * SANITIZE_OVERHEAD_FACTOR + SANITIZE_OVERHEAD_SLACK_S
+    emit("sanitize_des", jobs=len(jobs), jobs_wall_s=jobs_wall,
+         mismatches={k: v for k, v in mism.items() if v}, windows_checked=checked,
+         violations={k: v for k, v in violations.items() if v}, goldens=goldens,
+         golden_windows_checked={k: s["windows_checked"] for k, s in summaries.items()},
+         golden_violations={k: s["violations"] for k, s in summaries.items()
+                            if s["violations"]},
+         goldens_wall_s=goldens_wall, overhead_config="2 x 16-thread load bw-tests, 500 us",
+         overhead_walls_s=walls, overhead_ratio=san_s / plain_s, overhead_bound_s=bound_s,
+         host_cpu=host_cpu(), card=smi)
+    check(not any(mism.values()), f"sanitize_des: sanitized jobs differ in {mism}")
+    check(not any(violations.values()), f"sanitize_des: violations {violations}")
+    check(all(checked.values()), f"sanitize_des: a job checked no window: {checked}")
+    check(all(goldens.values()), f"sanitize_des: sanitized goldens {goldens}")
+    check(not any(s["violations"] for s in summaries.values()),
+          f"sanitize_des: violations on the goldens {summaries}")
+    check(san_s < bound_s, f"sanitize_des: sanitized {san_s:.3f} s against plain "
+          f"{plain_s:.3f} s, over the bound {bound_s:.3f} s")
+
+
+def trace_des(smi: str):
+    """Request tracing on the card's host.  The spine co-run traced at
+    every 997th admission (64 at most): its Chrome export equals
+    tests/data/spine_perfetto_golden.json.  A MIKU co-run traced at 16,
+    with latency histograms, the phase profile and window records: every
+    stat, counter and decision equal to the plain run's, and its spans
+    conserve the ToR residency.  Prints the traced request counts."""
+    import dataclasses as dc
+
+    from repro_torch.core.device_model import platform_a
+    from repro_torch.core.littles_law import OpClass
+    from repro_torch.memsim.sweep import SimJob, run_job
+    from repro_torch.memsim.workloads import bw_test
+    from repro_torch.obs import TraceConfig, default_registry, to_chrome
+    from repro_torch.scenarios import get
+
+    cell = {"op": OpClass.LOAD, "law": "peredge", "n_threads": 16, "spine_slots": 8,
+            "spine_service_ns": 36.0, "sim_ns": 120_000.0}
+    corun = get("fabric_spine_congestion").build(None, cell)[2]
+    counter = default_registry().counter("des.traced_requests")
+    before = counter.value
+    t0 = time.perf_counter()
+    spine = run_job(dc.replace(corun, trace=TraceConfig(sample_every=997, limit=64)))
+    spine_wall = time.perf_counter() - t0
+    with open(os.path.join(HERE, "tests", "data", "spine_perfetto_golden.json")) as f:
+        golden = json.load(f)
+    golden_equal = to_chrome(spine.trace["requests"]) == golden
+
+    p = platform_a()
+    job = SimJob(platform=p, workloads=[
+        bw_test("ddr", OpClass.LOAD, 16, name="ddr", miku_managed=False),
+        bw_test("cxl", OpClass.LOAD, 16, name="cxl")], sim_ns=150_000.0, miku=True)
+    t0 = time.perf_counter()
+    plain = run_job(job)
+    plain_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    instr = run_job(dc.replace(job, trace=16, latency_hist=True, profile=True,
+                               record_windows=True))
+    instr_wall = time.perf_counter() - t0
+    diff = [m for m in des_mismatches(instr, plain) if m != "window_records"]
+    bad_spans = [i for i, rec in enumerate(instr.trace["requests"]) if not spans_conserve(rec)]
+    hist_n = {w: instr.stats[w].latency_hist.n for w in instr.stats}
+    emit("trace_des", spine_golden_equal=golden_equal, spine_traced=spine.trace["n_traced"],
+         spine_wall_s=spine_wall, corun_traced=instr.trace["n_traced"],
+         corun_in_flight=instr.trace["n_in_flight"], corun_dropped=instr.trace["n_dropped"],
+         traced_requests_counter=counter.value - before, mismatches=diff,
+         spans_not_conserving=bad_spans, latency_hist_n=hist_n,
+         window_records=len(instr.window_records),
+         profile_phases=sorted(instr.profile["phases"]), plain_wall_s=plain_wall,
+         instrumented_wall_s=instr_wall, host_cpu=host_cpu(), card=smi)
+    check(golden_equal, "trace_des: the spine co-run's trace differs from "
+          "spine_perfetto_golden.json")
+    check(spine.trace["n_traced"] == 64, f"trace_des: spine traced {spine.trace['n_traced']}")
+    check(not diff, f"trace_des: the instrumented co-run differs from the plain one in {diff}")
+    check(instr.trace["n_traced"] > 0 and not bad_spans,
+          f"trace_des: {instr.trace['n_traced']} traced, spans not conserving {bad_spans}")
+    check(counter.value - before == spine.trace["n_traced"] + instr.trace["n_traced"],
+          "trace_des: des.traced_requests does not count the traced requests")
+    check(all(hist_n[w] == instr.stats[w].latency_count for w in hist_n),
+          f"trace_des: histograms {hist_n} miss completions")
+
+
+def spans_conserve(rec, tol=1e-6) -> bool:
+    """A finalized span record partitions [t_tor, t_retire] (after its IRQ
+    wait): contiguous, non-negative spans, enqueue <= ToR <= retire."""
+    spans = rec["spans"]
+    if not spans or not rec["t_issue"] <= rec["t_tor"] <= rec["t_retire"]:
+        return False
+    t = rec["t_issue"] if spans[0]["kind"] == "irq" else rec["t_tor"]
+    for sp in spans:
+        if abs(sp["t0"] - t) > tol or sp["t1"] < sp["t0"]:
+            return False
+        t = sp["t1"]
+    return abs(t - rec["t_retire"]) <= tol
+
+
+def obs_fallback(dev):
+    """A mixed list on the card: two MIKU co-runs that stack, beside a
+    sanitized co-run and a traced one.  The two fall back as "sanitize"
+    and "trace" and each equals its scalar run; K3 runs the two co-runs
+    (its count set to 0 just before and read just after), as many times as
+    for those two alone."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.core.device_model import platform_a
+    from repro_torch.core.littles_law import OpClass
+    from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.memsim.batched import fluid
+    from repro_torch.memsim.batched.lane import partition_jobs, run_sweep_batched
+    from repro_torch.memsim.sweep import SimJob, run_sweep
+    from repro_torch.memsim.workloads import bw_test
+
+    p = platform_a()
+    # sanitize=False: batchable whatever REPRO_SANITIZE says.
+    co = [SimJob(platform=p, workloads=[
+        bw_test("ddr", op, 16, name="ddr", miku_managed=False),
+        bw_test("cxl", op, 16, name="cxl")], sim_ns=60_000.0, miku=True, sanitize=False)
+        for op in (OpClass.LOAD, OpClass.STORE, OpClass.NT_STORE)]
+    jobs = [co[0], dc.replace(co[2], sanitize=True), co[1],
+            dc.replace(co[0], trace=16, record_windows=True)]
+    fs.WINDOW_SOLVE_LAUNCHES.reset()
+    run_sweep_batched(co[:2], device=dev)
+    torch.cuda.synchronize()
+    alone = fs.WINDOW_SOLVE_LAUNCHES.count
+    partition = partition_jobs(jobs)
+    fs.WINDOW_SOLVE_LAUNCHES.reset()
+    fluid.COUNTS.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_sweep_batched(jobs, device=dev, partition=partition)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, windows = fs.WINDOW_SOLVE_LAUNCHES.count, fluid.COUNTS.windows
+    scalar = run_sweep([jobs[1], jobs[3]], lane="scalar")
+    diff = {i: des_mismatches(results[i], s) for i, s in zip((1, 3), scalar)}
+    extra = dict(sanitizer=results[1].sanitizer == scalar[0].sanitizer,
+                 trace=results[3].trace == scalar[1].trace)
+    emit("obs_fallback", jobs=len(jobs), fallbacks=partition[1], k3_launches=launches,
+         k3_launches_batched_alone=alone, windows=windows, wall_s=wall,
+         mismatches=diff, payloads_equal=extra,
+         sanitizer_windows_checked=results[1].sanitizer["windows_checked"],
+         traced=results[3].trace["n_traced"],
+         batched_gbps=[{w: results[i].bandwidth(w) for w in results[i].stats}
+                       for i in (0, 2)])
+    check(partition[1] == [(1, "sanitize"), (3, "trace")],
+          f"obs_fallback: fallbacks {partition[1]}")
+    check(not any(diff.values()) and all(extra.values()),
+          f"obs_fallback: a fallback differs from its scalar run: {diff}, {extra}")
+    check(results[1].sanitizer["violations"] == [], "obs_fallback: sanitizer violations")
+    check(launches == alone == windows == 6,
+          f"obs_fallback: {launches} K3 launches ({alone} for the co-runs alone, "
+          f"{windows} windows), not 6")
+    check(all(_finite(r.bandwidth(w)) and r.bandwidth(w) > 0 for r in results
+              for w in r.stats), "obs_fallback: a job without a result")
+    return dict(k3_launches=launches)
+
+
+def serve_traced(dev, params, untraced, smi: str):
+    """The serve phase's cluster again on its parameters (the weights are
+    not drawn again), built with ``trace=4`` under ``REPRO_SANITIZE=1``:
+    greedy tokens, result dict and timeline equal to the untraced run's,
+    no violation from the transfer queue's sanitizer, the sampled chunks'
+    spans conserving (enqueue <= service <= complete), as many as every
+    4th chunk up to the tracer's limit, and K1 32 times a decode step (its
+    count set to 0 just before the run and read just after)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as k1
+    from repro_torch.launch.serve import build_cluster
+
+    with sanitize_switch("1"):
+        cluster = build_cluster("llama31-8b", full=True, n_requests=4, max_new=8,
+                                mode="miku", device=dev, params=params,
+                                trace=SERVE_TRACE_EVERY)
+        q = cluster.queue
+        k1.LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cluster.run(max_ticks=10**9)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    launches = k1.LAUNCHES.count
+    hbm, host = cluster.engines
+    cfg = hbm.cfg.model
+    steps = hbm.decode_steps + host.decode_steps
+    tokens = {e.cfg.name: sorted((r.rid, list(r.output)) for r in e.done)
+              for e in cluster.engines}
+    tracer = q._tracer
+    recs = q.trace_records
+    want_recs = min(tracer.limit, (tracer.count - 1) // tracer.every + 1)
+    ordered = all(r["t_issue"] <= r["spans"][-1]["t0"] <= r["t_retire"] for r in recs)
+    san = q._san.summary()
+    emit("serve_traced", trace_every=SERVE_TRACE_EVERY, sanitize="REPRO_SANITIZE=1",
+         tokens_equal=tokens == untraced["tokens"], result_equal=res == untraced["res"],
+         timeline_equal=cluster.timeline == untraced["timeline"],
+         timeline_ticks=len(cluster.timeline), timeline_runs=len(cluster.timeline._runs),
+         chunks=tracer.count, trace_records=len(recs), trace_records_expected=want_recs,
+         spans_ordered=ordered, spans_conserving=all(spans_conserve(r) for r in recs),
+         sanitizer=dict(san, violations=len(san["violations"])), wall_s=wall_s,
+         untraced_wall_s=untraced["wall_s"], k1_launches=launches,
+         layers_x_decode_steps=cfg.n_layers * steps, card=smi)
+    check(tokens == untraced["tokens"], "serve_traced: greedy tokens differ from the serve run")
+    check(res == untraced["res"], f"serve_traced: result {res} != {untraced['res']}")
+    check(cluster.timeline == untraced["timeline"],
+          "serve_traced: the timeline differs from the untraced run's")
+    check(san["violations"] == [] and san["submitted"] == {"slow": tracer.count},
+          f"serve_traced: the queue's sanitizer reports {san}")
+    check(len(recs) == want_recs > 0 and ordered and all(spans_conserve(r) for r in recs),
+          f"serve_traced: {len(recs)} transfer records for {tracer.count} chunks")
+    check(launches == cfg.n_layers * steps and launches > 0,
+          f"serve_traced: K1 launches {launches} != layers x decode steps "
+          f"{cfg.n_layers * steps}")
+    return dict(k1_launches=launches)
+
+
+def sweep_cli(smi: str):
+    """``python -m repro_torch.launch.sweep fabric_spine_congestion
+    --sanitize --perfetto NAME`` in this process: it writes
+    NAME.perfetto.json in ``to_chrome``'s schema (one process per cell, job
+    and workload); an unknown name exits with code 2 and names the near
+    miss on stderr.  The environment switch is restored after."""
+    import io
+
+    from repro_torch.launch import sweep as cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with sanitize_switch():
+        with tempfile.TemporaryDirectory() as tmp:
+            name = os.path.join(tmp, "spine")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                cli.main(["fabric_spine_congestion", "--sanitize", "--perfetto", name])
+            wall = time.perf_counter() - t0
+            sanitize_set = os.environ.get("REPRO_SANITIZE") == "1"
+            with open(f"{name}.perfetto.json") as f:
+                doc = json.load(f)
+        bad, code = io.StringIO(), None
+        with contextlib.redirect_stderr(bad):
+            try:
+                cli.main(["fabric_spine_congstion"])
+            except SystemExit as ex:
+                code = ex.code
+    events = doc["traceEvents"]
+    spans = [e for e in events if e["ph"] == "X"]
+    procs = sorted(e["args"]["name"] for e in events if e["name"] == "process_name")
+    schema = (doc["displayTimeUnit"] == "ns" and spans
+              and all({"name", "cat", "ts", "dur", "pid", "tid", "args"} <= set(e)
+                      and e["ts"] >= 0 and e["dur"] >= 0 for e in spans)
+              and all({"name", "ph", "pid", "tid", "args"} <= set(e) for e in events))
+    rows = out.getvalue().splitlines()
+    emit("sweep_cli", argv="fabric_spine_congestion --sanitize --perfetto NAME",
+         wall_s=wall, rows=rows, sanitize_set=sanitize_set, trace_events=len(events),
+         spans=len(spans), processes=procs, schema_ok=bool(schema),
+         unknown_exit_code=code, unknown_stderr=bad.getvalue().splitlines()[:1],
+         host_cpu=host_cpu(), card=smi)
+    check(len(rows) == 3 and sanitize_set, f"sweep_cli: rows {rows}")
+    check(schema and procs and all(p.startswith("cell") for p in procs),
+          f"sweep_cli: the Chrome trace's schema: {procs}")
+    check(code == 2 and "did you mean: fabric_spine_congestion?" in bad.getvalue(),
+          f"sweep_cli: unknown scenario exit {code}, stderr {bad.getvalue()[:200]}")
 
 
 # -- the smoke serve CLI, fig11, the grid figures, MVA ---------------------------
@@ -2802,6 +3304,15 @@ def ssm_phases(dev):
          peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9, **f32)
     check(f32["prefill_allclose"] and f32["decode_allclose"] and f32["finite"],
           f"full-width f32 mamba2 logits differ between K4 and the plain scan: {f32}")
+    # The long prefill in f32 at the same bounds: 16 chunks of 128 through
+    # K4's three stages, against the plain scan.
+    f32_long = ssm_check(model32, params32, gen, dev, prompt_len=2048)
+    emit("ssm_check", config=full.name, dtype="float32", tol_prefill=2e-3, tol_decode=3e-3,
+         n_layers=full.n_layers, peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **f32_long)
+    check(f32_long["prefill_allclose"] and f32_long["decode_allclose"] and f32_long["finite"],
+          f"full-width f32 mamba2 logits differ between K4 and the plain scan at 2048 "
+          f"tokens: {f32_long}")
     del params32
     torch.cuda.empty_cache()
 

@@ -28,9 +28,13 @@ and ``control_scope="edge"`` addresses windows and decisions to control
 edges) and its open-loop arrivals (a workload with an ``arrival`` spec
 issues from a generated backlog).  With no fabric, an all-transparent
 one and no arrival spec, every branch of both is dead and the event chain
-is the flat-station one.  The reference's runtime sanitizer and request
-tracer are not ported.  :func:`export_state` derives the static state the
-batched lane stacks without building the sim.
+is the flat-station one.  ``sanitize=`` threads the runtime sanitizer
+(:mod:`repro_torch.analysis.sanitizer`) through the admission and retire
+paths and checks its invariants at every window; ``trace=`` samples every
+Nth ToR admission into span chains (:mod:`repro_torch.obs.trace`).  Neither
+draws a random number, so both leave the results as they are.
+:func:`export_state` derives the static state the batched lane stacks
+without building the sim.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.controller import TierDecisions
 from repro_torch.core.device_model import PlatformModel, UnknownTierError
-from repro_torch.core.invariants import InvariantViolation
+from repro_torch.core.invariants import InvariantViolation, sanitize_enabled
 from repro_torch.core.littles_law import (
     OpClass,
     TierCounters,
@@ -223,9 +227,15 @@ class SimResult:
     #: occupancy and the entry limit (macro-request units); None unless some
     #: route crosses a port.
     fabric: Optional[dict] = None
+    #: Sanitizer summary (windows checked, per-tier admissions and retires,
+    #: violations); None unless the sim ran with ``sanitize``.
+    sanitizer: Optional[dict] = None
     #: Per open-loop workload: generated, issued, shed and the final backlog
     #: (generated == issued + shed + backlog); None without an arrival spec.
     arrival: Optional[dict] = None
+    #: Sampled request traces (``RequestTracer.run_payload``); None unless
+    #: the sim ran with ``trace``.
+    trace: Optional[dict] = None
     #: Wall-clock phase profile (setup, event loop, window passes); None
     #: unless the scalar job ran with ``profile=True``.
     profile: Optional[dict] = None
@@ -266,7 +276,9 @@ class TieredMemorySim:
         record_windows: bool = False,
         tiering=None,
         control_scope: str = "tier",
+        sanitize=None,
         latency_hist: bool = False,
+        trace=0,
         profiler=None,
     ):
         self.platform = platform
@@ -323,6 +335,9 @@ class TieredMemorySim:
         self._r_ttor: List[float] = []
         self._r_service: List[float] = []
         self._r_free: List[int] = []
+        # 1 iff the rid is live in the tracer: one append per allocated rid,
+        # kept with tracing off too, so the hooks' guard is an index.
+        self._r_traced = bytearray()
 
         # Round-robin arbitration over every (workload, core) pair: the IRQ
         # admits fairly per core, so its inflow mix follows core counts, not
@@ -555,6 +570,9 @@ class TieredMemorySim:
         self.tor_occupancy_integral = 0.0
         self._occ_tier = [0.0] * self._n_tiers
         self.tor_inserts = 0
+        #: Requests holding ToR entries per tier, kept only for the
+        #: sanitizer (which re-derives conservation from it).
+        self._tier_inflight = [0] * self._n_tiers
         self._timeline_bucket_ns = window_ns
         self._timeline_acc = [0.0] * n
         self._timeline_next = self._timeline_bucket_ns
@@ -576,6 +594,37 @@ class TieredMemorySim:
         #: (window index, t_ns, per-(workload, tier) sample counts) at each
         #: window boundary.
         self._hist_marks: List[Tuple[int, float, List[List[int]]]] = []
+
+        # ``sanitize``: None reads REPRO_SANITIZE; True or "raise" checks
+        # every window and raises, "record" collects the violations into
+        # SimResult.sanitizer.  ``trace``: every Nth ToR admission (an int N
+        # or a TraceConfig) keyed on ``tor_inserts``, so it draws nothing.
+        # Both are imported only when asked for.
+        if sanitize is None:
+            sanitize = sanitize_enabled()
+        if sanitize:
+            from repro_torch.analysis.sanitizer import DesSanitizer
+
+            mode = sanitize if isinstance(sanitize, str) else "raise"
+            self._san: Optional[DesSanitizer] = DesSanitizer(self._n_tiers, mode=mode)
+            self._counters.attach_sanitizer(self._san.check_counter_deltas)
+        else:
+            self._san = None
+        if trace:
+            from repro_torch.obs.trace import RequestTracer, TraceConfig
+
+            cfg = trace if isinstance(trace, TraceConfig) else TraceConfig(
+                sample_every=int(trace))
+            self._tracer: Optional[RequestTracer] = RequestTracer(
+                cfg,
+                workload_names=[w.name for w in self.workloads],
+                station_names=list(self._tier_names) + ["llc"] + list(self._link_names),
+                tier_names=list(self._tier_names),
+            )
+            self._tr_every = cfg.sample_every
+        else:
+            self._tracer = None
+            self._tr_every = 0
 
         if tiering is not None:
             tiering.bind(self)
@@ -775,6 +824,9 @@ class TieredMemorySim:
             self._hop_idx[rid] = -1  # not on the fabric yet
             self._hop_stall[first].append((rid, -1))
             self._hop_stall_events[first] += 1
+            tr = self._tracer
+            if tr is not None and self._r_traced[rid]:
+                tr.stall(rid, first, self.now)
 
     def _hop_enter(self, rid: int, station: int) -> None:
         """Take one port entry at ``station`` and start (or queue for) its
@@ -787,6 +839,9 @@ class TieredMemorySim:
         self._r_station[rid] = station
         service = self._hop_svc[station] * self._w_g[self._r_wl[rid]]
         self._r_service[rid] = service
+        tr = self._tracer
+        if tr is not None and self._r_traced[rid]:
+            tr.station_enter(rid, station, self.now)
         if self._st_busy[station] < self._st_slots[station]:
             self._st_busy[station] += 1
             self._push(self.now + service, _EV_COMPLETE, rid)
@@ -797,6 +852,9 @@ class TieredMemorySim:
         """Service done at a hop: go on to the next hop or the device,
         unless the downstream port is full; then stall holding this hop's
         server slot."""
+        tr = self._tracer
+        if tr is not None and self._r_traced[rid]:
+            tr.service_done(rid, station, self.now, self._r_service[rid])
         hops = self._hop_path[rid]
         i = self._hop_idx[rid] + 1
         if i < len(hops):
@@ -804,6 +862,8 @@ class TieredMemorySim:
             if self._hop_occ[nxt] >= self._hop_limit[nxt]:
                 self._hop_stall[nxt].append((rid, station))
                 self._hop_stall_events[nxt] += 1
+                if tr is not None and self._r_traced[rid]:
+                    tr.stall(rid, nxt, self.now)
                 return
             self._hop_leave(rid, station)
             self._hop_idx[rid] = i
@@ -818,6 +878,8 @@ class TieredMemorySim:
         self._r_station[rid] = tier
         service = self._w_svc[self._r_wl[rid]][tier]
         self._r_service[rid] = service
+        if tr is not None and self._r_traced[rid]:
+            tr.station_enter(rid, tier, self.now)
         if self._st_busy[tier] < self._st_slots[tier]:
             self._st_busy[tier] += 1
             self._push(self.now + service, _EV_COMPLETE, rid)
@@ -959,6 +1021,7 @@ class TieredMemorySim:
                 self._r_tissue.append(tissue)
                 self._r_ttor.append(0.0)
                 self._r_service.append(0.0)
+                self._r_traced.append(0)
             out[gi] += 1
             irq.append(rid)
             misses = 0
@@ -1001,6 +1064,11 @@ class TieredMemorySim:
         arr_issued = self._arr_issued
         fabric_on = self._fabric_active
         w_hops = self._w_hops
+        tier_inflight = self._tier_inflight
+        san = self._san
+        tr_every = self._tr_every
+        tracer = self._tracer
+        r_traced = self._r_traced
         while irq and self.tor_used < cap:
             rid = irq.popleft()
             self.tor_used += 1
@@ -1008,7 +1076,14 @@ class TieredMemorySim:
                 self.tor_peak = self.tor_used
             self.tor_inserts += 1
             tier = r_tier[rid]
+            if san is not None:
+                tier_inflight[tier] += 1
+                san.adm[tier] += 1
             r_ttor[rid] = now
+            # Trace every Nth admission, keyed on the insert count.
+            if tr_every and (self.tor_inserts - 1) % tr_every == 0:
+                if tracer.admit(rid, r_wl[rid], tier, r_tissue[rid], now):
+                    r_traced[rid] = 1
             wi = r_wl[rid]
             p = phit[wi]
             if p == 2.0:  # sync: coherence ops at the LLC
@@ -1026,6 +1101,8 @@ class TieredMemorySim:
             else:
                 r_station[rid] = station
                 r_service[rid] = service
+                if tr_every and r_traced[rid]:
+                    tracer.station_enter(rid, station, now)
                 if st_busy[station] < st_slots[station]:
                     st_busy[station] += 1
                     self._seq += 1
@@ -1093,6 +1170,7 @@ class TieredMemorySim:
                         r_tissue.append(tissue)
                         r_ttor.append(0.0)
                         r_service.append(0.0)
+                        r_traced.append(0)
                     out[gi] += 1
                     irq.append(nrid)
                     misses = 0
@@ -1105,6 +1183,9 @@ class TieredMemorySim:
         now = self.now
         self.tor_used -= 1
         tier = self._r_tier[rid]
+        if self._san is not None:
+            self._tier_inflight[tier] -= 1
+            self._san.ret[tier] += 1
         wi = self._r_wl[rid]
         residency = now - self._r_ttor[rid]
         self._occ_tier[tier] += residency
@@ -1137,6 +1218,9 @@ class TieredMemorySim:
                 res[j] = latency
         if self._lat_ap is not None:
             self._lat_ap[wi][tier](latency)
+        if self._tr_every and self._r_traced[rid]:
+            self._tracer.retire(rid, now)
+            self._r_traced[rid] = 0
         # The core slot is free: reissue (round-robin with everyone), admit.
         self._out[self._r_gi[rid]] -= 1
         self._r_free.append(rid)
@@ -1198,6 +1282,10 @@ class TieredMemorySim:
         prof = self._prof
         if prof is not None:
             pt0 = prof.clock()
+        # The sanitizer's pass comes first: the boundary is where every
+        # conservation identity holds exactly (and where injected faults land).
+        if self._san is not None:
+            self._san.on_window(self, self._n_windows + 1)
         # The control loop consumes counter deltas, runs the controller and
         # applies its decision; with no controller it keeps the cadence.
         self.control.fire()
@@ -1316,6 +1404,14 @@ class TieredMemorySim:
         edge_on = self._edge_scope
         e_ins, e_occ, e_cls = self._e_ins, self._e_occ, self._e_cls
         dev_t = self._dev_t
+        # The sanitizer's and the tracer's hooks cost a compare per admission
+        # and retire when off, nothing per event.
+        tier_inflight = self._tier_inflight
+        san = self._san
+        tr_every = self._tr_every
+        tracer = self._tracer
+        tr_limit = tracer.config.limit if tracer is not None else 0
+        r_traced = self._r_traced
         prof = self._prof
         if prof is not None:
             rl0 = prof.clock()
@@ -1330,6 +1426,9 @@ class TieredMemorySim:
                 rid = packed & amask
                 tor_used = self.tor_used - 1
                 tier = r_tier[rid]
+                if san is not None:
+                    tier_inflight[tier] -= 1
+                    san.ret[tier] += 1
                 wi = r_wl[rid]
                 residency = t - r_ttor[rid]
                 occ_tier[tier] += residency
@@ -1361,6 +1460,14 @@ class TieredMemorySim:
                         res[j] = latency
                 if lat_ap is not None:
                     lat_ap[wi][tier](latency)
+                if tr_every and r_traced[rid]:
+                    tracer.retire(rid, t)
+                    r_traced[rid] = 0
+                    if not tracer.live and len(tracer.done) >= tr_limit:
+                        # The budget is spent and nothing is live: no later
+                        # admission can be traced, so drop to the untraced
+                        # path (the dropped count is closed-form at the end).
+                        tr_every = 0
                 out[r_gi[rid]] -= 1
                 free.append(rid)
                 if len(irq) < irq_cap:
@@ -1374,7 +1481,13 @@ class TieredMemorySim:
                         self.tor_peak = tor_used
                     self.tor_inserts += 1
                     atier = r_tier[arid]
+                    if san is not None:
+                        tier_inflight[atier] += 1
+                        san.adm[atier] += 1
                     r_ttor[arid] = t
+                    if tr_every and (self.tor_inserts - 1) % tr_every == 0:
+                        if tracer.admit(arid, r_wl[arid], atier, r_tissue[arid], t):
+                            r_traced[arid] = 1
                     awi = r_wl[arid]
                     p = phit[awi]
                     if p == 2.0:
@@ -1391,6 +1504,8 @@ class TieredMemorySim:
                     else:
                         r_station[arid] = station
                         r_service[arid] = service
+                        if tr_every and r_traced[arid]:
+                            tracer.station_enter(arid, station, t)
                         if st_busy[station] < st_slots[station]:
                             st_busy[station] += 1
                             seq = self._seq + 1
@@ -1460,6 +1575,7 @@ class TieredMemorySim:
                                 r_tissue.append(tissue)
                                 r_ttor.append(0.0)
                                 r_service.append(0.0)
+                                r_traced.append(0)
                             out[gi] += 1
                             irq.append(nrid)
                             misses = 0
@@ -1475,6 +1591,8 @@ class TieredMemorySim:
                     # stall holding this hop's server under backpressure.
                     self._hop_complete(rid, station)
                     continue
+                if tr_every and r_traced[rid]:
+                    tracer.service_done(rid, station, t, r_service[rid])
                 q = st_q[station]
                 if q:
                     nxt = q.popleft()
@@ -1513,6 +1631,8 @@ class TieredMemorySim:
             if rid not in dead:
                 occ_tier[r_tier[rid]] += sim_ns - r_ttor[rid]
         self.tor_occupancy_integral = sum(occ_tier)
+        if san is not None:
+            san.check_final(self)
         self._materialize_counters()
         for wi, w in enumerate(self.workloads):
             st = self.stats[w.name]
@@ -1533,6 +1653,13 @@ class TieredMemorySim:
         reg.counter("des.requests").inc(float(sum(self._stat_completed)))
         reg.counter("des.tor_inserts").inc(float(self.tor_inserts))
         reg.counter("des.windows").inc(float(self._n_windows))
+        if tracer is not None:
+            reg.counter("des.traced_requests").inc(float(len(tracer.done)))
+            # The sampler hits the (k * every + 1)th inserts, and each hit is
+            # done, live or dropped (the loop stops admitting at the limit).
+            every = tracer.config.sample_every
+            sampled = (self.tor_inserts - 1) // every + 1 if self.tor_inserts else 0
+            tracer.dropped = sampled - len(tracer.done) - len(tracer.live)
         return SimResult(
             sim_ns=sim_ns,
             stats=self.stats,
@@ -1556,6 +1683,7 @@ class TieredMemorySim:
                 }
                 if self._fabric_active else None
             ),
+            sanitizer=self._san.summary(self) if self._san is not None else None,
             arrival=(
                 {
                     w.name: {
@@ -1570,6 +1698,7 @@ class TieredMemorySim:
                 if self._open_active else None
             ),
             tier_latency_hist=tier_hists,
+            trace=tracer.run_payload() if tracer is not None else None,
             profile=prof.snapshot() if prof is not None else None,
         )
 

@@ -1,8 +1,12 @@
 """Structured invariant errors (a copy of ``repro.core.invariants``'s
-:class:`InvariantViolation` and :func:`require`)."""
+:class:`InvariantViolation`, :func:`require` and :func:`sanitize_enabled`).
+
+Imports nothing else of the package, so the core engines never depend on
+:mod:`repro_torch.analysis`, which re-exports these names."""
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 
@@ -35,6 +39,16 @@ class InvariantViolation(RuntimeError):
             ) + ")"
         super().__init__(f"{' '.join(parts)}: {message}{detail}")
 
+    def to_dict(self) -> Dict[str, Any]:
+        """JSON-safe form for ``SimResult.sanitizer``."""
+        return {
+            "check": self.check,
+            "window": self.window,
+            "station": self.station,
+            "message": str(self),
+            "context": dict(self.context),
+        }
+
 
 def require(
     cond: bool,
@@ -51,3 +65,13 @@ def require(
         raise InvariantViolation(
             check, message, window=window, station=station, context=context
         )
+
+
+def sanitize_enabled() -> Optional[str]:
+    """The process-wide sanitizer switch, ``REPRO_SANITIZE``: None when
+    unset, empty or ``0``; ``"record"`` collects violations into the result
+    instead of raising; any other value means ``"raise"``."""
+    val = os.environ.get("REPRO_SANITIZE", "").strip()
+    if val in ("", "0"):
+        return None
+    return "record" if val.lower() == "record" else "raise"

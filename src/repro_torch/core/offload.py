@@ -6,21 +6,22 @@
   that the compute stream waits on (no host synchronisation).  CUDA events
   around each batch of copies give the measured host-link rate.
 * :class:`TransferQueue` — the timing model of the shared transfer path, a
-  copy of ``repro.core.offload.TransferQueue`` without its sanitizer and
-  tracer hooks: a simulated clock charging each transfer its tier service
-  time, per-tier counters for MIKU, and the slow link's in-flight cap and
-  byte-rate as MIKU's decision.
+  copy of ``repro.core.offload.TransferQueue``: a simulated clock charging
+  each transfer its tier service time, per-tier counters for MIKU, each
+  slow link's in-flight cap and byte-rate as MIKU's decision, and the
+  optional link-conservation sanitizer and chunk tracer.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.controller import Decision, MikuController, TierDecisions
+from repro_torch.core.invariants import sanitize_enabled
 from repro_torch.core.littles_law import OpClass, TierCounters, TierWindow
 from repro_torch.core.substrate import ControlLoop, TierSetWindowedCounters
 from repro_torch.core.tiers import HBM_TIER, HOST_TIER, TierSpec, host_offload_supported
@@ -146,10 +147,19 @@ class TransferQueue:
         slow: TierSpec = HOST_TIER,
         controller: Optional[MikuController] = None,
         window_ns: float = 1_000_000.0,
+        extra_slow: Sequence[TierSpec] = (),
+        sanitize=None,
+        trace: int = 0,
     ):
         self.fast = fast
         self.slow = slow
+        # Slow links by label: the pinned-host path is "slow", an extra
+        # tier goes by its TierSpec name.
         self.slow_tiers: Dict[str, TierSpec] = {"slow": slow}
+        for spec in extra_slow:
+            if spec.name in self.slow_tiers or spec.name == "fast":
+                raise ValueError(f"duplicate slow tier label {spec.name!r}")
+            self.slow_tiers[spec.name] = spec
         self.controller = controller
         self.now = 0.0
         self._counters = TierSetWindowedCounters(names=("fast", *self.slow_tiers))
@@ -161,6 +171,25 @@ class TransferQueue:
             max_concurrency=None, rate_factor=1.0, phase=None  # type: ignore[arg-type]
         )
         self.control = ControlLoop(self, controller, window_ns=window_ns, record=False)
+        # ``sanitize``: per-link transfer and byte conservation after every
+        # ``advance`` (None reads REPRO_SANITIZE); ``trace``: every Nth
+        # chunk's enqueue -> service -> complete spans.
+        if sanitize is None:
+            sanitize = sanitize_enabled()
+        if sanitize:
+            from repro_torch.analysis.sanitizer import QueueSanitizer
+
+            mode = sanitize if isinstance(sanitize, str) else "raise"
+            self._san: Optional[QueueSanitizer] = QueueSanitizer(mode=mode)
+            self._counters.attach_sanitizer(self._san.check_counter_deltas)
+        else:
+            self._san = None
+        if trace:
+            from repro_torch.obs.trace import TransferTracer
+
+            self._tracer: Optional[TransferTracer] = TransferTracer(sample_every=int(trace))
+        else:
+            self._tracer = None
         reg = default_registry()
         self._m_transfers = reg.counter("offload.transfers")
         self._m_bytes = reg.counter("offload.bytes")
@@ -195,6 +224,11 @@ class TransferQueue:
     @property
     def decision(self) -> Decision:
         return self._decision
+
+    @property
+    def trace_records(self) -> List[dict]:
+        """The sampled chunks' span records (empty without ``trace``)."""
+        return [] if self._tracer is None else self._tracer.records
 
     # -- instrumentation ----------------------------------------------------
     def account_fast(self, nbytes: int, duration_ns: float, op: OpClass) -> None:
@@ -243,6 +277,8 @@ class TransferQueue:
         )
         done = max(self.now, link_free)
         dones: List[float] = []
+        san = self._san
+        tr = self._tracer
         for i in range(n_chunks):
             done = done + service
             if cap is None or i < cap:
@@ -250,16 +286,24 @@ class TransferQueue:
             else:
                 enq = dones[i - cap]
             self._inflight.append(_InFlight(chunk, op, tier, enq, done))
+            if san is not None:
+                san.on_submit(tier, chunk)
+            if tr is not None:
+                tr.on_chunk(tier, enq, done, service)
             dones.append(done)
         self._m_transfers.inc(float(n_chunks))
         self._m_bytes.inc(float(chunk * n_chunks))
         return done
 
-    def slow_backlog(self) -> int:
-        """In-flight slow transfers beyond the link's parallel slots."""
+    def slow_backlog(self, tier: Optional[str] = None) -> int:
+        """In-flight slow transfers beyond a link's parallel slots, summed
+        over every slow link when ``tier`` is None."""
+        if tier is not None:
+            self._check_tier(tier)
+        tiers = self.slow_tiers if tier is None else (tier,)
         return sum(
             max(0, self.slow_inflight(t) - self.slow_tiers[t].parallelism)
-            for t in self.slow_tiers
+            for t in tiers
         )
 
     def fast_penalty(self, pool: int = 56, c: float = 0.45) -> float:
@@ -291,23 +335,60 @@ class TransferQueue:
                 ]
                 for f in done:
                     self.counters[f.tier].record(f.op, f.t_complete - f.t_enqueue)
+                    if self._san is not None:
+                        self._san.on_complete(f.tier, f.nbytes)
         self.now = target
+        if self._san is not None:
+            self._san.check(self)
 
-    def idle_advance(self, dt_ns: float, until: float, max_steps: int) -> int:
+    def idle_advance(
+        self, dt_ns: float, until: float, max_steps: int,
+        on_run: Optional[Callable[[float, int, int], None]] = None,
+    ) -> int:
         """Take ``advance(dt_ns)`` steps while ``now < until``, at most
         ``max_steps``; returns the number taken.  The result is exactly
         that of the same number of ``advance`` calls: a step with no
         completion and no window boundary inside it only moves the clock,
-        and that case skips the event scan."""
+        and that case skips the event scan (and the sanitizer's check,
+        which would see what it saw last).
+
+        ``on_run(t_first, n, backlog)`` receives the steps as runs of ``n``
+        over which :meth:`slow_backlog` after each step stays the same: the
+        clock after the run's first step and that backlog.  It changes only where a transfer completes or a capped
+        chunk's enqueue time passes."""
+        inf = math.inf
         steps = 0
-        next_evt = min((f.t_complete for f in self._inflight), default=math.inf)
+        next_evt = min((f.t_complete for f in self._inflight), default=inf)
+        next_enq = self._next_enqueue() if on_run is not None else inf
+        backlog = self.slow_backlog() if on_run is not None else 0
+        run_t0, run_n = 0.0, 0
         while steps < max_steps and self.now < until:
             target = self.now + dt_ns
             if target >= next_evt or target >= self.control.next_window_ns:
                 self.advance(dt_ns)
-                next_evt = min((f.t_complete for f in self._inflight),
-                               default=math.inf)
+                next_evt = min((f.t_complete for f in self._inflight), default=inf)
+                moved = True
             else:
                 self.now = target
+                moved = target >= next_enq
             steps += 1
+            if on_run is None:
+                continue
+            if moved:
+                next_enq = self._next_enqueue()
+                b = self.slow_backlog()
+                if b != backlog and run_n:
+                    on_run(run_t0, run_n, backlog)
+                    run_n = 0
+                backlog = b
+            if run_n == 0:
+                run_t0 = self.now
+            run_n += 1
+        if run_n:
+            on_run(run_t0, run_n, backlog)
         return steps
+
+    def _next_enqueue(self) -> float:
+        """The earliest enqueue time still ahead of the clock."""
+        return min((f.t_enqueue for f in self._inflight if f.t_enqueue > self.now),
+                   default=math.inf)

@@ -43,20 +43,29 @@ class WindowedCounters:
 
 class TierSetWindowedCounters:
     """One cumulative :class:`TierCounters` per tier (fast first);
-    ``delta()`` returns the window's :class:`TierWindow`."""
+    ``delta()`` returns the window's :class:`TierWindow`.  An attached
+    sanitizer hook sees every window's ``(names, deltas)`` first."""
 
-    __slots__ = ("tiers", "names", "_marks")
+    __slots__ = ("tiers", "names", "_marks", "_sanitizer")
 
     def __init__(self, names: Sequence[str]) -> None:
         self.names = tuple(names)
         self.tiers = [TierCounters() for _ in self.names]
         self._marks = [t.snapshot() for t in self.tiers]
+        self._sanitizer: Optional[Callable[..., None]] = None
 
     def delta(self) -> TierWindow:
         """Per-tier deltas accumulated since the previous call."""
         ds = [t.delta(m) for t, m in zip(self.tiers, self._marks)]
         self._marks = [t.snapshot() for t in self.tiers]
+        if self._sanitizer is not None:
+            self._sanitizer(self.names, ds)
         return TierWindow(ds, self.names)
+
+    def attach_sanitizer(self, hook: Callable[..., None]) -> None:
+        """Install the delta hook, ``hook(names, deltas)``: the sanitizers'
+        ``check_counter_deltas`` (non-negative window deltas)."""
+        self._sanitizer = hook
 
 
 @dataclasses.dataclass

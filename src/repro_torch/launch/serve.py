@@ -44,15 +44,16 @@ from repro_torch.serving.engine import (
 
 def build_cluster(arch_id: str = "llama31-8b", *, full: bool = False,
                   n_requests: int = 24, mode: str = "miku", max_new: int = 24,
-                  stream_chunks: int = 64, seed: int = 0,
-                  device=None) -> TieredServingCluster:
+                  stream_chunks: int = 64, seed: int = 0, device=None,
+                  params=None, trace: int = 0) -> TieredServingCluster:
     """A device-placed and a host-placed engine sharing random weights drawn
-    from ``seed``."""
+    from ``seed``, or the given ``params`` (of this config, on the device);
+    ``trace=N`` samples every Nth transfer chunk's spans."""
     dev = resolve_device(device)
     spec = get_arch(arch_id)
     cfg = spec.config if full else spec.smoke
-    model = TransformerLM(cfg)
-    params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
+    if params is None:
+        params = TransformerLM(cfg).init(torch.Generator(device=dev).manual_seed(seed), dev)
 
     def mk(name, placement, n):
         e = ServingEngine(
@@ -74,7 +75,7 @@ def build_cluster(arch_id: str = "llama31-8b", *, full: bool = False,
         )
     engines = [mk("hbm", "device", n_requests),
                mk("host", "host", max(n_requests // 3, 1))]
-    return TieredServingCluster(engines, controller=controller, window_ns=3e4)
+    return TieredServingCluster(engines, controller=controller, window_ns=3e4, trace=trace)
 
 
 def main(argv=None) -> Dict[str, Dict[str, float]]:

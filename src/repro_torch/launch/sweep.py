@@ -10,6 +10,7 @@ its rows (counterpart of ``benchmarks/run.py --scenario X --lane batched``).
   PYTHONPATH=src python -m repro_torch.launch.sweep corun_sweep --lane scalar --processes 4
   PYTHONPATH=src python -m repro_torch.launch.sweep fabric_miku --device cpu
   PYTHONPATH=src python -m repro_torch.launch.sweep slo_knee --device cpu --lane scalar
+  PYTHONPATH=src python -m repro_torch.launch.sweep fabric_spine_congestion --device cpu --sanitize --perfetto spine
 
 Grid scenarios run on the batched lane (``--lane scalar``: one event-driven
 DES per job on the host, over ``--processes`` workers), ``fig2_tiering`` on
@@ -18,7 +19,13 @@ simulated queue clock's).  The fabric scenarios' and the open-loop ones'
 (``slo_knee``, ``flash_crowd``) jobs fall back to the scalar DES on either
 lane.  Runs on the card unless ``--device cpu``.  Prints one CSV row per row of the scenario;
 ``--trace PATH`` (grid scenarios) also writes every job's per-window
-telemetry records to PATH as JSON.
+telemetry records to PATH as JSON; ``--perfetto NAME`` (grid scenarios)
+traces every 16th ToR admission of every job on the scalar DES and writes
+the spans to NAME.perfetto.json as Chrome trace events (Perfetto,
+chrome://tracing).  ``--sanitize`` checks the runtime sanitizer's
+invariants in every simulation, worker processes included, and a
+violation fails the run.  An unknown scenario exits with code 2 and names
+the near misses.
 """
 
 from __future__ import annotations
@@ -27,10 +34,11 @@ import argparse
 import csv
 import enum
 import json
+import os
 import sys
 import time
 
-from repro_torch.scenarios import SCENARIOS, parse_set_args, run_scenario
+from repro_torch.scenarios import SCENARIOS, UnknownScenarioError, get, parse_set_args, run_scenario
 
 
 def _text(v) -> str:
@@ -42,9 +50,30 @@ def _text(v) -> str:
     return str(v)
 
 
+def write_perfetto(request_traces, name: str) -> str:
+    """Flatten the per-cell span payloads into ``NAME.perfetto.json`` (one
+    trace process per cell, job and workload); returns the path, or ""
+    when no sampled request retired."""
+    from repro_torch.obs.trace import to_chrome
+
+    records = [
+        {**rec, "workload": f"cell{ci}/job{job['job']}/{rec['workload']}"}
+        for ci, cell in enumerate(request_traces)
+        for job in cell["jobs"] if job["trace"]
+        for rec in job["trace"]["requests"]
+    ]
+    if not records:
+        return ""
+    path = f"{name}.perfetto.json"
+    with open(path, "w") as f:
+        json.dump(to_chrome(records), f, indent=1)
+        f.write("\n")
+    return path
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("scenario", nargs="?", choices=list(SCENARIOS))
+    ap.add_argument("scenario", nargs="?", help="a registered scenario (see --list)")
     ap.add_argument("--list", action="store_true",
                     help="print each scenario's name, title and axes, then exit")
     ap.add_argument("--set", dest="sets", action="append", default=[],
@@ -56,7 +85,16 @@ def main(argv=None) -> None:
                     help="the grid scenarios' lane (default batched)")
     ap.add_argument("--processes", type=int, default=None,
                     help="worker processes of the scalar lane (default serial)")
+    ap.add_argument("--perfetto", metavar="NAME", default=None,
+                    help="trace every 16th admission of every job (scalar DES) and write "
+                         "NAME.perfetto.json as Chrome trace events")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="check the runtime sanitizer's invariants in every simulation "
+                         "(REPRO_SANITIZE=1; its jobs run on the scalar DES)")
     args = ap.parse_args(argv)
+    if args.sanitize:
+        # The environment switch, so worker processes inherit it.
+        os.environ["REPRO_SANITIZE"] = "1"
     if args.list:
         for sc in SCENARIOS.values():
             axes = " ".join(f"{a.name}={_text(a.default)}" for a in sc.axes)
@@ -64,17 +102,26 @@ def main(argv=None) -> None:
         return
     if args.scenario is None:
         ap.error("a scenario name (or --list) is required")
+    try:
+        get(args.scenario)
+    except UnknownScenarioError as ex:
+        print(f"error: {ex}", file=sys.stderr)
+        sys.exit(2)
     overrides = parse_set_args(args.scenario, args.sets)
     t0 = time.perf_counter()
-    kw = dict(device=args.device, lane=args.lane, processes=args.processes)
-    if args.trace:
-        rows, traces = run_scenario(args.scenario, overrides, trace=True, **kw)
-    else:
-        rows = run_scenario(args.scenario, overrides, **kw)
+    out = run_scenario(args.scenario, overrides, device=args.device, lane=args.lane,
+                       processes=args.processes, trace=bool(args.trace),
+                       perfetto=bool(args.perfetto))
     wall = time.perf_counter() - t0
+    rows, *extra = out if (args.trace or args.perfetto) else (out,)
     if args.trace:
         with open(args.trace, "w") as f:
-            json.dump(traces, f)
+            json.dump(extra[0], f)
+    if args.perfetto:
+        path = write_perfetto(extra[-1], args.perfetto)
+        print(f"# wrote {path}" if path else
+              f"# no sampled request retired; {args.perfetto}.perfetto.json not written",
+              file=sys.stderr)
     fields = list(dict.fromkeys(k for r in rows for k in r))
     writer = csv.DictWriter(sys.stdout, fieldnames=fields, restval="", lineterminator="\n")
     writer.writeheader()

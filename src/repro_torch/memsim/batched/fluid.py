@@ -52,7 +52,6 @@ in windows where the pass changed them.
 from __future__ import annotations
 
 import math
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -72,6 +71,7 @@ from repro_torch.memsim.batched import kernel
 from repro_torch.memsim.batched.stacking import BatchGroup
 from repro_torch.memsim.batched.tiering import VectorTiering, build_tiering
 from repro_torch.obs.histogram import LatencyHistogram
+from repro_torch.obs.metrics import PhaseProfiler
 
 _OPS = tuple(OpClass)
 _N_OUTER = 30  # wait-relaxation iterations per window
@@ -84,7 +84,9 @@ _LADDER_FIELDS = ("cap", "rate", "restricted", "t_avg", "alpha", "t_slow",
 class Counts:
     """What :func:`run_fluid` did since the last :meth:`reset`: windows
     advanced, device-to-host copies, host-to-device uploads inside the
-    window loop, and the tiering passes run with their host seconds."""
+    window loop, and the tiering passes run with their host seconds (timed
+    by a :class:`~repro_torch.obs.metrics.PhaseProfiler`, which owns the
+    wall clock: the sim path reads none)."""
 
     def __init__(self) -> None:
         self.reset()
@@ -93,8 +95,15 @@ class Counts:
         self.windows = 0
         self.host_copies = 0
         self.uploads = 0
-        self.tiering_steps = 0
-        self.tiering_s = 0.0
+        self.profiler = PhaseProfiler()
+
+    @property
+    def tiering_steps(self) -> int:
+        return self.profiler.calls.get("tiering", 0)
+
+    @property
+    def tiering_s(self) -> float:
+        return self.profiler.seconds.get("tiering", 0.0)
 
 
 COUNTS = Counts()
@@ -391,11 +400,11 @@ def run_fluid(
                 # Each slow tier's restricted bit: its own unit's, or a
                 # merged cell's unit 0 (the merged law broadcasts it).
                 restr = host["restricted"][np.arange(C)[:, None], unit_of_host] > 0.5
-            t0 = time.perf_counter()
+            prof = COUNTS.profiler
+            t0 = prof.clock()
             vt.step(fire, ins_host, budgets, restr, has_ctl & ~merged, has_ctl,
                     (k + 1) * win, tier_frac_live, effmlp_live)
-            COUNTS.tiering_s += time.perf_counter() - t0
-            COUNTS.tiering_steps += 1
+            prof.add("tiering", prof.clock() - t0)
             if not all(np.array_equal(a, b) for a, b in zip(live, sent)):
                 # The pass moved routing or issue gating: send both again.
                 for a, b in zip(live, sent):

@@ -15,10 +15,11 @@ Fallbacks are the exception: a job whose plan or stack is inexpressible
 tables) reruns on the scalar DES (``run_sweep(lane="scalar")``).  A group
 that fails to stack is re-stacked cell by cell, so one such cell never
 drags its group-mates along, and every fallback is recorded as an
-``(index, reason)`` pair.  Two kinds of job fall back by name at the static
-screen (:func:`can_batch`), as in the reference: ``"fabric_topology"`` (a
-platform whose routes cross ports, or the per-edge law) and ``"arrival"``
-(an open-loop workload).
+``(index, reason)`` pair.  Four kinds of job fall back by name at the
+static screen (:func:`can_batch`), as in the reference:
+``"fabric_topology"`` (a platform whose routes cross ports, or the
+per-edge law), ``"sanitize"`` (the runtime sanitizer), ``"arrival"`` (an
+open-loop workload) and ``"trace"`` (sampled request spans).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.core.des import SimResult
-from repro_torch.core.invariants import require
+from repro_torch.core.invariants import require, sanitize_enabled
 from repro_torch.device import resolve_device
 from repro_torch.memsim.batched import exact
 from repro_torch.memsim.batched.stacking import BatchGroup, CellPlan, plan_cell
@@ -47,15 +48,26 @@ def can_batch(job) -> Optional[str]:
     the scalar DES's hop stations and backpressure, and so does the
     per-edge law built for such routes, even on a hopless platform: both
     give ``"fabric_topology"``.  An all-transparent topology (``A-direct``)
-    has no hops and batches normally.  An open-loop workload gives
-    ``"arrival"``: its backlog and shedding have no fluid counterpart."""
+    has no hops and batches normally.  A sanitized job gives ``"sanitize"``:
+    the lane has no event stream or queue state to check (``sanitize=None``
+    reads ``REPRO_SANITIZE``; an explicit False opts back in).  An open-loop
+    workload gives ``"arrival"``: its backlog and shedding have no fluid
+    counterpart.  A traced job gives ``"trace"``: span chains are events.
+    The reasons are checked in this order."""
     fabric = getattr(job.platform, "fabric", None)
     if fabric is not None and fabric.has_hops:
         return "fabric_topology"
     if job.miku and job.miku_law == "peredge":
         return "fabric_topology"
+    san = job.sanitize
+    if san is None:
+        san = sanitize_enabled()
+    if san:
+        return "sanitize"
     if any(w.arrival is not None for w in job.workloads):
         return "arrival"
+    if job.trace:
+        return "trace"
     return None
 
 

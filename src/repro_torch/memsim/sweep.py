@@ -45,9 +45,18 @@ class SimJob:
     #: "pertier" on a platform without hops).  A peredge job always runs on
     #: the scalar DES.
     miku_law: str = "pertier"
-    #: Per-window telemetry records (``SimResult.window_records``) and
-    #: latency histograms.
+    #: Per-window telemetry records (``SimResult.window_records``).
     record_windows: bool = False
+    #: The runtime sanitizer (:mod:`repro_torch.analysis.sanitizer`): None
+    #: reads ``REPRO_SANITIZE``, True or "raise" raises on a violation,
+    #: "record" collects them into ``SimResult.sanitizer``; False opts out.
+    #: A sanitized job runs on the scalar DES.
+    sanitize: Optional[object] = None
+    #: Sample every Nth ToR admission's span chain into ``SimResult.trace``
+    #: (an int N or a :class:`repro_torch.obs.trace.TraceConfig`; 0 is off).
+    #: A traced job runs on the scalar DES.
+    trace: int = 0
+    #: Mergeable latency histograms per workload, tier and window.
     latency_hist: bool = False
     #: Optional :class:`repro_torch.tiering.TieringSpec`: each run builds a
     #: fresh hook from it (pages, migration engine, policy).
@@ -92,7 +101,9 @@ def run_job(job: SimJob) -> SimResult:
         record_windows=job.record_windows,
         tiering=job.tiering.build() if job.tiering is not None else None,
         control_scope="edge" if job.miku and job.miku_law == "peredge" else "tier",
+        sanitize=job.sanitize,
         latency_hist=job.latency_hist,
+        trace=job.trace,
         profiler=prof,
     )
     if prof is not None:

@@ -4,9 +4,10 @@
 Grid axes expand in declaration order, row-major, so the port's rows line
 up with ``repro.scenarios.run_scenario``'s.  A grid scenario's jobs run in
 one sweep, on the batched lane on the port's device or on the scalar DES;
-a ``run_cell`` scenario runs cell by cell.  ``trace=True`` records every grid job's per-window telemetry and
-returns it beside the rows, in the reference's ``ResultTable.traces``
-schema.
+a ``run_cell`` scenario runs cell by cell.  ``trace=True`` records every
+grid job's per-window telemetry and ``perfetto=True`` its sampled request
+spans, each returned beside the rows in the schema of the reference's
+``ResultTable.traces`` and ``ResultTable.request_traces``.
 """
 
 from __future__ import annotations
@@ -18,14 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from repro_torch.core.device_model import PLATFORMS, PlatformModel
 from repro_torch.device import resolve_device
 from repro_torch.memsim.sweep import SimJob, run_sweep
-from repro_torch.scenarios.library import SCENARIOS
-from repro_torch.scenarios.spec import Scenario
-
-
-def _scenario(name: str) -> Scenario:
-    if name in SCENARIOS:
-        return SCENARIOS[name]
-    raise KeyError(f"unknown scenario {name!r}; the port has {', '.join(SCENARIOS)}")
+from repro_torch.scenarios.registry import get as _scenario
 
 
 def _cells(sc: Scenario, overrides: Optional[Dict[str, Any]]
@@ -70,17 +64,22 @@ def plan(
 
 def run_scenario(
     name: str, overrides: Optional[Dict[str, Any]] = None, device=None, *,
-    trace: bool = False, lane: str = "batched", processes: Optional[int] = None,
+    trace: bool = False, perfetto: bool = False, lane: str = "batched",
+    processes: Optional[int] = None,
 ):
     """Run a scenario on ``device`` (the card unless ``"cpu"``) and return
     its rows in cell order: a grid scenario's jobs in one sweep on ``lane``
     (``"batched"``, or ``"scalar"``: one DES per job on the host, over
     ``processes`` workers), a ``run_cell`` scenario cell by cell.
 
-    ``trace=True`` (grid scenarios only; a ``run_cell`` scenario raises
-    ``ValueError``) sets ``record_windows`` on every job and returns
+    ``trace=True`` sets ``record_windows`` on every job and returns
     ``(rows, traces)``: one ``{"cell", "jobs": [{"job", "workloads",
-    "windows"}]}`` entry per cell, the reference's schema."""
+    "windows"}]}`` entry per cell, the reference's schema.  ``perfetto=True``
+    traces every 16th ToR admission of every job (so each runs on the
+    scalar DES) and returns ``(rows, request_traces)``, the same schema with
+    ``"trace"`` (``SimResult.trace``) in place of ``"windows"``; with both,
+    ``(rows, traces, request_traces)``.  Both are for grid scenarios only:
+    a ``run_cell`` scenario raises ``ValueError``."""
     sc = _scenario(name)
     dev = resolve_device(device)
     rows: List[Dict[str, Any]] = []
@@ -88,28 +87,40 @@ def run_scenario(
         if trace:
             raise ValueError(f"scenario {sc.name!r} is multi-stage (run_cell); "
                              "per-window decision tracing supports grid scenarios only")
+        if perfetto:
+            raise ValueError(f"scenario {sc.name!r} is multi-stage (run_cell); "
+                             "request-lifecycle tracing supports grid scenarios only")
         for cell, pm in _cells(sc, overrides):
             rows.extend(sc.run_cell(pm, cell, dev))
         return rows
     planned = plan(name, overrides)
+    over: Dict[str, Any] = {}
     if trace:
-        planned = [(cell, pm, [dataclasses.replace(j, record_windows=True) for j in js])
+        over["record_windows"] = True
+    if perfetto:
+        over["trace"] = 16  # dense enough that a short cell lands spans
+    if over:
+        planned = [(cell, pm, [dataclasses.replace(j, **over) for j in js])
                    for cell, pm, js in planned]
     jobs = [j for _, _, js in planned for j in js]
     results = run_sweep(jobs, lane=lane, device=dev, processes=processes)
     traces: List[Dict[str, Any]] = []
+    req_traces: List[Dict[str, Any]] = []
     i = 0
     for cell, pm, cell_jobs in planned:
         chunk = results[i:i + len(cell_jobs)]
         i += len(cell_jobs)
         rows.extend(sc.reduce(pm, cell, cell_jobs, chunk))
-        traces.append({
-            "cell": {k: getattr(v, "value", v) for k, v in cell.items()},
-            "jobs": [{"job": j, "workloads": [w.name for w in job.workloads],
-                      "windows": res.window_records}
-                     for j, (job, res) in enumerate(zip(cell_jobs, chunk))],
-        })
-    return (rows, traces) if trace else rows
+        for out, key, attr in ((traces, "windows", "window_records"),
+                               (req_traces, "trace", "trace")):
+            out.append({
+                "cell": {k: getattr(v, "value", v) for k, v in cell.items()},
+                "jobs": [{"job": j, "workloads": [w.name for w in job.workloads],
+                          key: getattr(res, attr)}
+                         for j, (job, res) in enumerate(zip(cell_jobs, chunk))],
+            })
+    extra = ([traces] if trace else []) + ([req_traces] if perfetto else [])
+    return (rows, *extra) if extra else rows
 
 
 def parse_set_args(name: str, pairs: Sequence[str]) -> Dict[str, Any]:

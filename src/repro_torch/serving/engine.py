@@ -11,7 +11,9 @@ control — port of ``repro/serving/engine.py`` (the paper's §6 case study).
   (:class:`~repro_torch.core.offload.TransferQueue`).  Device steps charge
   fast-tier bytes; host steps submit their weight/KV stream as slow-link
   transfers, which a MIKU controller throttles.  An engine given a KV
-  PageMap keeps its region's hot KV share on the device path.
+  PageMap keeps its region's hot KV share on the device path.  Its
+  ``timeline`` holds one record a tick, as the reference's does; ``trace=N``
+  samples every Nth transfer chunk's spans (``queue.trace_records``).
 
 The cluster's clock is the simulated queue clock with the reference's tier
 constants (so its ``tokens_per_s`` is simulated, not measured on the card);
@@ -21,8 +23,10 @@ the tokens are real.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from collections.abc import Sequence
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -231,6 +235,61 @@ class ServingEngine:
         return not self.queue and self.n_active == 0
 
 
+class Timeline(Sequence):
+    """The cluster's per-tick records, ``{"t_ns", "slow_backlog",
+    "tok_<engine>": ...}`` after each tick, as the reference's list holds
+    them.  A stretch of ticks that only move the clock by one step, with the
+    backlog and token counts unchanged, is kept as one run and expanded on
+    read by the clock's own additions: a host engine's stream spans about a
+    million such ticks at full width."""
+
+    def __init__(self) -> None:
+        #: (t_first, dt, n, backlog, ((engine, tokens), ...))
+        self._runs: List[Tuple[float, float, int, int, tuple]] = []
+        self._len = 0
+
+    def add_run(self, t_first: float, dt: float, n: int, backlog: int,
+                tokens: Dict[str, int]) -> None:
+        """``n`` ticks from the clock ``t_first``, each ``dt`` later."""
+        self._runs.append((t_first, dt, n, backlog, tuple(tokens.items())))
+        self._len += n
+
+    def __len__(self) -> int:
+        return self._len
+
+    def __iter__(self) -> Iterator[Dict[str, float]]:
+        for run in self._runs:
+            yield from self._expand(run)
+
+    @staticmethod
+    def _expand(run) -> Iterator[Dict[str, float]]:
+        t, dt, n, backlog, tokens = run
+        toks = {f"tok_{k}": float(v) for k, v in tokens}
+        for i in range(n):
+            if i:
+                t = t + dt
+            yield {"t_ns": t, "slow_backlog": float(backlog), **toks}
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return list(self)[i]
+        if i < 0:
+            i += self._len
+        if not 0 <= i < self._len:
+            raise IndexError("timeline index out of range")
+        for run in self._runs:
+            if i < run[2]:
+                return next(itertools.islice(self._expand(run), i, None))
+            i -= run[2]
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, Timeline) and self._runs == other._runs:
+            return True
+        if not isinstance(other, (Timeline, list, tuple)):
+            return NotImplemented
+        return len(other) == self._len and all(a == b for a, b in zip(self, other))
+
+
 class TieredServingCluster:
     """Co-located engines sharing one chip's transfer path + MIKU control.
 
@@ -248,11 +307,13 @@ class TieredServingCluster:
         controller: Optional[MikuController] = None,
         window_ns: float = 2e6,
         hbm_bw: float = HBM_TIER.bandwidth_gbps,  # B/ns per chip
+        trace: int = 0,
     ):
         self.engines = engines
-        self.queue = TransferQueue(controller=controller, window_ns=window_ns)
+        self.queue = TransferQueue(controller=controller, window_ns=window_ns, trace=trace)
         self.control = self.queue.control
         self.hbm_bw = hbm_bw
+        self.timeline = Timeline()
         self._host_busy_until: Dict[str, float] = {e.cfg.name: 0.0 for e in engines}
 
     def _idle_until(self) -> float:
@@ -281,7 +342,9 @@ class TieredServingCluster:
             if q.now < until:
                 # Host engines wait on their streams: run the no-op ticks
                 # in one call, with the same clock arithmetic.
-                tick += q.idle_advance(1e3, until, max_ticks - tick)
+                tick += q.idle_advance(
+                    1e3, until, max_ticks - tick,
+                    on_run=lambda t0, n, b: self.timeline.add_run(t0, 1e3, n, b, produced))
                 continue
             tick += 1
             fast_time = 0.0
@@ -326,7 +389,9 @@ class TieredServingCluster:
                 produced[name] += n
             # Engines on device memory run back to back; host engines
             # progress via queue completions.
-            q.advance(max(fast_time, 1e3))
+            dt = max(fast_time, 1e3)
+            q.advance(dt)
+            self.timeline.add_run(q.now, dt, 1, q.slow_backlog(), produced)
         out: Dict[str, Dict[str, float]] = {}
         reg = default_registry()
         for eng in self.engines:
