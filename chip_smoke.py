@@ -248,14 +248,37 @@ Phases, each printed as one JSON line:
      equal to its scalar run; K3 launches those of the two co-runs alone (6);
  44. sweep_cli: ``python -m repro_torch.launch.sweep fabric_spine_congestion
      --sanitize --perfetto NAME`` in this process, its Chrome trace's schema,
-     and an unknown name's exit code 2 with the near miss;
+     and an unknown name's exit code 2 with the near miss; then
+     ``--format json`` (its rows the csv's), ``--profile`` (the phases on
+     stderr), ``--list --format md`` (equal to ``catalog_md()``) and
+     ``--format md`` without ``--list`` (exit 2);
  45. serve_traced: the serve phase's cluster again on its weights with
      ``trace=4`` under REPRO_SANITIZE=1: tokens, result dict and timeline
      equal to the serve run's, the transfer queue's sanitizer clean, the
      sampled chunks' spans conserving and counted, K1 = 32 x decode steps.
+ 46. result_table: run_scenario("corun_sweep_1k", profile=True) on the card
+     returns a ResultTable: meta lane "batched", every job batched, 0
+     fallbacks, K3 = 20, the profile's plan, sweep and reduce within the
+     wall, the metrics' sweep.jobs up by the job count, to_csv and to_json
+     holding the rows; a grid whose A-spine cells fall back reports the
+     fallbacks partition_jobs counts;
+ 47. runner_figs: every wrapper of memsim/runner.py on the card at the
+     figures' horizons, K3 counted around each: its rows exactly
+     run_scenario's with the wrapper's dropped keys, and within the
+     figures' p95 bound of the same cells of the plain lane's rows;
+     miku_comparison(A, STORE).miku_ddr_frac_of_opt printed;
+ 48. tpu_platform: fig3_bandwidth and fig5_corun at platform=TPU (512 B
+     bursts) batched on the card (K3 counted, its instances) against the
+     scalar DES on the host by lanes_check's worst and mean bounds;
+ 49. replay: ReplaySubstrate over tests/data's four recorded traces through
+     the port's ControlLoop reproduces every golden decision, and a live
+     co-run's own deltas replay to its live decisions;
+ 50. tiers: put_on_tier to HOST_TIER pinned, to HBM_TIER on the card, the
+     cold part of a llama31-8b KV cache round-tripped bit-equal, each
+     copy's rate.
 The figures' plain lane runs in CPU worker processes from the build on.
 They run in this order: 1-5, 45, 21, 25, 22, 26, 24, 23, 12, 20, 13, 6, 7, 9, 14, 16, 18,
-19, 34-44, 17, 15, 8, 10, 11, 27-33.  Every line carries ``elapsed_s``, the seconds since the script started.
+19, 34-44, 46-50, 17, 15, 8, 10, 11, 27-33.  Every line carries ``elapsed_s``, the seconds since the script started.
 The line before the last lists every kernel's numbers; the last line is the
 device summary.  Any failed check exits non-zero; without CUDA (or without
 the rest of the repository beside this file) it exits non-zero at once.
@@ -731,6 +754,11 @@ def main() -> None:
     trace_des(smi)
     obs = obs_fallback(dev)
     sweep_cli(smi)
+    table = result_table(dev)
+    runner_k3 = runner_figs(dev, plain)
+    tpu = tpu_platform(dev)
+    replay_phase(smi)
+    tiers_phase(dev)
     k3_88 = k3_instance_timing(dev, figures3.pop("firsts"),
                                next(lib for lib in libs if lib.name.startswith("fluid_solver"))
                                .with_suffix(".ptxas.txt"))
@@ -839,6 +867,11 @@ def main() -> None:
         # The batchable co-runs beside a sanitized and a traced job, which
         # fall back by name.
         "obs_fallback_launches": obs["k3_launches"],
+        # The scenario result API: corun_sweep_1k profiled and a fallback
+        # grid; every runner wrapper; fig3 and fig5 on the TPU-unit platform.
+        "result_table_launches": table["k3_launches"],
+        "runner_figs_launches": runner_k3["k3_launches"],
+        "tpu_platform_launches": tpu["k3_launches"],
         **k3_row,
     }, {
         "name": "ssd_scan",
@@ -1208,7 +1241,7 @@ def sweep_phase(dev):
         fluid.COUNTS.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rows = run_scenario(name)
+        rows = run_scenario(name).rows
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         out = dict(scenario=name, cells=len(rows), wall_s=wall,
@@ -1230,7 +1263,7 @@ def sweep_phase(dev):
     fluid.kernel.fused_window_solve = fused_window_solve_ref
     try:
         t0 = time.perf_counter()
-        plain = run_scenario("corun_sweep_1k")
+        plain = run_scenario("corun_sweep_1k").rows
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t0
     finally:
@@ -1569,7 +1602,7 @@ def fig2_phase(dev):
     with open(os.path.join(HERE, "tests", "data", "seed_fig_goldens.json")) as f:
         fig3 = {(r["op"], r["tier"]): r["bandwidth_gbps"] for r in json.load(f)["fig3"]}
     t0 = time.perf_counter()
-    rows = run_scenario("fig2_tiering", device=dev)
+    rows = run_scenario("fig2_tiering", device=dev).rows
     wall = time.perf_counter() - t0
     emit("fig2", rows=rows, wall_s=wall, host_cpu=host_cpu())
     check(len(rows) == 3, f"fig2: {len(rows)} rows")
@@ -1636,13 +1669,13 @@ def fabric_phase(dev):
         jobs = [j for _, _, js in plan(name) for j in js]
         fallbacks[name] = [reason for _, reason in partition_jobs(jobs)[1]]
         t0 = time.perf_counter()
-        rows[name] = run_scenario(name, device=dev, lane="batched")
+        rows[name] = run_scenario(name, device=dev, lane="batched").rows
         walls[name] = time.perf_counter() - t0
         check(len(fallbacks[name]) == len(jobs)
               and set(fallbacks[name]) == {"fabric_topology"},
               f"fabric {name}: fallbacks {fallbacks[name]} for {len(jobs)} jobs")
     launches = fs.WINDOW_SOLVE_LAUNCHES.count
-    scalar = {name: run_scenario(name, device=dev, lane="scalar") for name in rows}
+    scalar = {name: run_scenario(name, device=dev, lane="scalar").rows for name in rows}
     spine = {r["law"]: r for r in rows["fabric_spine_congestion"]}
     port = {r["port_queue"]: r["port_limited"] for r in rows["fabric_port_overflow"]}
     miku = {r["law"]: r for r in rows["fabric_miku"]}
@@ -1692,7 +1725,7 @@ def fabric_direct(dev):
         fluid.COUNTS.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rows = run_scenario("corun_sweep", {"platform": platforms}, device=dev)
+        rows = run_scenario("corun_sweep", {"platform": platforms}, device=dev).rows
         torch.cuda.synchronize()
         grids[platforms[0]] = dict(rows=rows, wall_s=time.perf_counter() - t0,
                                    k3_launches=fs.WINDOW_SOLVE_LAUNCHES.count,
@@ -1768,7 +1801,7 @@ def open_loop_phase(dev):
     rows, walls = {}, {}
     for name in ("slo_knee", "flash_crowd"):
         t0 = time.perf_counter()
-        rows[name] = run_scenario(name, device=dev)
+        rows[name] = run_scenario(name, device=dev).rows
         walls[name] = time.perf_counter() - t0
     flash = {r["policy"]: r for r in rows["flash_crowd"]}
 
@@ -2277,6 +2310,416 @@ def sweep_cli(smi: str):
     check(code == 2 and "did you mean: fabric_spine_congestion?" in bad.getvalue(),
           f"sweep_cli: unknown scenario exit {code}, stderr {bad.getvalue()[:200]}")
 
+    # The result table's formats, the profile and the catalog.
+    import csv
+
+    from repro_torch.scenarios.catalog import catalog_md
+
+    def cli_run(argv):
+        o, e, rc = io.StringIO(), io.StringIO(), 0
+        with contextlib.redirect_stdout(o), contextlib.redirect_stderr(e):
+            try:
+                cli.main(argv)
+            except SystemExit as ex:
+                rc = ex.code
+        return rc, o.getvalue(), e.getvalue()
+
+    argv = ["fig4_latency", "--set", "threads=1,4"]
+    t0 = time.perf_counter()
+    _, csv_out, _ = cli_run(argv)
+    _, json_out, prof_err = cli_run(argv + ["--format", "json", "--profile"])
+    _, md, _ = cli_run(["--list", "--format", "md"])
+    md_code, _, md_err = cli_run(["fig4_latency", "--format", "md"])
+    formats_wall = time.perf_counter() - t0
+    doc = json.loads(json_out)
+    csv_rows = list(csv.DictReader(io.StringIO(csv_out)))
+    json_as_csv = [{k: str(v) for k, v in r.items()} for r in doc["rows"]]
+    prof_line = next((line for line in prof_err.splitlines() if line.startswith("profile: ")),
+                     "profile: {}")
+    phases = sorted(json.loads(prof_line[len("profile: "):]).get("phases", {}))
+    emit("sweep_cli", argv="fig4_latency --set threads=1,4 [--format json --profile]",
+         rows=len(doc["rows"]), json_rows_equal_csv=json_as_csv == csv_rows,
+         profile_phases=phases, metrics_on_stderr="metrics: " in prof_err,
+         catalog_md_equal=md == catalog_md(), catalog_bytes=len(md),
+         format_md_exit_code=md_code, format_md_stderr=md_err.splitlines()[-1:],
+         wall_s=formats_wall)
+    check(json_as_csv == csv_rows and len(csv_rows) == 4,
+          f"sweep_cli: --format json's rows differ from the csv's: {doc['rows']}")
+    check(phases == ["plan", "reduce", "sweep"] and "metrics: " in prof_err,
+          f"sweep_cli: --profile wrote {prof_err[:300]}")
+    check(md == catalog_md(), "sweep_cli: --list --format md differs from catalog_md()")
+    check(md_code == 2, f"sweep_cli: --format md without --list exited {md_code}")
+
+
+# -- the scenario result API, the figure runners, the TPU-unit platform, the
+# -- decision-law replay and tier placement ------------------------------------
+
+
+def result_table(dev):
+    """``run_scenario("corun_sweep_1k", profile=True)`` on the card returns a
+    ResultTable: the batched lane ran every job (0 fallbacks), K3 launched 20
+    times (its count set to 0 just before and read just after, as in the
+    sweep phase), the profile's plan, sweep and reduce sum to no more than
+    the wall, the metrics snapshot's ``sweep.jobs`` rose by the job count,
+    ``to_csv`` has a line a row and a header, ``to_json``'s rows are the
+    rows.  Then a short grid whose A-spine cells fall back
+    ("fabric_topology"): its ``fallback_reason_counts`` equal partition_jobs'
+    fallbacks counted after the run."""
+    import torch
+
+    from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.memsim.batched import fluid
+    from repro_torch.memsim.batched.lane import partition_jobs
+    from repro_torch.obs.metrics import default_registry
+    from repro_torch.scenarios import ResultTable, plan, run_scenario
+
+    jobs = sum(len(js) for _, _, js in plan("corun_sweep_1k"))
+    before = default_registry().counter("sweep.jobs").value
+    fs.WINDOW_SOLVE_LAUNCHES.reset()
+    fluid.COUNTS.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = run_scenario("corun_sweep_1k", profile=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, windows = fs.WINDOW_SOLVE_LAUNCHES.count, fluid.COUNTS.windows
+    meta = table.meta
+    phases = {k: v["seconds"] for k, v in meta["profile"]["phases"].items()}
+    rose = meta["metrics"]["counters"]["sweep.jobs"] - before
+    csv_lines = table.to_csv().count("\n")
+    json_rows = json.loads(table.to_json())["rows"]
+
+    mixed = {"platform": ("A", "A-spine"), "op": "load", "threads": (2, 16), "mlp": (160,),
+             "sim_ns": 60_000.0}
+    mixed_jobs = [j for _, _, js in plan("corun_sweep", mixed) for j in js]
+    fs.WINDOW_SOLVE_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    grid = run_scenario("corun_sweep", mixed)
+    torch.cuda.synchronize()
+    mixed_wall = time.perf_counter() - t0
+    mixed_launches = fs.WINDOW_SOLVE_LAUNCHES.count
+    partition = partition_jobs(mixed_jobs)
+    counts = {}
+    for _, reason in partition[1]:
+        counts[reason] = counts.get(reason, 0) + 1
+    emit("result_table", scenario="corun_sweep_1k", jobs=jobs, rows=len(table.rows),
+         meta={k: v for k, v in meta.items() if k not in ("profile", "metrics")},
+         profile_phases_s=phases, profile_sum_s=sum(phases.values()), wall_s=wall,
+         sweep_jobs_rose=rose, k3_launches=launches, windows=windows,
+         csv_lines=csv_lines, json_rows_equal=json_rows == table.rows,
+         columns=table.columns, fallback_grid=dict(
+             jobs=len(mixed_jobs), meta=grid.meta, partition_counts=counts,
+             k3_launches=mixed_launches, wall_s=mixed_wall))
+    check(isinstance(table, ResultTable) and meta["lane"] == "batched"
+          and meta["batched_jobs"] == jobs == len(table.rows)
+          and meta["scalar_fallback_jobs"] == 0 and meta["fallback_reason_counts"] == {},
+          f"result_table: meta {meta}")
+    check(launches == windows == 20, f"result_table: {launches} K3 launches for {windows} "
+          "windows, not 20")
+    check(set(phases) == {"plan", "sweep", "reduce"} and sum(phases.values()) <= wall,
+          f"result_table: profile {phases} against the wall {wall}")
+    check(rose == jobs, f"result_table: sweep.jobs rose by {rose}, not {jobs}")
+    check(csv_lines == len(table.rows) + 1 and json_rows == table.rows,
+          "result_table: to_csv / to_json do not hold the rows")
+    check(grid.meta["fallback_reason_counts"] == counts == {"fabric_topology": 4}
+          and grid.meta["batched_jobs"] == 4 and mixed_launches > 0,
+          f"result_table: the fallback grid's meta {grid.meta}, partition {counts}")
+    return dict(k3_launches=launches + mixed_launches)
+
+
+def _row_errors(got, want):
+    """Relative errors of every numeric field of two row lists (non-numeric
+    fields must be equal: a mismatch is an infinite error)."""
+    errs = []
+    for g, w in zip(got, want):
+        if set(g) != set(w):
+            return [float("inf")]
+        for k, v in w.items():
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                errs.append(0.0 if g[k] == v else float("inf"))
+            else:
+                errs.append(abs(g[k] - v) / max(abs(v), 1e-9))
+    return errs if len(got) == len(want) else [float("inf")]
+
+
+def runner_figs(dev, plain):
+    """Every wrapper of ``memsim/runner.py`` on the card, at the figures
+    phase's horizons (the scenarios' defaults), K3's count set to 0 just
+    before each and read just after.  Each returns exactly what
+    ``run_scenario(...).rows`` gives on the card with the wrapper's dropped
+    keys, and its rows are held against the same cells of the figures' plain
+    lane (the float64 solver on the CPU, from the workers) by the figures'
+    gate: the p95 relative error of the numeric fields within
+    SWEEP1K_P95_BOUND.  ``tiering_schemes`` runs fig2, whose cells are
+    scalar DES runs on the host; ``miku_comparison(A, STORE)``'s
+    ``miku_ddr_frac_of_opt`` is printed."""
+    import torch
+
+    from repro_torch.core.device_model import platform_a
+    from repro_torch.core.littles_law import OpClass
+    from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.memsim import runner
+    from repro_torch.scenarios import run_scenario
+
+    pm = platform_a()
+    store = OpClass.STORE
+    laws = ("racing", "merged", "pertier")
+
+    def on_a(name, keep=lambda r: True):
+        return [{k: v for k, v in r.items() if k != "platform"}
+                for r in plain[name]["rows"] if r["platform"] == "A" and keep(r)]
+
+    # wrapper, its call, the scenario and overrides it runs, dropped keys,
+    # the plain lane's rows of the same cells (None: no plain lane)
+    cases = [
+        ("bandwidth_matrix", lambda: runner.bandwidth_matrix(pm), "fig3_bandwidth",
+         {"platform": pm}, ("platform",), on_a("fig3_bandwidth")),
+        ("latency_matrix", lambda: runner.latency_matrix(pm), "fig4_latency",
+         {"platform": pm}, ("platform",), on_a("fig4_latency")),
+        ("corun_matrix", lambda: runner.corun_matrix(pm), "fig5_corun",
+         {"platform": pm}, ("platform",), on_a("fig5_corun")),
+        ("tor_insert_bandwidth_correlation",
+         lambda: [{"pearson_r": runner.tor_insert_bandwidth_correlation(pm)}],
+         "fig6_tor_correlation", {"platform": pm}, ("platform", "n_points"),
+         [{"pearson_r": r["pearson_r"]} for r in on_a("fig6_tor_correlation")]),
+        ("llc_partition_sweep", lambda: runner.llc_partition_sweep(pm, 60.0), "fig7_llc",
+         {"platform": pm, "wss_mb": (60.0,)}, ("platform",),
+         on_a("fig7_llc", lambda r: r["wss_mb"] == 60.0)),
+        ("sync_interference", lambda: runner.sync_interference(pm), "fig8_sync",
+         {"platform": pm}, ("platform",), on_a("fig8_sync")),
+        ("service_time_curve", lambda: runner.service_time_curve(pm), "fig9_service",
+         {"platform": pm}, ("platform",), on_a("fig9_service")),
+        ("miku_comparison", lambda: [dataclasses.asdict(runner.miku_comparison(pm, store))],
+         "fig10_miku", {"platform": pm, "op": (store,)}, ("platform",),
+         on_a("fig10_miku", lambda r: r["op"] == "store")),
+        ("pertier_comparison", lambda: runner.pertier_comparison(), "corun3_pertier",
+         {"platform": "A-switch", "op": store, "law": laws}, (),
+         list(plain["corun3_pertier"]["rows"])),
+        ("tiering_schemes", lambda: [runner.tiering_schemes(pm, OpClass.LOAD)],
+         "fig2_tiering", {"platform": pm, "op": (OpClass.LOAD,)}, ("platform", "op"), None),
+    ]
+    total, rows_out, frac = 0, {}, None
+    for name, call, scenario, over, drop, plain_rows in cases:
+        fs.WINDOW_SOLVE_LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fs.WINDOW_SOLVE_LAUNCHES.count
+        table = run_scenario(scenario, over)
+        want = [{k: v for k, v in r.items() if k not in drop} for r in table.rows]
+        if name == "tor_insert_bandwidth_correlation":
+            want = [{"pearson_r": r["pearson_r"]} for r in table.rows]
+        errs = sorted(_row_errors(got, plain_rows)) if plain_rows is not None else [0.0]
+        p95 = errs[int(0.95 * (len(errs) - 1))]
+        row = dict(wrapper=name, scenario=scenario, rows=len(got), wall_s=wall,
+                   k3_launches=launches, equals_run_scenario=got == want,
+                   plain_lane_p95_rel_err=p95, plain_lane_worst_rel_err=errs[-1],
+                   plain_lane="figures' CPU workers" if plain_rows is not None
+                   else "none (scalar DES cells)")
+        if name == "miku_comparison":
+            frac = runner.MikuComparison(**got[0]).miku_ddr_frac_of_opt
+            row["miku_ddr_frac_of_opt"] = frac
+        emit("runner_figs", **row)
+        check(got == want, f"runner_figs {name}: rows differ from run_scenario's on the card")
+        check(p95 <= SWEEP1K_P95_BOUND, f"runner_figs {name}: p95 {p95} against the plain lane")
+        check(all(_finite(v) for r in got for v in r.values() if isinstance(v, float)),
+              f"runner_figs {name}: non-finite rows")
+        total += launches
+        rows_out[name] = len(got)
+    emit("runner_figs", wrapper="all", k3_launches=total, rows=rows_out,
+         miku_ddr_frac_of_opt=frac, p95_bound=SWEEP1K_P95_BOUND)
+    check(total > 0, "runner_figs: no K3 launch")
+    return dict(k3_launches=total)
+
+
+def tpu_platform(dev):
+    """The reference's simulated TPU host (``PLATFORMS["TPU"]``: 512 B
+    bursts, 512 ToR entries), the first non-cacheline platform K3 solves:
+    fig3_bandwidth and fig5_corun at ``platform=TPU`` on the batched lane on
+    the card (K3's count set to 0 just before and read just after, the
+    instances it ran) and on the scalar DES on the card's host (serially:
+    21 short jobs), held against each other by lanes_check's bounds (worst
+    and mean relative error over the bandwidth columns)."""
+    import torch
+
+    from repro_torch.kernels import fluid_solver as fs
+    from repro_torch.memsim.batched import fluid
+    from repro_torch.scenarios import run_scenario
+
+    total, errs = 0, []
+    for name in ("fig3_bandwidth", "fig5_corun"):
+        shapes = set()
+        solve = fluid.kernel.fused_window_solve
+
+        def record_solve(*args):
+            shapes.add(tuple(args[3].shape))
+            return solve(*args)
+
+        fluid.kernel.fused_window_solve = record_solve
+        fs.WINDOW_SOLVE_LAUNCHES.reset()
+        fluid.COUNTS.reset()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batched = run_scenario(name, {"platform": "TPU"})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            fluid.kernel.fused_window_solve = solve
+        launches, windows = fs.WINDOW_SOLVE_LAUNCHES.count, fluid.COUNTS.windows
+        t0 = time.perf_counter()
+        scalar = run_scenario(name, {"platform": "TPU"}, lane="scalar")
+        scalar_wall = time.perf_counter() - t0
+        e = [abs(b[k] - s[k]) / max(s[k], 1e-9) for b, s in zip(batched.rows, scalar.rows)
+             for k in s if k.endswith("_gbps")]
+        errs += e
+        instances = sorted({fs.window_solve_instance(W, S) for _, W, S in shapes})
+        emit("tpu_platform", scenario=name, rows=len(batched.rows), meta=batched.meta,
+             k3_launches=launches, windows=windows,
+             k3_groups=[dict(C=C, W=W, S=S) for C, W, S in sorted(shapes)],
+             k3_instances=[f"<{w}, {s}>" for w, s in instances], wall_s=wall,
+             scalar_wall_s=scalar_wall,
+             worst_rel_err=max(e), mean_rel_err=sum(e) / len(e),
+             bandwidths=[{k: (b[k], s[k]) for k in s if k.endswith("_gbps")}
+                         for b, s in zip(batched.rows, scalar.rows)],
+             host_cpu=host_cpu())
+        check(batched.meta["scalar_fallback_jobs"] == 0 and launches == windows > 0,
+              f"tpu_platform {name}: {launches} K3 launches for {windows} windows, "
+              f"meta {batched.meta}")
+        check(len(batched.rows) == len(scalar.rows) and all(
+            {k: v for k, v in b.items() if not isinstance(v, float)}
+            == {k: v for k, v in s.items() if not isinstance(v, float)}
+            for b, s in zip(batched.rows, scalar.rows)), f"tpu_platform {name}: rows differ")
+        total += launches
+    worst, mean = max(errs), sum(errs) / len(errs)
+    emit("tpu_platform", scenario="all", k3_launches=total, worst_rel_err=worst,
+         mean_rel_err=mean, worst_bound=LANES_WORST_BOUND, mean_bound=LANES_MEAN_BOUND)
+    check(worst < LANES_WORST_BOUND and mean < LANES_MEAN_BOUND,
+          f"tpu_platform: worst {worst}, mean {mean} against the scalar DES")
+    return dict(k3_launches=total)
+
+
+def replay_phase(smi: str):
+    """The decision-law proof on the card's host: ReplaySubstrate replays
+    tests/data's four recorded counter traces through the port's
+    ControlLoop and default_miku (merged_miku for the merged trace) and
+    reproduces every golden decision; a live MIKU co-run's own window
+    deltas, replayed through a fresh controller, give its live decisions."""
+    from repro_torch.core.des import TieredMemorySim
+    from repro_torch.core.device_model import platform_a, platform_a_switch
+    from repro_torch.core.littles_law import OpClass, TierCounters, TierWindow
+    from repro_torch.core.substrate import ControlLoop, ReplaySubstrate
+    from repro_torch.memsim.calibration import default_miku, merged_miku
+    from repro_torch.memsim.workloads import bw_test
+
+    def counters(d):
+        return TierCounters(inserts=d["inserts"], occupancy_time=d["occupancy_time"],
+                            class_counts={OpClass(k): v for k, v in d["class_counts"].items()})
+
+    def replay(deltas, law):
+        sub = ReplaySubstrate(deltas)
+        loop = ControlLoop(sub, law, window_ns=1.0)
+        while not sub.exhausted:
+            loop.fire()
+        return loop.decisions, sub.applied == loop.decisions
+
+    def triple(d):
+        return (d.max_concurrency, d.rate_factor, d.phase.value)
+
+    data = os.path.join(HERE, "tests", "data")
+    out, ok = {}, True
+    t0 = time.perf_counter()
+    for name in ("miku_trace_des.json", "miku_trace_tq.json"):
+        with open(os.path.join(data, name)) as f:
+            windows = json.load(f)["windows"]
+        got, applied = replay([(counters(w["fast"]), counters(w["slow"])) for w in windows],
+                              default_miku(platform_a()))
+        equal = [triple(d) for d in got] == [
+            (w["decision"]["max_concurrency"], w["decision"]["rate_factor"],
+             w["decision"]["phase"]) for w in windows]
+        out[name] = dict(windows=len(windows), equal=equal, applied=applied)
+        ok &= equal and applied
+    for law in ("pertier", "merged"):
+        name = f"pertier_trace_{law}.json"
+        with open(os.path.join(data, name)) as f:
+            blob = json.load(f)
+        names = tuple(blob["tier_names"])
+        build = default_miku if law == "pertier" else merged_miku
+        got, applied = replay([TierWindow(tuple(counters(w["tiers"][t]) for t in names),
+                                          names) for w in blob["windows"]],
+                              build(platform_a_switch()))
+        equal = len(got) == len(blob["windows"]) and all(
+            d.tiers == names[1:] and all(
+                triple(d.for_tier(t)) == tuple(w["decision"][t][k] for k in (
+                    "max_concurrency", "rate_factor", "phase")) for t in names[1:])
+            for d, w in zip(got, blob["windows"]))
+        out[name] = dict(windows=len(blob["windows"]), equal=equal, applied=applied)
+        ok &= equal and applied
+    p = platform_a()
+    wls = [bw_test("ddr", OpClass.STORE, 16, name="ddr", miku_managed=False),
+           bw_test("cxl", OpClass.STORE, 16, name="cxl")]
+    sim = TieredMemorySim(p, wls, seed=0, controller=default_miku(p), window_ns=10_000.0,
+                          record_windows=True)
+    res = sim.run(400_000.0)
+    got, applied = replay([rec.delta for rec in sim.control.records], default_miku(p))
+    live_equal = [[triple(x) for x in d.decisions] for d in got] == \
+        [[triple(x) for x in d.decisions] for d in res.decisions]
+    restricted = sum(d.restricted for d in res.decisions)
+    wall = time.perf_counter() - t0
+    emit("replay", traces=out, live_windows=len(res.decisions), live_equal=live_equal,
+         live_restricted_windows=restricted, wall_s=wall, host_cpu=host_cpu(), card=smi)
+    check(ok, f"replay: a recorded trace's decisions differ: {out}")
+    check(live_equal and applied and restricted > 0,
+          f"replay: the live co-run's deltas replay to other decisions ({restricted} "
+          "restricted windows)")
+
+
+def tiers_phase(dev):
+    """Tier placement on the card: ``put_on_tier`` to HOST_TIER gives a
+    pinned CPU tensor, to HBM_TIER a CUDA tensor, and the round trip of the
+    cold part of a llama31-8b KV cache (TieredLayout: 8,192 tokens, the hot
+    2,048 on the card, 2,048-token pages; 32 layers, 8 KV heads of 128, bf16)
+    is bit-equal; each direction's copy time is printed with its rate."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tiers import HBM_TIER, HOST_TIER, TieredLayout, put_on_tier
+
+    cfg = get_arch("llama31-8b").config
+    lay = TieredLayout(total_tokens=8192, hot_tokens=2048, page_tokens=2048)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    kv = torch.randn(cfg.n_layers, 2, lay.cold_tokens, cfg.n_kv_heads, cfg.head_dim,
+                     generator=gen, device=dev).to(torch.bfloat16)
+    nbytes = kv.numel() * kv.element_size()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = put_on_tier(kv, HOST_TIER, dev)
+    torch.cuda.synchronize()
+    d2h = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = put_on_tier(host, HBM_TIER, dev)
+    torch.cuda.synchronize()
+    h2d = time.perf_counter() - t0
+    page = put_on_tier(host[:, :, lay.page_slice(1)], HBM_TIER, dev)
+    cpu = put_on_tier(kv, HOST_TIER, "cpu")
+    same = torch.equal(back, kv) and torch.equal(page, kv[:, :, lay.page_slice(1)])
+    emit("tiers", shape=list(kv.shape), dtype="bfloat16", bytes=nbytes,
+         cold_bytes=lay.cold_bytes(cfg.n_kv_heads, cfg.head_dim, cfg.n_layers),
+         cold_pages=lay.n_cold_pages, host_pinned=host.is_pinned(),
+         host_device=str(host.device), back_device=str(back.device), round_trip_equal=same,
+         cpu_device_pinned=cpu.is_pinned(), d2h_s=d2h, h2d_s=h2d,
+         d2h_gb_per_s=nbytes / d2h / 1e9, h2d_gb_per_s=nbytes / h2d / 1e9)
+    check(host.device.type == "cpu" and host.is_pinned(), "tiers: HOST_TIER is not pinned")
+    check(back.device.type == "cuda" and same, "tiers: the round trip differs")
+    check(nbytes == lay.cold_bytes(cfg.n_kv_heads, cfg.head_dim, cfg.n_layers),
+          "tiers: the layout's cold bytes differ from the tensor's")
+    check(not cpu.is_pinned() and cpu.device.type == "cpu",
+          "tiers: an explicit CPU device gave a pinned tensor")
+    del kv, host, back, page, cpu
+    torch.cuda.empty_cache()
+
 
 # -- the smoke serve CLI, fig11, the grid figures, MVA ---------------------------
 
@@ -2356,13 +2799,13 @@ def fig11_phase(dev):
         k1.LAUNCHES.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rows = run_scenario("fig11_llm")
+        rows = run_scenario("fig11_llm").rows
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = k1.LAUNCHES.count
     steps = sum(e.decode_steps for e in built.engines)
     t0 = time.perf_counter()
-    cpu_rows = run_scenario("fig11_llm", device="cpu")
+    cpu_rows = run_scenario("fig11_llm", device="cpu").rows
     cpu_wall = time.perf_counter() - t0
     emit("fig11", rows=rows, rows_equal_cpu=rows == cpu_rows, wall_s=wall,
          cpu_wall_s=cpu_wall, engines=len(built.engines), decode_steps=steps,
@@ -2405,7 +2848,7 @@ def plain_lane_worker(path, names):
     try:
         for name in names:
             t0 = time.perf_counter()
-            rows = run_scenario(name, device="cpu")
+            rows = run_scenario(name, device="cpu").rows
             out[name] = dict(rows=rows, results=got["results"],
                              wall_s=time.perf_counter() - t0)
     finally:
@@ -2494,7 +2937,7 @@ def grid_phase(phase, names, plain, capture_first=False):
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            rows = run_scenario(name)
+            rows = run_scenario(name).rows
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
@@ -2738,7 +3181,8 @@ def trace_phase(dev):
         fluid.COUNTS.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rows, traces = run_scenario(name, overrides, device=device, trace=True)
+        table = run_scenario(name, overrides, device=device, trace=True)
+        rows, traces = table.rows, table.traces
         torch.cuda.synchronize()
         return rows, traces, dict(wall_s=time.perf_counter() - t0,
                                   k3_launches=fs.WINDOW_SOLVE_LAUNCHES.count,

@@ -73,3 +73,7 @@ def get_arch(arch_id: str) -> ArchSpec:
         )
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.SPEC
+
+
+def all_archs() -> List[ArchSpec]:
+    return [get_arch(a) for a in ARCH_IDS]

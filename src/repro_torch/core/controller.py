@@ -330,6 +330,16 @@ class MikuController:
             for i in range(min(len(names), len(self.units))):
                 self.units[i].tier = names[i]
 
+    @property
+    def config(self) -> MikuConfig:
+        """Unit 0's ladder config (the single-ladder attribute)."""
+        return self.units[0].config
+
+    @property
+    def estimator(self) -> LittlesLawEstimator:
+        """Unit 0's estimator (the single-ladder attribute)."""
+        return self.units[0].estimator
+
     def window(self, *deltas):
         """``window(deltas)`` with one per-tier vector (fast tier first) ->
         :class:`TierDecisions`.  The two-argument ``window(fast, slow)`` form
@@ -405,6 +415,11 @@ class MergedSlowPolicy:
         decision = TierDecisions(tiers=slow_names, decisions=(d,) * len(slow_names))
         self.decisions.append(decision)
         return decision
+
+    def reset(self) -> None:
+        """Reset the wrapped controller and clear the decision history."""
+        self.law.reset()
+        self.decisions.clear()
 
 
 class VectorMikuLadder:

@@ -243,6 +243,11 @@ class SimResult:
     def bandwidth(self, name: str) -> float:
         return self.stats[name].bandwidth_gbps(self.sim_ns)
 
+    def total_bandwidth(self, tier: Optional[str] = None) -> float:
+        """Every workload's bandwidth summed (GB/s); ``tier`` is unused, as
+        in the reference."""
+        return sum(s.bandwidth_gbps(self.sim_ns) for s in self.stats.values())
+
     @property
     def tor_avg_latency_ns(self) -> float:
         """Occupancy / inserts: the paper's ToR-derived service time."""

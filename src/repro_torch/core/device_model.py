@@ -1,15 +1,15 @@
 """Memory-device service models of the simulated testbed.
 
-A copy of the part of ``repro.core.device_model`` the batched sweep lane
-uses: :class:`DeviceModel`, :class:`PlatformModel` (an ordered tier list,
-fast tier first), the paper's two platforms (Table 1), the three-tier
-variants of platform A (CXL behind a switch, the remote socket's DDR) and a
-:data:`PLATFORMS` table of the entries the grid scenarios name (A, B, their
-one-DIMM, one-expander ``-1to1`` variants, ``A-switch`` and ``A-numa``).
-A platform may carry a routed switch fabric (:attr:`PlatformModel.fabric`,
-a :class:`repro_torch.fabric.FabricTopology`); importing
-:mod:`repro_torch.fabric` registers ``A-direct`` and ``A-spine``.  The
-TPU-unit platform is not ported yet.
+A copy of ``repro.core.device_model``: :class:`DeviceModel`,
+:class:`PlatformModel` (an ordered tier list, fast tier first), the paper's
+two platforms (Table 1), the three-tier variants of platform A (CXL behind
+a switch, the remote socket's DDR), the reference's simulated TPU host
+(:func:`tpu_host_platform`, in 512 B bursts) and a :data:`PLATFORMS` table
+of the entries the grid scenarios name (A, B, their one-DIMM, one-expander
+``-1to1`` variants, ``A-switch``, ``A-numa`` and ``TPU``).  A platform may
+carry a routed switch fabric (:attr:`PlatformModel.fabric`, a
+:class:`repro_torch.fabric.FabricTopology`); importing
+:mod:`repro_torch.fabric` registers ``A-direct`` and ``A-spine``.
 
 Every device is ``c`` deterministic servers with per-access service time
 ``s`` (64 B cachelines) plus a pipeline latency that holds no slot:
@@ -81,6 +81,9 @@ class DeviceModel:
         """Total slot occupancy per retired instruction of class ``op``."""
         reads, writes = ACCESS_MIX[op]
         return reads * self.read_service_ns + writes * self.write_service_ns
+
+    def unloaded_latency_ns(self, op: OpClass) -> float:
+        return self.pipeline_ns + self.service_ns(op)
 
     def peak_bandwidth_gbps(self, op: OpClass) -> float:
         """Peak retired-data bandwidth (GB/s) for a pure stream of ``op``."""
@@ -180,6 +183,13 @@ class PlatformModel:
     def tier_names(self) -> Tuple[str, ...]:
         return tuple(d.tier for d in self.tiers)
 
+    def tier_index(self, tier: str) -> int:
+        """Position of tier ``tier`` in :attr:`tiers` (0 is the fast tier)."""
+        names = self.tier_names
+        if tier not in names:
+            raise UnknownTierError(tier, names)
+        return names.index(tier)
+
     def device_for(self, tier: str) -> DeviceModel:
         """The device of tier ``tier``."""
         names = self.tier_names
@@ -252,6 +262,56 @@ def platform_a_numa(
     )
 
 
+# The reference's TPU-adapted tier models: HBM as the fast tier, pinned host
+# memory behind the per-chip DMA path as the slow tier.  One modeled access
+# is a 512 B DMA burst and parallelism counts outstanding DMA descriptors.
+# These are simulated parameters of the reference's TPU host (a v5e-like
+# chip); they do not describe the card the port runs on.
+
+TPU_BURST = 512  # bytes per modeled DMA burst
+
+# 64 slots * 512 B / 40 ns = 819 GB/s per chip: the v5e HBM roofline number.
+TPU_HBM = DeviceModel(
+    name="tpu-hbm",
+    tier="ddr",
+    parallelism=64,
+    read_service_ns=40.0,
+    write_service_ns=40.0,
+    pipeline_ns=350.0,
+    access_bytes=TPU_BURST,
+)
+
+TPU_HOST = DeviceModel(
+    # Host DRAM over PCIe, shared by the chips of one host: the "CXL" tier.
+    # 8 outstanding descriptors * 512 B / 64 ns = 64 GB/s, a quarter of it
+    # a chip's share with 4 chips a host.
+    name="tpu-pinned-host",
+    tier="cxl",
+    parallelism=8,
+    read_service_ns=64.0,
+    write_service_ns=128.0,
+    pipeline_ns=1800.0,  # PCIe + runtime enqueue
+    access_bytes=TPU_BURST,
+)
+
+
+def tpu_host_platform(chips_per_host: int = 4) -> PlatformModel:
+    """The reference's simulated TPU host: per-chip HBM (fast) and a shared
+    pinned-host pool (slow), in 512 B bursts."""
+    return PlatformModel(
+        name=f"tpu-host-{chips_per_host}chip",
+        ddr=TPU_HBM.scaled(chips_per_host, name=f"hbm-x{chips_per_host}"),
+        cxl=TPU_HOST,
+        tor_entries=512,  # outstanding transfer descriptors tracked per host
+        irq_entries=128,
+        core_mlp=16,
+        n_cores=chips_per_host * 4,  # issue contexts (cores driving DMA)
+        llc_service_ns=8.0,
+        llc_slots=64,
+        llc_capacity_mb=128.0,  # staging, used only by LLC-style runs
+    )
+
+
 PLATFORMS: Dict[str, PlatformModel] = {
     "A": platform_a(),
     "B": platform_b(),
@@ -259,4 +319,5 @@ PLATFORMS: Dict[str, PlatformModel] = {
     "B-1to1": platform_b(ddr_dimms=1, cxl_devices=1),
     "A-switch": platform_a_switch(),
     "A-numa": platform_a_numa(),
+    "TPU": tpu_host_platform(),
 }

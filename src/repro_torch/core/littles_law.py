@@ -1,10 +1,10 @@
 """Little's-Law service-time estimation — MIKU's measurement half (§5.2, Eq. 1).
 
-A copy of the part of ``repro.core.littles_law`` the serving path and the
-batched lane use (the port imports nothing from ``repro``), with
-:func:`merge_tier_counters`, the fold the merged-slow law runs on.  The shared request-tracking
-structure the paper measures (the CHA's ToR) is, on the serving path, the
-transfer queue's per-tier counters:
+A copy of ``repro.core.littles_law`` (the port imports nothing from
+``repro``), with :func:`merge_tier_counters`, the fold the merged-slow law
+runs on, and :class:`TierWindow`, the per-tier window vector.  The shared
+request-tracking structure the paper measures (the CHA's ToR) is, on the
+serving path, the transfer queue's per-tier counters:
 
     T_avg = Occupancy / Inserts = alpha * T_fast + (1 - alpha) * T_slow   (Eq. 1)
 
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 
@@ -30,6 +31,11 @@ class OpClass(enum.Enum):
     NT_STORE = "nt_store"
     MIGRATE = "migrate"
 
+
+#: The application-issued instruction classes (what bw-tests and workload op
+#: grids enumerate).  MIGRATE is engine-generated background traffic, never a
+#: demand-workload op.
+DEMAND_CLASSES = (OpClass.LOAD, OpClass.STORE, OpClass.NT_STORE)
 
 #: Device-level (reads, writes) generated per retired request of each class.
 ACCESS_MIX: Dict[OpClass, tuple] = {
@@ -135,9 +141,45 @@ class TierWindow(tuple):
         self._names = names
         return self
 
+    def __reduce__(self):
+        # Pickles (into a spawn worker) with its names, which a plain
+        # tuple's reduce would drop.
+        return (TierWindow, (tuple(self), self._names))
+
     @property
     def names(self) -> Tuple[str, ...]:
         return self._names
+
+    @property
+    def fast(self) -> TierCounters:
+        return self[0]
+
+    @property
+    def slow_names(self) -> Tuple[str, ...]:
+        return self._names[1:]
+
+    def merged_slow(self) -> TierCounters:
+        """Tiers 1..n-1 folded into one delta: the merged slow window."""
+        return merge_tier_counters(self[1:])
+
+    @classmethod
+    def zero(cls, names: "Sequence[str]") -> "TierWindow":
+        """The identity window: one empty TierCounters per named tier."""
+        return cls(tuple(TierCounters() for _ in names), tuple(names))
+
+    def merge(self, other: "TierWindow") -> "TierWindow":
+        """Element-wise fold of two windows over the same tier set (a name
+        mismatch raises ``ValueError``); merging with :meth:`zero` is the
+        identity."""
+        if self.names != other.names:
+            raise ValueError(
+                f"cannot merge TierWindows over different tier sets: "
+                f"{self.names} vs {other.names}"
+            )
+        return TierWindow(
+            tuple(merge_tier_counters((a, b)) for a, b in zip(self, other)),
+            self.names,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,6 +305,19 @@ class LittlesLawEstimator:
         )
         self.history.append(est)
         return est
+
+    def growth_rate(self, n: int = 3) -> float:
+        """Geometric growth of the last ``n`` steps of valid raw estimates
+        (the paper triggers on a threshold crossing that keeps growing
+        exponentially): about 1.0 when flat, above 1 when growing."""
+        valid = [h.t_slow_raw for h in self.history if h.valid and h.t_slow_raw > 0]
+        if len(valid) < n + 1:
+            return 1.0
+        window = valid[-(n + 1):]
+        ratios = [b / a for a, b in zip(window, window[1:]) if a > 0]
+        if not ratios:
+            return 1.0
+        return math.exp(sum(math.log(max(r, 1e-9)) for r in ratios) / len(ratios))
 
 
 def linear_percentile(sorted_xs: Sequence[float], q: float) -> float:

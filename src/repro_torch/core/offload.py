@@ -218,6 +218,10 @@ class TransferQueue:
         return d
 
     @property
+    def window_ns(self) -> float:
+        return self.control.window_ns
+
+    @property
     def decisions(self) -> List[Decision]:
         return self.control.decisions
 
@@ -249,6 +253,10 @@ class TransferQueue:
             1 for f in self._inflight
             if f.tier == tier and f.t_enqueue <= self.now
         )
+
+    def submit_slow(self, nbytes: int, op: OpClass = OpClass.LOAD) -> float:
+        """Submit one transfer of ``nbytes`` over the default slow link."""
+        return self.submit_slow_stream(int(nbytes), 1, op)
 
     def submit_slow_stream(
         self,

@@ -1,23 +1,44 @@
-"""Control-plane substrate: windowed counters and the feedback loop.
+"""Control-plane substrate: windowed counters and the feedback loop (a copy
+of ``repro.core.substrate``).
 
-A copy of what the serving path, the trainer and the DES use from
-``repro.core.substrate``.  A substrate exposes ``clock_ns``, ``counters_delta()`` (a per-tier
+A substrate (:class:`MemorySubstrate`) exposes ``clock_ns``,
+``counters_delta()`` (a per-tier
 :class:`~repro_torch.core.littles_law.TierWindow`, consumed on read) and
 ``apply(decision)``; :class:`ControlLoop` owns *when*: window scheduling,
 feeding deltas to the decision law and recording its decisions.
 :class:`WindowRecord` and :func:`window_record_jsonable` define the
 per-window telemetry schema (the batched lane's ``record_windows``
 records are in it).  :class:`StepTimingSubstrate` is the trainer's:
-per-host step times for the straggler governor.
+per-host step times for the straggler governor.  :class:`ReplaySubstrate`
+replays a recorded counter trace, so any loop and law can be held to a
+live system's decision sequence.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Protocol, Sequence, Tuple
 
 from repro_torch.core.littles_law import TierCounters, TierWindow
 from repro_torch.obs.metrics import default_registry
+
+
+class MemorySubstrate(Protocol):
+    """Anything the control loop can instrument and throttle."""
+
+    @property
+    def clock_ns(self) -> float:
+        """The substrate's current time in nanoseconds."""
+        ...
+
+    def counters_delta(self) -> Tuple[Any, ...]:
+        """Counters accumulated since the last call (consumed on read):
+        canonically a :class:`TierWindow`, fast tier first."""
+        ...
+
+    def apply(self, decision: Any) -> None:
+        """Apply one window's decision to the substrate."""
+        ...
 
 
 class WindowedCounters:
@@ -39,6 +60,12 @@ class WindowedCounters:
         self._fast_mark = self.fast.snapshot()
         self._slow_mark = self.slow.snapshot()
         return df, ds
+
+    def reset(self) -> None:
+        self.fast = TierCounters()
+        self.slow = TierCounters()
+        self._fast_mark = self.fast.snapshot()
+        self._slow_mark = self.slow.snapshot()
 
 
 class TierSetWindowedCounters:
@@ -66,6 +93,10 @@ class TierSetWindowedCounters:
         """Install the delta hook, ``hook(names, deltas)``: the sanitizers'
         ``check_counter_deltas`` (non-negative window deltas)."""
         self._sanitizer = hook
+
+    def reset(self) -> None:
+        self.tiers = [TierCounters() for _ in self.tiers]
+        self._marks = [t.snapshot() for t in self.tiers]
 
 
 @dataclasses.dataclass
@@ -142,7 +173,7 @@ class ControlLoop:
 
     def __init__(
         self,
-        substrate: Any,
+        substrate: MemorySubstrate,
         controller: Optional[Any] = None,
         *,
         window_ns: float = 1_000_000.0,
@@ -156,7 +187,7 @@ class ControlLoop:
         self.next_window_ns = float(window_ns)
         self.decisions: List[Any] = []
         self.records: List[WindowRecord] = []
-        self.windows_run = 0
+        self._windows_run = 0
         self._record = record
         self._max_history = max_history
         self._on_window = on_window
@@ -179,9 +210,9 @@ class ControlLoop:
                     else self.controller.window(*delta))
         self.decisions.append(decision)
         self._m_decisions.inc()
-        self.windows_run += 1
+        self._windows_run += 1
         if self._record or self._on_window is not None:
-            rec = WindowRecord(index=self.windows_run, t_ns=self.substrate.clock_ns,
+            rec = WindowRecord(index=self._windows_run, t_ns=self.substrate.clock_ns,
                                delta=delta, decision=decision)
             if self._record:
                 self.records.append(rec)
@@ -204,6 +235,20 @@ class ControlLoop:
             fired.append(self.fire())
         return fired
 
+    @property
+    def windows_run(self) -> int:
+        return self._windows_run
+
+    def reset(self) -> None:
+        """Back to the first window: the schedule, the history and the
+        controller's state (when it has a ``reset``)."""
+        self.next_window_ns = self.window_ns
+        self.decisions.clear()
+        self.records.clear()
+        self._windows_run = 0
+        if self.controller is not None and hasattr(self.controller, "reset"):
+            self.controller.reset()
+
     def telemetry(self) -> dict:
         """Summary counters for reports."""
         restricted = sum(
@@ -214,6 +259,40 @@ class ControlLoop:
             "restricted_windows": restricted,
             "window_ns": self.window_ns,
         }
+
+
+class ReplaySubstrate:
+    """A substrate that replays a recorded counter trace: the harness that
+    holds a ControlLoop and decision law to a live system's decision
+    sequence.  Each window consumes the next recorded delta; ``apply``
+    keeps every decision in :attr:`applied`."""
+
+    def __init__(
+        self,
+        deltas: Sequence[Tuple[Any, ...]],
+        *,
+        window_ns: float = 1.0,
+    ) -> None:
+        self._deltas = list(deltas)
+        self._i = 0
+        self.window_ns = window_ns
+        self.applied: List[Any] = []
+
+    @property
+    def clock_ns(self) -> float:
+        return self._i * self.window_ns
+
+    @property
+    def exhausted(self) -> bool:
+        return self._i >= len(self._deltas)
+
+    def counters_delta(self) -> Tuple[Any, ...]:
+        delta = self._deltas[self._i]
+        self._i += 1
+        return delta
+
+    def apply(self, decision: Any) -> None:
+        self.applied.append(decision)
 
 
 class StepTimingSubstrate:

@@ -1,5 +1,5 @@
 """Scenario entry point: run one scenario of the port's registry and print
-its rows (counterpart of ``benchmarks/run.py --scenario X --lane batched``).
+its result table (counterpart of ``benchmarks/run.py --scenario X --lane batched``).
 
   PYTHONPATH=src python -m repro_torch.launch.sweep --list
   PYTHONPATH=src python -m repro_torch.launch.sweep corun_sweep_1k
@@ -11,27 +11,32 @@ its rows (counterpart of ``benchmarks/run.py --scenario X --lane batched``).
   PYTHONPATH=src python -m repro_torch.launch.sweep fabric_miku --device cpu
   PYTHONPATH=src python -m repro_torch.launch.sweep slo_knee --device cpu --lane scalar
   PYTHONPATH=src python -m repro_torch.launch.sweep fabric_spine_congestion --device cpu --sanitize --perfetto spine
+  PYTHONPATH=src python -m repro_torch.launch.sweep fig3_bandwidth --device cpu --format json --profile
+  PYTHONPATH=src python -m repro_torch.launch.sweep --list --format md > docs/torch_scenarios.md
 
 Grid scenarios run on the batched lane (``--lane scalar``: one event-driven
 DES per job on the host, over ``--processes`` workers), ``fig2_tiering`` on
 the scalar DES, ``fig11_llm`` on the serving engines (its tokens/s are the
-simulated queue clock's).  The fabric scenarios' and the open-loop ones'
+simulated queue clock's). The fabric scenarios' and the open-loop ones'
 (``slo_knee``, ``flash_crowd``) jobs fall back to the scalar DES on either
-lane.  Runs on the card unless ``--device cpu``.  Prints one CSV row per row of the scenario;
-``--trace PATH`` (grid scenarios) also writes every job's per-window
-telemetry records to PATH as JSON; ``--perfetto NAME`` (grid scenarios)
-traces every 16th ToR admission of every job on the scalar DES and writes
-the spans to NAME.perfetto.json as Chrome trace events (Perfetto,
-chrome://tracing).  ``--sanitize`` checks the runtime sanitizer's
-invariants in every simulation, worker processes included, and a
-violation fails the run.  An unknown scenario exits with code 2 and names
-the near misses.
+lane. Runs on the card unless ``--device cpu``. Prints the scenario's
+``ResultTable``: one CSV row per row (``--format csv``, the default) or the
+JSON document of scenario, params, rows and meta (``--format json``);
+``--profile`` also writes the wall-clock phase profile and the metrics
+snapshot to stderr. ``--list --format md`` prints the markdown catalog
+(``docs/torch_scenarios.md``). ``--trace PATH`` (grid scenarios) also
+writes every job's per-window telemetry records to PATH as JSON;
+``--perfetto NAME`` (grid scenarios) traces every 16th ToR admission of
+every job on the scalar DES and writes the spans to NAME.perfetto.json as
+Chrome trace events (Perfetto, chrome://tracing). ``--sanitize`` checks the
+runtime sanitizer's invariants in every simulation, worker processes
+included, and a violation fails the run. An unknown scenario exits with
+code 2 and names the near misses.
 """
 
 from __future__ import annotations
 
 import argparse
-import csv
 import enum
 import json
 import os
@@ -88,6 +93,12 @@ def main(argv=None) -> None:
     ap.add_argument("--perfetto", metavar="NAME", default=None,
                     help="trace every 16th admission of every job (scalar DES) and write "
                          "NAME.perfetto.json as Chrome trace events")
+    ap.add_argument("--format", choices=("csv", "json", "md"), default="csv",
+                    help="the result table as csv (default) or json; md only with "
+                         "--list, the generated markdown catalog")
+    ap.add_argument("--profile", action="store_true",
+                    help="write the wall-clock phase profile (plan, sweep, reduce and "
+                         "each scalar job's) and the metrics snapshot to stderr")
     ap.add_argument("--sanitize", action="store_true",
                     help="check the runtime sanitizer's invariants in every simulation "
                          "(REPRO_SANITIZE=1; its jobs run on the scalar DES)")
@@ -96,10 +107,20 @@ def main(argv=None) -> None:
         # The environment switch, so worker processes inherit it.
         os.environ["REPRO_SANITIZE"] = "1"
     if args.list:
+        if args.format == "json":
+            ap.error("--list supports --format md (markdown catalog) or the default "
+                     "text listing")
+        if args.format == "md":
+            from repro_torch.scenarios.catalog import catalog_md
+
+            print(catalog_md(), end="")
+            return
         for sc in SCENARIOS.values():
             axes = " ".join(f"{a.name}={_text(a.default)}" for a in sc.axes)
             print(f"{sc.name}: {sc.title} [{axes}]")
         return
+    if args.format == "md":
+        ap.error("--format md is only valid with --list")
     if args.scenario is None:
         ap.error("a scenario name (or --list) is required")
     try:
@@ -109,24 +130,26 @@ def main(argv=None) -> None:
         sys.exit(2)
     overrides = parse_set_args(args.scenario, args.sets)
     t0 = time.perf_counter()
-    out = run_scenario(args.scenario, overrides, device=args.device, lane=args.lane,
-                       processes=args.processes, trace=bool(args.trace),
-                       perfetto=bool(args.perfetto))
+    table = run_scenario(args.scenario, overrides, device=args.device, lane=args.lane,
+                         processes=args.processes, trace=bool(args.trace),
+                         perfetto=bool(args.perfetto), profile=args.profile)
     wall = time.perf_counter() - t0
-    rows, *extra = out if (args.trace or args.perfetto) else (out,)
     if args.trace:
         with open(args.trace, "w") as f:
-            json.dump(extra[0], f)
+            json.dump(table.traces, f)
     if args.perfetto:
-        path = write_perfetto(extra[-1], args.perfetto)
+        path = write_perfetto(table.request_traces, args.perfetto)
         print(f"# wrote {path}" if path else
               f"# no sampled request retired; {args.perfetto}.perfetto.json not written",
               file=sys.stderr)
-    fields = list(dict.fromkeys(k for r in rows for k in r))
-    writer = csv.DictWriter(sys.stdout, fieldnames=fields, restval="", lineterminator="\n")
-    writer.writeheader()
-    writer.writerows(rows)
-    print(f"# {args.scenario}: {len(rows)} rows in {wall:.3f} s wall", file=sys.stderr)
+    if args.profile:
+        print(f"profile: {json.dumps(table.meta.get('profile', {}))}", file=sys.stderr)
+        print(f"metrics: {json.dumps(table.meta.get('metrics', {}))}", file=sys.stderr)
+    if args.format == "json":
+        print(table.to_json())
+    else:
+        sys.stdout.write(table.to_csv())
+    print(f"# {args.scenario}: {len(table.rows)} rows in {wall:.3f} s wall", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@ open-loop workload) and ``"trace"`` (sampled request spans).
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.core.des import SimResult
@@ -37,7 +38,17 @@ from repro_torch.memsim.batched.tiering import build_tiering
 #:  [(job_index, reason), ...] for the fallbacks)
 Partition = Tuple[List[Optional[CellPlan]], List[Tuple[int, str]]]
 
+#: Cells per stacked fluid group: chunking caps the stacked arrays' memory
+#: (cells x workloads x stations, and cells x regions x pages with tiering).
 _DEFAULT_BLOCK = 1024
+
+
+def batch_block() -> int:
+    """The configured chunk size (``REPRO_BATCH_BLOCK``, default 1024)."""
+    try:
+        return max(1, int(os.environ.get("REPRO_BATCH_BLOCK", _DEFAULT_BLOCK)))
+    except ValueError:
+        return _DEFAULT_BLOCK
 
 
 def can_batch(job) -> Optional[str]:
@@ -92,14 +103,15 @@ def partition_jobs(jobs: Sequence) -> Partition:
 def run_sweep_batched(
     jobs: Sequence,
     device=None,
-    block: int = _DEFAULT_BLOCK,
+    block: Optional[int] = None,
     partition: Optional[Partition] = None,
     processes: Optional[int] = None,
 ) -> List[SimResult]:
     """Run ``jobs`` through the batched lane, results in job order: exact
     cells in closed form on the host, the rest through the fluid engine on
     ``device`` (the card unless ``"cpu"``), grouped by window cadence and
-    ladder rung table and chunked at ``block`` cells.  Fallback jobs run on
+    ladder rung table and chunked at ``block`` cells (None reads
+    :func:`batch_block`).  Fallback jobs run on
     the scalar lane (over ``processes`` workers when that says so), and a
     group's stacking failures are appended to ``partition``'s fallback list,
     so a caller holding it sees every fallback."""
@@ -129,7 +141,7 @@ def run_sweep_batched(
         return group, fluid_mod.build_ladder(group, dev), build_tiering(group)
 
     scalar_idxs: List[int] = []
-    block = max(1, int(block))
+    block = batch_block() if block is None else max(1, int(block))
     for _, cells in sorted(by_key.items()):
         for lo in range(0, len(cells), block):
             chunk = cells[lo:lo + block]

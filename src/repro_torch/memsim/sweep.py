@@ -116,12 +116,15 @@ def run_sweep(
     lane: str = "batched",
     device=None,
     processes: Optional[int] = None,
+    partition=None,
 ) -> List[SimResult]:
     """Run ``jobs``, results in job order.
 
     ``lane="batched"`` runs them on ``device`` (the card unless ``"cpu"``);
     the jobs it cannot stack (fabric, per-edge and open-loop jobs among
-    them) fall back to the scalar lane.
+    them) fall back to the scalar lane.  A caller that passes the lane's
+    ``partition`` (:func:`~repro_torch.memsim.batched.partition_jobs` of
+    ``jobs``) sees every fallback in it after the run.
     ``lane="scalar"`` runs one DES per job on the host (``device`` unused):
     serially when ``processes`` is None or at most 1, else over a pool of
     that many worker processes.  The pool starts its workers with
@@ -137,7 +140,8 @@ def run_sweep(
     if lane == "batched":
         from repro_torch.memsim.batched.lane import run_sweep_batched
 
-        return run_sweep_batched(jobs, device=device, processes=processes)
+        return run_sweep_batched(jobs, device=device, processes=processes,
+                                 partition=partition)
     if processes is None or processes <= 1 or len(jobs) <= 1:
         return [run_job(j) for j in jobs]
     workers = min(processes, len(jobs), os.cpu_count() or 1)

@@ -1,10 +1,9 @@
 """Mergeable log-bucketed latency histograms: a copy of
-``repro.obs.histogram.LatencyHistogram``, trimmed to what the batched
-lane's ``latency_hist`` cells record, what the scenarios read back
-(:meth:`LatencyHistogram.percentile`), the per-window telemetry records
-(:meth:`LatencyHistogram.to_jsonable`, read back by ``flash_crowd``
-through :meth:`LatencyHistogram.from_jsonable`) and the DES's exact merges
-of its per-(workload, tier) sample lists (:func:`merge_all`).
+``repro.obs.histogram.LatencyHistogram``.  The batched lane's
+``latency_hist`` cells and the DES record into it, the scenarios read
+percentiles back, the per-window telemetry records carry it as JSON
+(:meth:`LatencyHistogram.to_jsonable`, read back by ``flash_crowd``), and
+the metrics registry keeps one per named series.
 
 The bucket layout is fixed: each power-of-two octave ``[2^(e-1), 2^e)`` is
 split into 16 linear sub-buckets.  For ``v > 0`` with ``m, e =
@@ -20,6 +19,8 @@ import math
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
+
+__all__ = ["LatencyHistogram", "bucket_bounds", "bucket_index"]
 
 _SUBBUCKETS = 16
 
@@ -51,6 +52,9 @@ class LatencyHistogram:
         self.vmin = math.inf
         self.vmax = -math.inf
 
+    def record(self, v: float) -> None:
+        self.record_weighted(v, 1.0)
+
     def record_weighted(self, v: float, count: float) -> None:
         """Record ``count`` observations of ``v`` (``count`` may be a float)."""
         if count <= 0.0:
@@ -72,7 +76,7 @@ class LatencyHistogram:
         vals = values if isinstance(values, list) else list(values)
         if len(vals) < 512:
             for v in vals:
-                h.record_weighted(float(v), 1.0)
+                h.record(float(v))
             return h
         arr = np.asarray(vals, dtype=float)
         pos = arr[arr > 0.0]
@@ -131,7 +135,14 @@ class LatencyHistogram:
                 and (self.vmin == other.vmin or empty)
                 and (self.vmax == other.vmax or empty))
 
-    __hash__ = None  # mutable
+    def __hash__(self) -> int:  # identity: equal histograms may differ in ``total``
+        return id(self)
+
+    def __repr__(self) -> str:
+        if not self.n:
+            return "LatencyHistogram(empty)"
+        return (f"LatencyHistogram(n={self.n:g}, mean={self.mean():.1f}, "
+                f"p50={self.percentile(0.5):.1f}, p99={self.percentile(0.99):.1f})")
 
     def to_jsonable(self) -> dict:
         return {

@@ -73,11 +73,12 @@ def _job(
 
 
 def _platform_axis(default="A") -> Axis:
-    return Axis("platform", default, "platform name (core.device_model.PLATFORMS)")
+    return Axis("platform", default,
+                help="platform name (repro_torch.core.device_model.PLATFORMS)")
 
 
 def _op_axis(default=_OPS) -> Axis:
-    return Axis("op", default, "memory instruction class")
+    return Axis("op", default, help="memory instruction class", parse=OpClass)
 
 
 # -- Fig. 2: tiered memory management schemes ----------------------------------
@@ -970,6 +971,7 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
         name="fig2_tiering",
         title="Aggregated bandwidth of tiered-memory management schemes",
         axes=(_platform_axis(), _op_axis()),
+        figure="Fig. 2",
         metrics=(
             Metric("upper_ddr_only", "GB/s", "one copy, WSS fully in DDR"),
             Metric("lower_cxl_only", "GB/s", "one copy, WSS fully in CXL"),
@@ -989,6 +991,11 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             Axis("threads", (1, 16), "bw-test thread count"),
             Axis("tier", _TWO_TIERS, "tier under test"),
         ),
+        figure="Fig. 3",
+        metrics=(
+            Metric("bandwidth_gbps", "GB/s", "delivered bandwidth"),
+            Metric("peak_model_gbps", "GB/s", "device-model peak"),
+        ),
         build=_fig3_build,
         reduce=_fig3_reduce,
     ),
@@ -999,6 +1006,13 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             _platform_axis(),
             Axis("tier", _TWO_TIERS, "tier under test"),
             Axis("threads", (1, 2, 4, 8, 16), "lat-test thread count"),
+        ),
+        figure="Fig. 4",
+        metrics=(
+            Metric("avg_ns", "ns"),
+            Metric("p50_ns", "ns"),
+            Metric("p95_ns", "ns", "from the mergeable latency histogram"),
+            Metric("p99_ns", "ns"),
         ),
         build=_fig4_build,
         reduce=_fig4_reduce,
@@ -1013,6 +1027,14 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
                  "bw-test threads loading the same tier (0 = unloaded)"),
             _op_axis(OpClass.LOAD),
         ),
+        figure="Fig. 4",
+        metrics=(
+            Metric("load_gbps", "GB/s", "bandwidth the load workload delivers"),
+            Metric("avg_ns", "ns", "probe mean latency"),
+            Metric("p50_ns", "ns"),
+            Metric("p95_ns", "ns", "from the mergeable latency histogram"),
+            Metric("p99_ns", "ns"),
+        ),
         build=_loaded_lat_build,
         reduce=_loaded_lat_reduce,
     ),
@@ -1024,6 +1046,11 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             _op_axis(),
             Axis("n_threads", 16, "threads per co-running group"),
         ),
+        figure="Fig. 5-6",
+        metrics=(
+            Metric("ddr_loss_pct", "%", "fast-tier loss under co-run"),
+            Metric("t_cxl_corun_ns", "ns", "loaded slow-tier ToR residency"),
+        ),
         build=_fig5_build,
         reduce=_fig5_reduce,
     ),
@@ -1031,6 +1058,10 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
         name="fig6_tor_correlation",
         title="ToR insertion rate vs delivered bandwidth (Pearson r)",
         axes=(_platform_axis(),),
+        figure="Fig. 6",
+        metrics=(
+            Metric("pearson_r", "", "paper reports r = 0.998"),
+        ),
         build=_fig6_build,
         reduce=_fig6_reduce,
     ),
@@ -1043,6 +1074,12 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             Axis("ddr_share", (0.95, 0.75, 0.5, 0.25, 0.05),
                  "DDR workload's LLC allocation fraction"),
         ),
+        figure="Fig. 7",
+        metrics=(
+            Metric("ddr_gbps", "GB/s"),
+            Metric("cxl_gbps", "GB/s"),
+            Metric("total_gbps", "GB/s"),
+        ),
         build=_fig7_build,
         reduce=_fig7_reduce,
     ),
@@ -1053,6 +1090,10 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             _platform_axis(),
             Axis("bg_tier", _TWO_TIERS, "background bw-test tier"),
             Axis("bg_threads", (0, 4, 8, 16), "background thread count"),
+        ),
+        figure="Fig. 8",
+        metrics=(
+            Metric("cas_latency_ns", "ns"),
         ),
         build=_fig8_build,
         reduce=_fig8_reduce,
@@ -1065,6 +1106,11 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             _op_axis(OpClass.LOAD),
             Axis("tier", _TWO_TIERS, "tier under test"),
             Axis("threads", (1, 2, 4, 8, 16, 32), "bw-test thread count"),
+        ),
+        figure="Fig. 9",
+        metrics=(
+            Metric("service_time_ns", "ns", "ToR-derived mean service time"),
+            Metric("bandwidth_gbps", "GB/s"),
         ),
         build=_fig9_build,
         reduce=_fig9_reduce,
@@ -1079,6 +1125,13 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             Axis("period_ns", 100_000.0, "tier-alternation period"),
             Axis("cycles", 3, "alternation cycles simulated"),
         ),
+        figure="Fig. 10",
+        metrics=(
+            Metric("racing_ddr", "GB/s"),
+            Metric("miku_ddr", "GB/s"),
+            Metric("miku_cxl", "GB/s"),
+            Metric("opt_ddr", "GB/s"),
+        ),
         build=_fig10_build,
         reduce=_fig10_reduce,
     ),
@@ -1090,6 +1143,12 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             Axis("n_req_fast", 48), Axis("n_req_slow", 16),
             Axis("new_tokens", 24), Axis("chunks", 64),
         ),
+        figure="Fig. 11-12",
+        metrics=(
+            Metric("hbm_tokens_per_s", "tok/s"),
+            Metric("host_tokens_per_s", "tok/s"),
+            Metric("hbm_pct_of_opt", "%"),
+        ),
         run_cell=_fig11_run_cell,
         slow=True,
     ),
@@ -1099,6 +1158,11 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
         axes=(
             _platform_axis(),
             Axis("sim_ns", 400_000.0, "simulated horizon"),
+        ),
+        figure="Fig. 13",
+        metrics=(
+            Metric("ddr_pct_of_opt", "%", "paper: MIKU >= 81%"),
+            Metric("cxl_pct_of_opt", "%"),
         ),
         build=_fig13_build,
         reduce=_fig13_reduce,
@@ -1110,6 +1174,12 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             _platform_axis(),
             Axis("ratio", (0, 1, 4), "reads per write"),
             Axis("sim_ns", 300_000.0, "simulated horizon"),
+        ),
+        figure="Fig. 14",
+        metrics=(
+            Metric("racing_ddr_gbps", "GB/s"),
+            Metric("miku_ddr_gbps", "GB/s"),
+            Metric("miku_gain", "x", "MIKU / racing fast-tier bandwidth"),
         ),
         build=_fig14_build,
         reduce=_fig14_reduce,
@@ -1123,6 +1193,11 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             Axis("n_threads", 16, "threads per co-running group"),
             Axis("miku", (False, True), "enable the MIKU controller"),
             Axis("sim_ns", 300_000.0, "co-run simulated horizon"),
+        ),
+        metrics=(
+            Metric("ddr_loss_pct", "%", "fast-tier loss under 3-tier co-run"),
+            Metric("cxl_sw_corun_gbps", "GB/s", "switched-CXL bandwidth"),
+            Metric("t_cxl_sw_corun_ns", "ns", "switched-CXL ToR residency"),
         ),
         build=_corun3_build,
         reduce=_corun3_reduce,
@@ -1139,6 +1214,14 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             Axis("n_threads", 16, "threads per co-running group"),
             Axis("sim_ns", 300_000.0, "co-run simulated horizon"),
         ),
+        metrics=(
+            Metric("ddr_pct_of_opt", "%", "fast-tier recovery vs running alone"),
+            Metric("cxl_mean_cap", "cores", "mean local-CXL core cap over the run"),
+            Metric("cxl_sw_mean_cap", "cores",
+                   "mean switched-CXL core cap (per-tier law: < cxl_mean_cap)"),
+            Metric("cxl_sw_restricted_windows", "",
+                   "windows the switch tier spent restricted"),
+        ),
         build=_corun3p_build,
         reduce=_corun3p_reduce,
     ),
@@ -1152,6 +1235,11 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             Axis("miku", (False, True), "enable the MIKU controller"),
             Axis("mlp", (96, 160), "outstanding cachelines per core"),
             Axis("sim_ns", 300_000.0, "co-run simulated horizon"),
+        ),
+        metrics=(
+            Metric("ddr_gbps", "GB/s", "fast-tier co-run bandwidth"),
+            Metric("cxl_gbps", "GB/s", "slow-tier co-run bandwidth"),
+            Metric("restricted_windows", "", "windows MIKU spent restricting"),
         ),
         build=_corun_sweep_build,
         reduce=_corun_sweep_reduce,
@@ -1169,6 +1257,11 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
                          128, 144, 160, 176, 192, 208, 224, 256),
                  "outstanding cachelines per core"),
             Axis("sim_ns", 100_000.0, "co-run simulated horizon"),
+        ),
+        metrics=(
+            Metric("ddr_gbps", "GB/s", "fast-tier co-run bandwidth"),
+            Metric("cxl_gbps", "GB/s", "slow-tier co-run bandwidth"),
+            Metric("restricted_windows", "", "windows MIKU spent restricting"),
         ),
         build=_corun_sweep_build,
         reduce=_corun_sweep_reduce,
@@ -1232,6 +1325,11 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             Axis("n_threads", 16, "striped-workload thread count"),
             Axis("sim_ns", 200_000.0, "simulated horizon"),
         ),
+        metrics=(
+            Metric("striped_alone_gbps", "GB/s", "NUMA striping adds DIMM parallelism"),
+            Metric("striped_avg_lat_ns", "ns"),
+            Metric("remote_inserts", "", "requests served by the remote pool"),
+        ),
         build=_numa_build,
         reduce=_numa_reduce,
     ),
@@ -1280,7 +1378,8 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             Metric("port_stall_events", "",
                    "admission backpressure events (0 once the ToR binds)"),
             Metric("port_limited", "",
-                   "1 while the port queue is the binding limit, 0 past the crossover"),
+                   "1 while the port queue is the binding limit, 0 past the "
+                   "crossover"),
         ),
         build=_fabric_port_build,
         reduce=_fabric_port_reduce,
@@ -1300,7 +1399,7 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
         metrics=(
             Metric("ddr_corun_gbps", "GB/s", "fast tier held near solo"),
             Metric("cxl0_pct_of_alone", "%",
-                   "the innocent host's CXL bandwidth: pertier punishes it, "
+                   "the innocent host's CXL bandwidth — pertier punishes it, "
                    "peredge spares it"),
             Metric("cxl_restricted_windows", "",
                    "windows the whole cxl tier spent restricted"),
@@ -1323,22 +1422,27 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             Axis("policy", ("racing", "miku"),
                  "control policy over the co-running CXL hog"),
             Axis("rate", (0.002, 0.005, 0.010, 0.020, 0.032),
-                 "offered arrival rate (requests/ns), Poisson"),
-            Axis("budget_ns", _SLO_BUDGET_NS, "p99 latency budget defining the knee"),
+                 "offered arrival rate (requests/ns), Poisson", parse=float),
+            Axis("budget_ns", _SLO_BUDGET_NS, "p99 latency budget defining the knee",
+                 parse=float),
             Axis("sim_ns", _SLO_SIM_NS, "simulated horizon"),
         ),
         metrics=(
-            Metric("p50_ns", "ns", "serving tenant median latency "
-                   "(arrival to retire, backlog wait included)"),
+            Metric("p50_ns", "ns",
+                   "serving tenant median latency (arrival to retire, backlog "
+                   "wait included)"),
             Metric("p95_ns", "ns", "from the mergeable latency histogram"),
             Metric("p99_ns", "ns", "the SLO-governing tail"),
-            Metric("budget_blown", "", "1 when p99 exceeds budget_ns: the knee "
-                   "is the lowest blown rate"),
+            Metric("budget_blown", "",
+                   "1 when p99 exceeds budget_ns — the knee is the lowest blown "
+                   "rate; CXL-heavy placement knees before DDR, MIKU moves the "
+                   "knee above racing"),
             Metric("generated", "", "open-loop arrivals generated"),
             Metric("issued", "", "arrivals issued into the pipeline"),
             Metric("shed", "", "arrivals shed at the queue limit"),
-            Metric("backlog", "", "arrival-queue depth at the horizon (nonzero: "
-                   "the offered rate exceeds capacity)"),
+            Metric("backlog", "",
+                   "arrival-queue depth at horizon end — nonzero means the "
+                   "offered rate exceeds capacity"),
         ),
         build=_slo_knee_build,
         reduce=_slo_knee_reduce,
@@ -1352,21 +1456,24 @@ SCENARIOS: Dict[str, Scenario] = {s.name: s for s in (
             Axis("placement", "split", "serving tenant's tier placement (see slo_knee)"),
             Axis("policy", ("racing", "miku"),
                  "control policy over the co-running CXL hog"),
-            Axis("rate", 0.004, "base offered rate (requests/ns)"),
-            Axis("surge", 6.0, "rate multiplier during the crowd"),
-            Axis("t_step_ns", 100_000.0, "crowd onset"),
-            Axis("surge_ns", 60_000.0, "crowd duration"),
+            Axis("rate", 0.004, "base offered rate (requests/ns)", parse=float),
+            Axis("surge", 6.0, "rate multiplier during the crowd", parse=float),
+            Axis("t_step_ns", 100_000.0, "crowd onset", parse=float),
+            Axis("surge_ns", 60_000.0, "crowd duration", parse=float),
             Axis("sim_ns", _SLO_SIM_NS, "simulated horizon"),
         ),
         metrics=(
-            Metric("peak_queue_depth", "", "worst arrival-backlog depth"),
+            Metric("peak_queue_depth", "",
+                   "worst arrival-backlog depth — racing lets the queue run "
+                   "away, MIKU caps it"),
             Metric("surge_p99_ns", "ns", "p99 over windows overlapping the surge"),
             Metric("recovery_windows", "",
                    "post-surge windows with a nonzero backlog (drain time)"),
             Metric("p99_ns", "ns", "whole-run serving p99"),
             Metric("shed", "", "arrivals shed at the queue limit"),
-            Metric("backlog", "", "arrival-queue depth at the horizon (nonzero: "
-                   "the crowd never drained)"),
+            Metric("backlog", "",
+                   "arrival-queue depth at horizon end — nonzero means the crowd"
+                   " never drained"),
         ),
         build=_flash_crowd_build,
         reduce=_flash_crowd_reduce,

@@ -1,17 +1,20 @@
 """Scenario lookup by name (a port of ``repro.scenarios.registry``).
 
 The port's scenarios live in one dict, :data:`repro_torch.scenarios.library.
-SCENARIOS`, in the reference's declaration order; that order is the
-presentation order :func:`names` and :func:`all_scenarios` return.
+SCENARIOS`, in the reference's declaration order; :func:`register` appends
+to it.  That order is the presentation order :func:`names` and
+:func:`all_scenarios` return.
 """
 
 from __future__ import annotations
 
 import difflib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.scenarios.library import SCENARIOS
 from repro_torch.scenarios.spec import Scenario
+
+_REGISTRY: Dict[str, Scenario] = SCENARIOS
 
 
 class UnknownScenarioError(KeyError):
@@ -33,20 +36,29 @@ class UnknownScenarioError(KeyError):
         return self.args[0]
 
 
+def register(scenario: Scenario) -> Scenario:
+    """Register ``scenario`` under its name (a duplicate name raises
+    ``ValueError``)."""
+    if scenario.name in _REGISTRY:
+        raise ValueError(f"scenario {scenario.name!r} already registered")
+    _REGISTRY[scenario.name] = scenario
+    return scenario
+
+
 def get(name: str) -> Scenario:
     """The scenario registered as ``name``; :class:`UnknownScenarioError`
     with near-miss suggestions otherwise."""
     try:
-        return SCENARIOS[name]
+        return _REGISTRY[name]
     except KeyError:
         raise UnknownScenarioError(name, names()) from None
 
 
 def names() -> List[str]:
     """Registered scenario names, in presentation order."""
-    return list(SCENARIOS)
+    return list(_REGISTRY)
 
 
 def all_scenarios() -> List[Scenario]:
     """Registered scenarios, in presentation order."""
-    return list(SCENARIOS.values())
+    return list(_REGISTRY.values())

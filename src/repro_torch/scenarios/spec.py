@@ -1,5 +1,5 @@
-"""Scenario specs: :class:`Axis`, :class:`Metric` and :class:`Scenario` (a
-copy of the part of ``repro.scenarios.spec`` the port's registry uses).
+"""Scenario specs: :class:`Axis`, :class:`Metric`, :class:`Scenario` and
+:class:`ResultTable` (a copy of ``repro.scenarios.spec``).
 
 A :class:`Scenario` describes one experiment family: its axes (grid axes
 expand into cells, scalar axes are knobs every cell shares), the metrics
@@ -13,11 +13,18 @@ its rows report, and either
   experiments that do not run on the simulated testbed (Fig. 11's serving
   engines).  The reference passes a process count where the port passes
   its device.
+
+The planner returns a :class:`ResultTable`: the rows, the axis values, and
+what ran them (``meta``).
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
+import enum
+import io
+import json
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
@@ -30,15 +37,30 @@ def _parse_bool(text: str) -> bool:
     raise ValueError(f"not a boolean: {text!r}")
 
 
+def _infer_parse(sample: Any) -> Callable[[str], Any]:
+    """The ``--set`` parser for an axis whose default is like ``sample``."""
+    if isinstance(sample, bool):  # before int: a bool is an int
+        return _parse_bool
+    if isinstance(sample, enum.Enum):
+        return type(sample)  # by value, e.g. OpClass("load")
+    if isinstance(sample, int):
+        return int
+    if isinstance(sample, float):
+        return float
+    return str
+
+
 @dataclasses.dataclass(frozen=True)
 class Axis:
     """One scenario parameter: a tuple default is a grid axis (the cells
     are the cartesian product of the grid axes), a scalar default a knob
-    every cell shares."""
+    every cell shares.  ``parse`` converts one ``--set`` token (default:
+    inferred from the default's type)."""
 
     name: str
     default: Any
     help: str = ""
+    parse: Optional[Callable[[str], Any]] = None
 
     @property
     def is_grid(self) -> bool:
@@ -47,9 +69,7 @@ class Axis:
     def parse_text(self, text: str) -> Any:
         """Parse one ``--set`` token (comma lists become grids)."""
         sample = self.default[0] if self.is_grid else self.default
-        # bool before int (a bool is an int); an enum parses by its value.
-        fn: Callable[[str], Any] = (_parse_bool if isinstance(sample, bool)
-                                    else type(sample))
+        fn = self.parse or _infer_parse(sample)
         if self.is_grid:
             return tuple(fn(p.strip()) for p in text.split(","))
         if "," in text:
@@ -75,8 +95,12 @@ class Scenario:
     name: str
     title: str
     axes: Tuple[Axis, ...] = ()
-    #: The columns its rows report (declared by the scenarios that name them).
+    #: The columns its rows report.
     metrics: Tuple[Metric, ...] = ()
+    figure: str = ""  # paper figure label, e.g. "Fig. 3"
+    #: The reference's benchmarks module that presents this scenario; the
+    #: port has no figure modules, so its scenarios leave it empty.
+    module: str = ""
     #: (platform, cell) -> List[SimJob]
     build: Optional[Callable[..., List[Any]]] = None
     #: (platform, cell, jobs, results) -> rows
@@ -97,3 +121,81 @@ class Scenario:
                 return a
         raise KeyError(f"scenario {self.name!r} has no axis {name!r}; axes: "
                        f"{', '.join(a.name for a in self.axes) or '(none)'}")
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(a.name for a in self.axes)
+
+
+def _plain(v: Any) -> Any:
+    """JSON/CSV-safe cell value (enums flatten to their value)."""
+    if isinstance(v, enum.Enum):
+        return v.value
+    return v
+
+
+def format_default(v: Any) -> str:
+    """One axis default as display text: enums by value, sequences
+    comma-joined, whole floats without the trailing ``.0``.  The one
+    formatter of the catalog and the CLI's listing."""
+    if isinstance(v, enum.Enum):
+        return str(v.value)
+    if isinstance(v, (tuple, list)):
+        return ", ".join(format_default(x) for x in v)
+    if isinstance(v, float) and v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return str(v)
+
+
+@dataclasses.dataclass
+class ResultTable:
+    """A uniform result table: one scenario, ordered rows of plain dicts."""
+
+    scenario: str
+    rows: List[Dict[str, Any]]
+    params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    #: Per-window control-plane telemetry, one entry per cell with its
+    #: jobs' window records: only under ``run_scenario(..., trace=True)``.
+    traces: Optional[List[Dict[str, Any]]] = None
+    #: What ran: the lane and, on the batched lane, how many jobs it ran
+    #: and how many fell back to the scalar DES and why; under
+    #: ``profile=True`` the phase profile and the metrics snapshot.
+    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    #: Sampled request spans, one entry per cell with its jobs'
+    #: ``SimResult.trace``: only under ``run_scenario(..., perfetto=True)``.
+    #: Left out of :meth:`to_json`; the CLI writes it as Chrome trace events.
+    request_traces: Optional[List[Dict[str, Any]]] = None
+
+    def __post_init__(self):
+        self.rows = [{k: _plain(v) for k, v in r.items()} for r in self.rows]
+        self.params = {k: _plain(v) for k, v in self.params.items()}
+
+    @property
+    def columns(self) -> List[str]:
+        cols: List[str] = []
+        for r in self.rows:
+            for k in r:
+                if k not in cols:
+                    cols.append(k)
+        return cols
+
+    def to_csv(self) -> str:
+        """The rows as CSV text (union of row keys, declaration order)."""
+        buf = io.StringIO()
+        w = csv.DictWriter(buf, fieldnames=self.columns, restval="",
+                           lineterminator="\n")
+        w.writeheader()
+        w.writerows(self.rows)
+        return buf.getvalue()
+
+    def to_json(self, indent: Optional[int] = 2) -> str:
+        """Scenario, params, rows (and non-empty meta) as a JSON document."""
+        def default(o: Any) -> Any:
+            plain = _plain(o)
+            return plain if plain is not o else str(o)
+
+        payload = {"scenario": self.scenario, "params": self.params,
+                   "rows": self.rows}
+        if self.meta:
+            payload["meta"] = self.meta
+        return json.dumps(payload, indent=indent, default=default)

@@ -356,7 +356,7 @@ def test_golden_slo_knee_windows_resimulate_exactly(golden):
 
 
 def test_slo_knee_rows_equal_the_reference():
-    got = run_scenario("slo_knee", device="cpu")
+    got = run_scenario("slo_knee", device="cpu").rows
     _same_rows(got, ref_run_scenario("slo_knee", {}).rows)
     assert len(got) == 20
     for r in got:
@@ -371,7 +371,7 @@ def test_slo_knee_rows_equal_the_reference():
 
 
 def test_flash_crowd_rows_equal_the_reference():
-    got = run_scenario("flash_crowd", device="cpu", lane="scalar")
+    got = run_scenario("flash_crowd", device="cpu", lane="scalar").rows
     _same_rows(got, ref_run_scenario("flash_crowd", {}).rows)
     racing, miku = ({r["policy"]: r for r in got}[p] for p in ("racing", "miku"))
     assert miku["peak_queue_depth"] < racing["peak_queue_depth"]

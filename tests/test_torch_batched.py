@@ -489,7 +489,7 @@ def test_run_sweep_batched_matches_reference_numpy_lane(monkeypatch):
 def test_run_scenario_rows_match_reference(monkeypatch):
     monkeypatch.delenv("REPRO_BATCH_BACKEND", raising=False)
     ref_rows = ref_run_scenario("corun_sweep", REDUCED_SWEEP, lane="batched").rows
-    rows = run_scenario("corun_sweep", REDUCED_SWEEP, device="cpu")
+    rows = run_scenario("corun_sweep", REDUCED_SWEEP, device="cpu").rows
     assert len(rows) == len(ref_rows) == 24
     assert any(r["restricted_windows"] for r in ref_rows)
     for r, p in zip(ref_rows, rows):

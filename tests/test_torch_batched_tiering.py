@@ -312,7 +312,8 @@ def test_record_windows_tiering_blocks_match_the_reference(monkeypatch):
     monkeypatch.delenv("REPRO_BATCH_BACKEND", raising=False)
     over = {"sim_ns": 60_000.0}
     ref = ref_run_scenario("migrate_interference", over, trace=True, lane="batched")
-    rows, traces = run_scenario("migrate_interference", over, device="cpu", trace=True)
+    table = run_scenario("migrate_interference", over, device="cpu", trace=True)
+    rows, traces = table.rows, table.traces
     assert rows == ref.rows
     assert len(traces) == len(ref.traces) == 1
     for cp, cr in zip(traces, ref.traces):
@@ -352,7 +353,7 @@ def test_trace_is_for_grid_scenarios_only():
     with pytest.raises(ValueError, match="run_cell"):
         run_scenario("fig11_llm", device="cpu", trace=True)
     rows = run_scenario("tiering_policies", {"platform": "A", "sim_ns": 20_000.0},
-                        device="cpu")
+                        device="cpu").rows
     assert isinstance(rows, list) and len(rows) == 2
 
 

@@ -517,7 +517,7 @@ def _same_rows(got, want):
 @pytest.mark.parametrize("name", ["fabric_spine_congestion", "fabric_port_overflow",
                                   "fabric_miku"])
 def test_fabric_scenario_rows_equal_the_reference(name):
-    got = run_scenario(name, device="cpu")
+    got = run_scenario(name, device="cpu").rows
     _same_rows(got, ref_run_scenario(name, {}).rows)
     rows = {r.get("law", r.get("port_queue")): r for r in got}
     if name == "fabric_spine_congestion":
@@ -534,8 +534,9 @@ def test_fabric_scenario_rows_equal_the_reference(name):
 
 def test_fabric_scenario_on_the_scalar_lane_equals_the_batched_lane():
     overrides = {"port_queue": "64,2048"}
-    _same_rows(run_scenario("fabric_port_overflow", overrides, device="cpu", lane="scalar"),
-               run_scenario("fabric_port_overflow", overrides, device="cpu"))
+    _same_rows(run_scenario("fabric_port_overflow", overrides, device="cpu",
+                            lane="scalar").rows,
+               run_scenario("fabric_port_overflow", overrides, device="cpu").rows)
 
 
 def test_hypothesis_direct_routes_match_the_flat_chain():

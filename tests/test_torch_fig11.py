@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 
 def test_fig11_rows_equal_reference_at_defaults():
     ref_rows = ref_run_scenario("fig11_llm").rows
-    rows = run_scenario("fig11_llm", device="cpu")
+    rows = run_scenario("fig11_llm", device="cpu").rows
     assert rows == ref_rows
     opt, racing, miku = rows
     # The paper's §6 result: racing costs the HBM instance, MIKU wins most

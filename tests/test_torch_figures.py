@@ -65,7 +65,7 @@ def _run_both(name, monkeypatch):
     monkeypatch.setattr(planner, "run_sweep", port_record)
     table = ref_run_scenario(name, lane="batched")
     assert table.meta["scalar_fallback_jobs"] == 0
-    rows = run_scenario(name, device="cpu")
+    rows = run_scenario(name, device="cpu").rows
     assert len(got["ref"]) == len(got["port"]) == len(got["jobs"])
     return table.rows, rows, list(zip(got["jobs"], got["ref"], got["port"]))
 

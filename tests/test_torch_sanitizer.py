@@ -515,5 +515,5 @@ def test_scenario_one_cell_sanitized(name, monkeypatch):
     overrides = {a.name: a.default[0] for a in sc.axes if a.is_grid}
     if any(a.name == "sim_ns" for a in sc.axes):
         overrides["sim_ns"] = 60_000.0
-    rows = run_scenario(name, overrides, device="cpu")
+    rows = run_scenario(name, overrides, device="cpu").rows
     assert rows  # a clean sanitized run produced its rows

@@ -161,7 +161,7 @@ def test_miku_corun_batched_within_bounds_of_scalar(lanes, op):
 
 def test_fig2_rows_equal_the_reference():
     overrides = {"op": "load"}
-    rows = run_scenario("fig2_tiering", overrides, device="cpu")
+    rows = run_scenario("fig2_tiering", overrides, device="cpu").rows
     assert rows == ref_run_scenario("fig2_tiering", overrides).rows
     (row,) = rows
     assert (row["upper_ddr_only"], row["lower_cxl_only"]) == (255.5904, 49.6384)
@@ -170,7 +170,7 @@ def test_fig2_rows_equal_the_reference():
 
 def test_grid_scenario_on_the_scalar_lane_equals_the_reference():
     overrides = {"threads": (2,), "mlp": (160,), "sim_ns": 60_000.0}
-    rows = run_scenario("corun_sweep", overrides, device="cpu", lane="scalar")
+    rows = run_scenario("corun_sweep", overrides, device="cpu", lane="scalar").rows
     assert rows == ref_run_scenario("corun_sweep", overrides, lane="scalar").rows
 
 

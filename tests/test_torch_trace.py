@@ -380,7 +380,8 @@ def test_idle_advance_runs_equal_single_steps():
 
 def test_planner_perfetto_collects_the_reference_traces():
     over = {"platform": "A", "tier": ("cxl",), "threads": (4,)}
-    rows, req = scenarios.run_scenario("fig4_latency", over, device="cpu", perfetto=True)
+    got = scenarios.run_scenario("fig4_latency", over, device="cpu", perfetto=True)
+    rows, req = got.rows, got.request_traces
     table = ref_scenarios.run_scenario("fig4_latency", over, perfetto=True)
     assert rows == table.rows
     assert json.loads(json.dumps(req)) == json.loads(json.dumps(table.request_traces))
@@ -390,8 +391,9 @@ def test_planner_perfetto_collects_the_reference_traces():
 
 def test_planner_trace_and_perfetto_together():
     over = {"platform": "A", "tier": ("ddr",), "threads": (2,)}
-    rows, traces, req = scenarios.run_scenario("fig4_latency", over, device="cpu",
-                                               trace=True, perfetto=True)
+    got = scenarios.run_scenario("fig4_latency", over, device="cpu", trace=True,
+                                 perfetto=True)
+    rows, traces, req = got.rows, got.traces, got.request_traces
     assert len(rows) == len(traces) == len(req) == 1
     assert "windows" in traces[0]["jobs"][0] and "trace" in req[0]["jobs"][0]
 
