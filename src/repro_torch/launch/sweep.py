@@ -37,22 +37,13 @@ code 2 and names the near misses.
 from __future__ import annotations
 
 import argparse
-import enum
 import json
 import os
 import sys
 import time
 
 from repro_torch.scenarios import SCENARIOS, UnknownScenarioError, get, parse_set_args, run_scenario
-
-
-def _text(v) -> str:
-    """An axis default as ``--set`` text (enums by value, lists joined)."""
-    if isinstance(v, enum.Enum):
-        return str(v.value)
-    if isinstance(v, (tuple, list)):
-        return ",".join(_text(x) for x in v)
-    return str(v)
+from repro_torch.scenarios.spec import format_default
 
 
 def write_perfetto(request_traces, name: str) -> str:
@@ -116,8 +107,15 @@ def main(argv=None) -> None:
             print(catalog_md(), end="")
             return
         for sc in SCENARIOS.values():
-            axes = " ".join(f"{a.name}={_text(a.default)}" for a in sc.axes)
-            print(f"{sc.name}: {sc.title} [{axes}]")
+            figure = f" [{sc.figure}]" if sc.figure else ""
+            slow = " (slow)" if sc.slow else ""
+            print(f"{sc.name}{figure}{slow} — {sc.title}")
+            if sc.axes:
+                print("    axes: " + ", ".join(
+                    f"{a.name}{'*' if a.is_grid else ''}={format_default(a.default)}"
+                    for a in sc.axes))
+            if sc.metrics:
+                print(f"    metrics: {', '.join(m.name for m in sc.metrics)}")
         return
     if args.format == "md":
         ap.error("--format md is only valid with --list")

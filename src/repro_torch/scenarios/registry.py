@@ -9,12 +9,10 @@ to it.  That order is the presentation order :func:`names` and
 from __future__ import annotations
 
 import difflib
-from typing import Dict, List
+from typing import List
 
 from repro_torch.scenarios.library import SCENARIOS
 from repro_torch.scenarios.spec import Scenario
-
-_REGISTRY: Dict[str, Scenario] = SCENARIOS
 
 
 class UnknownScenarioError(KeyError):
@@ -39,9 +37,9 @@ class UnknownScenarioError(KeyError):
 def register(scenario: Scenario) -> Scenario:
     """Register ``scenario`` under its name (a duplicate name raises
     ``ValueError``)."""
-    if scenario.name in _REGISTRY:
+    if scenario.name in SCENARIOS:
         raise ValueError(f"scenario {scenario.name!r} already registered")
-    _REGISTRY[scenario.name] = scenario
+    SCENARIOS[scenario.name] = scenario
     return scenario
 
 
@@ -49,16 +47,16 @@ def get(name: str) -> Scenario:
     """The scenario registered as ``name``; :class:`UnknownScenarioError`
     with near-miss suggestions otherwise."""
     try:
-        return _REGISTRY[name]
+        return SCENARIOS[name]
     except KeyError:
         raise UnknownScenarioError(name, names()) from None
 
 
 def names() -> List[str]:
     """Registered scenario names, in presentation order."""
-    return list(_REGISTRY)
+    return list(SCENARIOS)
 
 
 def all_scenarios() -> List[Scenario]:
     """Registered scenarios, in presentation order."""
-    return list(_REGISTRY.values())
+    return list(SCENARIOS.values())

@@ -98,8 +98,10 @@ class Scenario:
     #: The columns its rows report.
     metrics: Tuple[Metric, ...] = ()
     figure: str = ""  # paper figure label, e.g. "Fig. 3"
-    #: The reference's benchmarks module that presents this scenario; the
-    #: port has no figure modules, so its scenarios leave it empty.
+    #: The reference's benchmarks module that presents this scenario.  The
+    #: port has no figure modules: its scenarios leave it empty and neither
+    #: the catalog nor ``--list`` prints it.  It stays so that a Scenario
+    #: built with the reference's keyword arguments constructs here too.
     module: str = ""
     #: (platform, cell) -> List[SimJob]
     build: Optional[Callable[..., List[Any]]] = None

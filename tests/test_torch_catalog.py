@@ -163,6 +163,12 @@ OMITTED = {
         "REPRO_SWEEP_PROCS; lane and processes are arguments",
         {"memsim/sweep.py": ["default_lane", "default_processes"]},
     ),
+    "renamed": (
+        "a second name for an object the port keeps under its public name: the "
+        "reference's registry dict _REGISTRY is the port's library.SCENARIOS, "
+        "which register() appends to",
+        {"scenarios/registry.py": ["_REGISTRY"]},
+    ),
     "distribution": (
         "a distribution leftover of ROADMAP A.3: the shard_map MoE dispatch; the "
         "port's _moe_apply and _moe_apply_meshed route per shard",

@@ -12,6 +12,8 @@ bucket width.  Also here: the exact regime routes the reference's cells,
 the histogram and MVA copies, the registry and the scenario CLI."""
 
 import math
+import pathlib
+import sys
 
 import pytest
 import torch
@@ -200,15 +202,27 @@ def test_registry_refuses_what_it_cannot_plan():
 
 
 def test_sweep_cli_lists_every_scenario(capsys):
+    """``--list`` prints benchmarks/run.py's listing: each scenario's name,
+    figure, slow mark and title, then its axes (``*`` on a grid axis,
+    defaults through ``format_default``) and metrics."""
     from repro_torch.launch.sweep import main
 
+    repo = str(pathlib.Path(__file__).resolve().parents[1])
+    sys.path.insert(0, repo)
+    try:
+        from benchmarks.run import _list_scenarios
+    finally:
+        sys.path.remove(repo)
     main(["--list"])
-    lines = capsys.readouterr().out.strip().splitlines()
-    assert len(lines) == len(SCENARIOS) == 25
-    assert [line.split(":")[0] for line in lines] == list(SCENARIOS)
-    assert lines[-1].startswith("flash_crowd:")
-    assert lines[0].startswith("fig2_tiering:")
-    assert "fig11_llm" in SCENARIOS and "arch=llama31-8b" in lines[10]
+    out = capsys.readouterr().out
+    _list_scenarios()
+    assert out == capsys.readouterr().out
+    heads = [line for line in out.splitlines() if not line.startswith("    ")]
+    assert len(heads) == len(SCENARIOS) == 25
+    assert [line.split()[0] for line in heads] == list(SCENARIOS)
+    assert heads[0].startswith("fig2_tiering [Fig. 2] — ")
+    assert heads[-1].startswith("flash_crowd — ")
+    assert "    axes: arch=llama31-8b, " in out
 
 
 def test_sweep_cli_prints_fig9_rows_on_cpu(capsys):

@@ -115,6 +115,53 @@ def test_fallback_grid_meta_equals_the_reference():
     _same_rows(got.rows, want.rows, rel=1e-6)
 
 
+@pytest.mark.parametrize("value", [None, "1", "7", "2048", "0", "-3", "junk"])
+def test_batch_block_reads_the_environment_as_the_reference(value, monkeypatch):
+    from repro.memsim.batched.lane import batch_block as ref_batch_block
+    from repro_torch.memsim.batched.lane import batch_block
+
+    if value is None:
+        monkeypatch.delenv("REPRO_BATCH_BLOCK", raising=False)
+    else:
+        monkeypatch.setenv("REPRO_BATCH_BLOCK", value)
+    assert batch_block() == ref_batch_block()
+
+
+def test_batch_block_chunks_the_lane_and_changes_no_result(monkeypatch):
+    """``REPRO_BATCH_BLOCK=1`` runs every fluid cell as a group of its own,
+    and K3 (its plain version here) is called once a window for each
+    group: a group of n cells and w windows at the default block becomes n
+    groups of w windows.  Rows and meta stay those of the default block bit
+    for bit, and the reference's under the same setting."""
+    from repro_torch.memsim.batched import fluid
+
+    monkeypatch.delenv("REPRO_BATCH_BACKEND", raising=False)
+    monkeypatch.delenv("REPRO_BATCH_BLOCK", raising=False)
+    run_fluid, groups = fluid.run_fluid, []
+
+    def counted(group, *args):
+        before = fluid.COUNTS.windows
+        out = run_fluid(group, *args)
+        groups.append((len(group.plans), fluid.COUNTS.windows - before))
+        return out
+
+    monkeypatch.setattr(fluid, "run_fluid", counted)
+    over = CHEAP["corun_sweep"]
+    whole = P.run_scenario("corun_sweep", over, device="cpu")
+    whole_groups, groups[:] = list(groups), []
+    monkeypatch.setenv("REPRO_BATCH_BLOCK", "1")
+    chunked = P.run_scenario("corun_sweep", over, device="cpu")
+    assert whole.meta["batched_jobs"] == 4
+    assert any(n > 1 for n, _ in whole_groups) and all(w > 0 for _, w in whole_groups)
+    assert all(n == 1 for n, _ in groups)
+    assert sorted(w for _, w in groups) == sorted(w for n, w in whole_groups
+                                                  for _ in range(n))
+    assert chunked.rows == whole.rows and chunked.meta == whole.meta
+    want = R.run_scenario("corun_sweep", over, lane="batched")
+    assert chunked.meta == want.meta
+    _same_rows(chunked.rows, want.rows, rel=1e-6)
+
+
 def _frozen_scenario(Scenario, Job, Pf, bw, Op, Spec, Region, Pattern, corun):
     """A grid of one cell: a tiering job whose policy the vector twin cannot
     run (it falls back only when its group fails to stack, during the run)
