@@ -1,10 +1,16 @@
 """The port's observability layer: latency histograms
-(:mod:`.histogram`), named counters and the phase profiler
-(:mod:`.metrics`), and sampled request and transfer tracing with Chrome
-trace-event export (:mod:`.trace`)."""
+(:mod:`.histogram`), named counters, the phase profiler and the serving
+path's real-clock span log (:mod:`.metrics`), and sampled request and
+transfer tracing with Chrome trace-event export (:mod:`.trace`)."""
 
 from repro_torch.obs.histogram import LatencyHistogram
-from repro_torch.obs.metrics import MetricsRegistry, PhaseProfiler, default_registry
+from repro_torch.obs.metrics import (
+    MetricsRegistry,
+    PhaseProfiler,
+    SpanRecord,
+    default_profiler,
+    default_registry,
+)
 from repro_torch.obs.trace import RequestTracer, TraceConfig, TransferTracer, to_chrome
 
 __all__ = [
@@ -12,8 +18,10 @@ __all__ = [
     "MetricsRegistry",
     "PhaseProfiler",
     "RequestTracer",
+    "SpanRecord",
     "TraceConfig",
     "TransferTracer",
+    "default_profiler",
     "default_registry",
     "to_chrome",
 ]

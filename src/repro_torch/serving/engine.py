@@ -18,6 +18,25 @@ control — port of ``repro/serving/engine.py`` (the paper's §6 case study).
 The cluster's clock is the simulated queue clock with the reference's tier
 constants (so its ``tokens_per_s`` is simulated, not measured on the card);
 the tokens are real.
+
+Both also record real-clock spans into the process-default
+:func:`~repro_torch.obs.metrics.default_profiler` (each a child of the span
+open around it): ``serving.tick`` (one working tick of ``run``), in it
+``serving.admit`` (an engine's ``admit``) with a ``serving.prefill`` a
+request (``.state``: the prompt's upload and the batch-1 state; ``.dispatch``;
+``.readback``; ``.insert``),
+``serving.account`` (an engine's step accounting on the queue),
+``serving.decode`` (``decode_once``: ``.dispatch``, ``.readback``,
+``.retire``) and ``serving.advance`` (the queue's event scan and the MIKU
+windows it fires); ``serving.h2d``, a host-placed engine's issue of its
+weight copy, inside the prefill or decode step it serves (the copy runs on
+a side stream and the step's stream only waits on it on the device:
+``HostOffloader.copy_seconds()`` measures the copy itself); top-level
+``serving.idle_advance`` (ticks that only move the clock) and
+``serving.queued`` (a request from ``submit`` to its prefill).  A span ends
+when its call returns on the host: none waits for the device.  The counters
+``serving.tokens`` and ``serving.requests`` of the default registry count
+as tokens are produced and requests finish.
 """
 
 from __future__ import annotations
@@ -36,7 +55,7 @@ from repro_torch.core.littles_law import OpClass
 from repro_torch.core.offload import HostOffloader, TransferQueue
 from repro_torch.core.tiers import HBM_TIER, host_offload_supported
 from repro_torch.models.transformer import DecodeState, ModelConfig, TransformerLM
-from repro_torch.obs.metrics import default_registry
+from repro_torch.obs.metrics import default_profiler, default_registry
 from repro_torch.serving import sampler as sampler_lib
 
 
@@ -116,6 +135,11 @@ class ServingEngine:
         self._active = np.zeros((cfg.max_slots,), bool)
         #: decode steps taken (each runs every layer once)
         self.decode_steps = 0
+        #: ``submit`` times on the profiler's clock, by ``id`` of the request
+        self._submitted: Dict[int, float] = {}
+        reg = default_registry()
+        self._m_tokens = reg.counter("serving.tokens")
+        self._m_requests = reg.counter("serving.requests")
 
     def _place_state(self, params: Any) -> None:
         self.offloader: Optional[HostOffloader] = None
@@ -132,12 +156,14 @@ class ServingEngine:
         queue charges."""
         if self.offloader is None:
             return self.params
-        self.offloader.to_device(self.params, out=self._staging)
-        self.offloader.block()
+        with default_profiler().phase("serving.h2d", engine=self.cfg.name):
+            self.offloader.to_device(self.params, out=self._staging)
+            self.offloader.block()
         return self._staging
 
     # -- request lifecycle ---------------------------------------------------
     def submit(self, req: Request) -> None:
+        self._submitted[id(req)] = default_profiler().clock()
         self.queue.append(req)
 
     def _free_slots(self) -> List[int]:
@@ -155,22 +181,38 @@ class ServingEngine:
         """Prefill queued requests into free slots.  Returns admissions
         (request, prompt_bytes_touched)."""
         admitted = []
-        for slot in self._free_slots():
-            if not self.queue:
-                break
-            req = self.queue.pop(0)
-            plen = len(req.prompt)
-            tokens = torch.tensor([req.prompt], dtype=torch.int64, device=self.device)
-            state1 = self.model.init_decode_state(1, self.cfg.max_len, self.device)
-            logits, state1 = self.model.prefill(self.step_params(), tokens, state1)
-            first = int(self._sample(logits)[0])
-            req.output.append(first)
-            req.t_first_token = now_ns
-            self._insert_state(slot, state1, plen)
-            self._tokens[slot] = first
-            self.slot_req[slot] = req
-            self._active[slot] = True
-            admitted.append((req, plen * self.kv_bytes_per_token))
+        prof = default_profiler()
+        with prof.phase("serving.admit", engine=self.cfg.name) as span:
+            for slot in self._free_slots():
+                if not self.queue:
+                    break
+                req = self.queue.pop(0)
+                t_submit = self._submitted.pop(id(req), None)
+                plen = len(req.prompt)
+                with prof.phase("serving.prefill", rid=req.rid, prompt=plen) as pre:
+                    if t_submit is not None:
+                        prof.record("serving.queued", t_submit, pre.t0, rid=req.rid,
+                                    engine=self.cfg.name)
+                    with prof.phase("serving.prefill.state"):
+                        tokens = torch.tensor([req.prompt], dtype=torch.int64,
+                                              device=self.device)
+                        state1 = self.model.init_decode_state(1, self.cfg.max_len, self.device)
+                    params = self.step_params()
+                    with prof.phase("serving.prefill.dispatch"):
+                        logits, state1 = self.model.prefill(params, tokens, state1)
+                        sampled = self._sample(logits)
+                    with prof.phase("serving.prefill.readback"):
+                        first = int(sampled[0])
+                    req.output.append(first)
+                    req.t_first_token = now_ns
+                    with prof.phase("serving.prefill.insert"):
+                        self._insert_state(slot, state1, plen)
+                        self._tokens[slot] = first
+                        self.slot_req[slot] = req
+                        self._active[slot] = True
+                self._m_tokens.inc()
+                admitted.append((req, plen * self.kv_bytes_per_token))
+            span.args["admitted"] = len(admitted)
         return admitted
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
@@ -207,27 +249,37 @@ class ServingEngine:
 
     def decode_once(self, now_ns: float) -> int:
         """One real decode step for all active slots.  Returns #tokens."""
-        if self.n_active == 0:
+        active = self.n_active
+        if active == 0:
             return 0
-        logits, self.state = self.model.decode_step(self.step_params(), self.state,
-                                                    self._tokens)
-        self.decode_steps += 1
-        self._tokens = self._sample(logits)
-        nxt = self._tokens.tolist()
-        lengths = self.state.length.tolist()
-        produced = 0
-        for slot, req in enumerate(self.slot_req):
-            if req is None:
-                continue
-            req.output.append(nxt[slot])
-            produced += 1
-            done = len(req.output) >= req.max_new_tokens
-            overflow = lengths[slot] >= self.cfg.max_len - 1
-            if done or overflow:
-                req.t_done = now_ns
-                self.done.append(req)
-                self.slot_req[slot] = None
-                self._active[slot] = False
+        prof = default_profiler()
+        with prof.phase("serving.decode", engine=self.cfg.name,
+                        placement=self.cfg.placement, active=active):
+            params = self.step_params()
+            with prof.phase("serving.decode.dispatch"):
+                logits, self.state = self.model.decode_step(params, self.state, self._tokens)
+                self.decode_steps += 1
+                self._tokens = self._sample(logits)
+            with prof.phase("serving.decode.readback"):
+                nxt = self._tokens.tolist()
+                lengths = self.state.length.tolist()
+            with prof.phase("serving.decode.retire"):
+                produced = finished = 0
+                for slot, req in enumerate(self.slot_req):
+                    if req is None:
+                        continue
+                    req.output.append(nxt[slot])
+                    produced += 1
+                    done = len(req.output) >= req.max_new_tokens
+                    overflow = lengths[slot] >= self.cfg.max_len - 1
+                    if done or overflow:
+                        req.t_done = now_ns
+                        self.done.append(req)
+                        self.slot_req[slot] = None
+                        self._active[slot] = False
+                        finished += 1
+        self._m_tokens.inc(produced)
+        self._m_requests.inc(finished)
         return produced
 
     @property
@@ -333,6 +385,9 @@ class TieredServingCluster:
 
     def run(self, max_ticks: int = 10_000) -> Dict[str, Dict[str, float]]:
         q = self.queue
+        prof = default_profiler()
+        # MIKU windows fired, read as deltas around the queue's calls
+        windows = default_registry().counter("control.windows")
         tick = 0
         produced: Dict[str, int] = {e.cfg.name: 0 for e in self.engines}
         started: Dict[str, Optional[float]] = {e.cfg.name: None for e in self.engines}
@@ -342,58 +397,71 @@ class TieredServingCluster:
             if q.now < until:
                 # Host engines wait on their streams: run the no-op ticks
                 # in one call, with the same clock arithmetic.
-                tick += q.idle_advance(
-                    1e3, until, max_ticks - tick,
-                    on_run=lambda t0, n, b: self.timeline.add_run(t0, 1e3, n, b, produced))
+                w0 = windows.value
+                with prof.phase("serving.idle_advance") as span:
+                    n = q.idle_advance(
+                        1e3, until, max_ticks - tick,
+                        on_run=lambda t0, n, b: self.timeline.add_run(t0, 1e3, n, b, produced))
+                    span.args["ticks"] = n
+                    span.args["windows"] = int(windows.value - w0)
+                tick += n
                 continue
             tick += 1
-            fast_time = 0.0
-            for eng in self.engines:
-                eng.admit(q.now)
-                if eng.n_active == 0:
-                    continue
-                name = eng.cfg.name
-                if started[name] is None:
-                    started[name] = q.now
-                if eng.cfg.placement == "host":
-                    # One decode step = one weight/KV stream over the slow
-                    # link, submitted as per-layer chunks; a MIKU cap bounds
-                    # the descriptors it holds at no throughput cost.
-                    if q.now < self._host_busy_until[name]:
+            with prof.phase("serving.tick", tick=tick):
+                fast_time = 0.0
+                for eng in self.engines:
+                    eng.admit(q.now)
+                    if eng.n_active == 0:
                         continue
-                    wb, kvb = eng.step_bytes()
-                    n_chunks = eng.cfg.stream_chunks or 2 * eng.cfg.model.n_layers
-                    # A KV PageMap keeps the hot share of the KV stream on
-                    # the device path, costed as a device engine's bytes
-                    # (fast_penalty included); only the rest crosses the
-                    # link, and the step completes when both paths have.
-                    kv_fast, kv_slow = eng.kv_tier_bytes(kvb)
-                    fast_dur = 0.0
-                    if kv_fast:
-                        fast_dur = kv_fast / self.hbm_bw * q.fast_penalty()
-                        q.account_fast(kv_fast, fast_dur, OpClass.LOAD)
-                        fast_time += fast_dur
-                    done_t = q.submit_slow_stream(wb + kv_slow, n_chunks, OpClass.LOAD,
-                                                  tier="slow")
-                    done_t = max(done_t, q.now + fast_dur)
-                    self._host_busy_until[name] = done_t
-                    n = eng.decode_once(done_t)
-                    finished_at[name] = done_t
-                else:
-                    wb, kvb = eng.step_bytes()
-                    dur = (wb + kvb) / self.hbm_bw * q.fast_penalty()
-                    q.account_fast(wb + kvb, dur, OpClass.LOAD)
-                    fast_time += dur
-                    n = eng.decode_once(q.now + dur)
-                    finished_at[name] = q.now + dur
-                produced[name] += n
-            # Engines on device memory run back to back; host engines
-            # progress via queue completions.
-            dt = max(fast_time, 1e3)
-            q.advance(dt)
-            self.timeline.add_run(q.now, dt, 1, q.slow_backlog(), produced)
+                    name = eng.cfg.name
+                    if started[name] is None:
+                        started[name] = q.now
+                    if eng.cfg.placement == "host":
+                        # One decode step = one weight/KV stream over the
+                        # slow link, submitted as per-layer chunks; a MIKU
+                        # cap bounds the descriptors it holds at no
+                        # throughput cost.
+                        if q.now < self._host_busy_until[name]:
+                            continue
+                        with prof.phase("serving.account", engine=name) as span:
+                            wb, kvb = eng.step_bytes()
+                            n_chunks = eng.cfg.stream_chunks or 2 * eng.cfg.model.n_layers
+                            # A KV PageMap keeps the hot share of the KV
+                            # stream on the device path, costed as a device
+                            # engine's bytes (fast_penalty included); only
+                            # the rest crosses the link, and the step
+                            # completes when both paths have.
+                            kv_fast, kv_slow = eng.kv_tier_bytes(kvb)
+                            fast_dur = 0.0
+                            if kv_fast:
+                                fast_dur = kv_fast / self.hbm_bw * q.fast_penalty()
+                                q.account_fast(kv_fast, fast_dur, OpClass.LOAD)
+                                fast_time += fast_dur
+                            done_t = q.submit_slow_stream(wb + kv_slow, n_chunks,
+                                                          OpClass.LOAD, tier="slow")
+                            done_t = max(done_t, q.now + fast_dur)
+                            self._host_busy_until[name] = done_t
+                            span.args["chunks"] = n_chunks
+                        n = eng.decode_once(done_t)
+                        finished_at[name] = done_t
+                    else:
+                        with prof.phase("serving.account", engine=name, chunks=0):
+                            wb, kvb = eng.step_bytes()
+                            dur = (wb + kvb) / self.hbm_bw * q.fast_penalty()
+                            q.account_fast(wb + kvb, dur, OpClass.LOAD)
+                            fast_time += dur
+                        n = eng.decode_once(q.now + dur)
+                        finished_at[name] = q.now + dur
+                    produced[name] += n
+                # Engines on device memory run back to back; host engines
+                # progress via queue completions.
+                dt = max(fast_time, 1e3)
+                w0 = windows.value
+                with prof.phase("serving.advance") as span:
+                    q.advance(dt)
+                    span.args["windows"] = int(windows.value - w0)
+                self.timeline.add_run(q.now, dt, 1, q.slow_backlog(), produced)
         out: Dict[str, Dict[str, float]] = {}
-        reg = default_registry()
         for eng in self.engines:
             name = eng.cfg.name
             toks = sum(len(r.output) for r in eng.done)
@@ -405,6 +473,4 @@ class TieredServingCluster:
                 "tokens_per_s": toks / span * 1e9,
                 "requests": float(len(eng.done)),
             }
-            reg.counter("serving.tokens").inc(float(toks))
-            reg.counter("serving.requests").inc(float(len(eng.done)))
         return out
