@@ -4295,7 +4295,9 @@ def moe_layer_check(call, card_idx, cfg):
 def run_timed(eng):
     """Serve the requests queued on device engine ``eng`` in a
     TieredServingCluster of its own, each prefill and decode step timed
-    (device synchronised) and each sampled step's logits checked finite.
+    (device synchronised) and each step's logits checked finite (a
+    prefill's as the engine samples them, a decode step's in
+    ``eng.logits`` after the step, which its CUDA graph writes).
     The main path: K1's and K4's launch counts are set to 0 just before the
     run and read just after.  Returns (result dict, walls in s by "prefill"
     and "decode", finite flags, run wall in s, {"k1": n, "k4": n}).  The
@@ -4326,8 +4328,16 @@ def run_timed(eng):
         finite.append(bool(torch.isfinite(logits).all()))
         return sample(logits)
 
+    decode = timed(eng.decode_once, "decode")
+
+    def decode_checked(now_ns):
+        n = decode(now_ns)
+        if n:
+            finite.append(bool(torch.isfinite(eng.logits).all()))
+        return n
+
     eng.model.prefill = timed(eng.model.prefill, "prefill")
-    eng.decode_once = timed(eng.decode_once, "decode")
+    eng.decode_once = decode_checked
     eng._sample = checked
     cluster = eng_lib.TieredServingCluster([eng])
     try:

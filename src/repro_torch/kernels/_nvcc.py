@@ -24,13 +24,21 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 
 class LaunchCounter:
-    """A plain integer count of kernel launches."""
+    """A plain integer count of kernel launches.  Every counter made is
+    listed in :data:`COUNTERS`, so a caller that records launches into a
+    CUDA graph can take the recording's counts back and add them again at
+    each replay."""
 
     def __init__(self) -> None:
         self.count = 0
+        COUNTERS.append(self)
 
     def reset(self) -> None:
         self.count = 0
+
+
+#: Every :class:`LaunchCounter`, in the order they were made.
+COUNTERS: List[LaunchCounter] = []
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,7 +27,8 @@ request (``.state``: the prompt's upload and the batch-1 state; ``.dispatch``;
 ``.readback``; ``.insert``),
 ``serving.account`` (an engine's step accounting on the queue),
 ``serving.decode`` (``decode_once``: ``.dispatch``, ``.readback``,
-``.retire``) and ``serving.advance`` (the queue's event scan and the MIKU
+``.retire``; its arg ``graph`` says whether the step replayed the engine's
+CUDA graph) and ``serving.advance`` (the queue's event scan and the MIKU
 windows it fires); ``serving.h2d``, a host-placed engine's issue of its
 weight copy, inside the prefill or decode step it serves (the copy runs on
 a side stream and the step's stream only waits on it on the device:
@@ -36,7 +37,18 @@ a side stream and the step's stream only waits on it on the device:
 ``serving.queued`` (a request from ``submit`` to its prefill).  A span ends
 when its call returns on the host: none waits for the device.  The counters
 ``serving.tokens`` and ``serving.requests`` of the default registry count
-as tokens are produced and requests finish.
+as tokens are produced and requests finish; ``serving.decode.graph_captures``
+and ``serving.decode.graph_replays`` count the decode step's graphs.
+
+An engine on a CUDA device records its decode step, with the greedy
+sampler, as one CUDA graph right after its first step, which runs eagerly
+and builds the kernels, and replays that graph at every later step: the
+same launches on the same buffers, without the host issuing them one by
+one.  The step keeps its state, lengths and tokens in fixed buffers, which
+``admit`` writes in place.  The step stays eager where no graph can hold
+it: on the CPU, and where a leaf of the weights or the state is a DTensor
+(its dispatch runs Python for every operator).  A sampler other than greedy
+draws eagerly from the graph's logits after each replay.
 """
 
 from __future__ import annotations
@@ -49,13 +61,16 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.controller import MikuController
 from repro_torch.core.littles_law import OpClass
 from repro_torch.core.offload import HostOffloader, TransferQueue
 from repro_torch.core.tiers import HBM_TIER, host_offload_supported
+from repro_torch.kernels import _nvcc
 from repro_torch.models.transformer import DecodeState, ModelConfig, TransformerLM
 from repro_torch.obs.metrics import default_profiler, default_registry
+from repro_torch.pytree import tree_leaves
 from repro_torch.serving import sampler as sampler_lib
 
 
@@ -135,11 +150,19 @@ class ServingEngine:
         self._active = np.zeros((cfg.max_slots,), bool)
         #: decode steps taken (each runs every layer once)
         self.decode_steps = 0
+        #: the last decode step's logits [max_slots, vocab]
+        self.logits: Optional[torch.Tensor] = None
+        #: the decode step's CUDA graph, once recorded
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        #: the kernel launches one replay makes, by counter
+        self._graph_launches: List[Tuple[_nvcc.LaunchCounter, int]] = []
         #: ``submit`` times on the profiler's clock, by ``id`` of the request
         self._submitted: Dict[int, float] = {}
         reg = default_registry()
         self._m_tokens = reg.counter("serving.tokens")
         self._m_requests = reg.counter("serving.requests")
+        self._m_captures = reg.counter("serving.decode.graph_captures")
+        self._m_replays = reg.counter("serving.decode.graph_replays")
 
     def _place_state(self, params: Any) -> None:
         self.offloader: Optional[HostOffloader] = None
@@ -247,19 +270,76 @@ class ServingEngine:
         fast_bytes = int(kv_bytes * fast)
         return fast_bytes, kv_bytes - fast_bytes
 
+    def _step(self, params: Any) -> torch.Tensor:
+        """The decode step as the engine issues it, eager or recorded:
+        ``decode_step`` with its new lengths, and under the greedy sampler
+        its new tokens, copied into the engine's fixed buffers; returns the
+        logits."""
+        logits, state = self.model.decode_step(params, self.state, self._tokens)
+        self.state.length.copy_(state.length)
+        if self.cfg.sampler == "greedy":
+            self._tokens.copy_(sampler_lib.greedy(logits))
+        return logits
+
+    def _graphable(self, params: Any) -> bool:
+        """Whether a CUDA graph can hold the decode step: every tensor it
+        reads on a CUDA device, and none a DTensor."""
+        if self.device.type != "cuda":
+            return False
+        return not any(isinstance(t, DTensor)
+                       for t in tree_leaves(params) + tree_leaves(self.state))
+
+    def _capture(self, params: Any) -> None:
+        """Record the decode step as one CUDA graph; the recording runs
+        nothing.  The launch counters read as before it, and each replay
+        adds what the recording counted.  ``logits`` becomes the graph's
+        output buffer, holding the last step's logits."""
+        counted = [(c, c.count) for c in _nvcc.COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        # Recorded on a side stream, as ``torch.cuda.graph`` records, but
+        # without its collection and cache flush, which would drop the
+        # allocator's warm blocks in the middle of serving.
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                logits = self._step(params)
+            finally:
+                graph.capture_end()
+                self._graph_launches = [(c, c.count - n) for c, n in counted if c.count != n]
+                for c, n in counted:
+                    c.count = n
+        logits.copy_(self.logits)
+        self._graph, self.logits = graph, logits
+        self._m_captures.inc()
+
+    def _replay(self) -> None:
+        self._graph.replay()
+        for c, n in self._graph_launches:
+            c.count += n
+        self._m_replays.inc()
+
     def decode_once(self, now_ns: float) -> int:
         """One real decode step for all active slots.  Returns #tokens."""
         active = self.n_active
         if active == 0:
             return 0
         prof = default_profiler()
-        with prof.phase("serving.decode", engine=self.cfg.name,
-                        placement=self.cfg.placement, active=active):
+        graph = self._graph is not None
+        with prof.phase("serving.decode", engine=self.cfg.name, placement=self.cfg.placement,
+                        active=active, graph=graph):
             params = self.step_params()
             with prof.phase("serving.decode.dispatch"):
-                logits, self.state = self.model.decode_step(params, self.state, self._tokens)
+                if graph:
+                    self._replay()
+                else:
+                    self.logits = self._step(params)
+                if self.cfg.sampler != "greedy":
+                    self._tokens.copy_(self._sample(self.logits))
+                if not graph and self._graphable(params):
+                    self._capture(params)
                 self.decode_steps += 1
-                self._tokens = self._sample(logits)
             with prof.phase("serving.decode.readback"):
                 nxt = self._tokens.tolist()
                 lengths = self.state.length.tolist()

@@ -144,6 +144,8 @@ def test_step_spans_carry_their_arguments(prof):
     placement = {e.cfg.name: e.cfg.placement for e in cluster.engines}
     assert placement == {"hbm": "device", "host": "host"}
     assert all(d.args["placement"] == placement[d.args["engine"]] for d in decodes)
+    # no CUDA graph on the CPU: every step is issued op by op
+    assert all(d.args["graph"] is False for d in decodes)
     chunks = {r.args["engine"]: r.args["chunks"] for r in recs if r.name == "serving.account"}
     assert chunks == {"hbm": 0, "host": 64}
     # the host engine's weight copy: one in each of its prefills and steps
