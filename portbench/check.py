@@ -2,16 +2,17 @@
 
 Once the window has closed, a sample drawn from the seed of the requests
 whose tokens reached the host inside it, with each engine's longest among
-them, is run through the plain float32 reference (:mod:`portbench.reference`)
-over its prompt and every token the engine served it.  A served token is
-greedy, so under the reference it should be the best or within rounding of
-it: the number compared is the widest gap by which a served token's logit
-lies below the reference's best, in standard deviations of the reference's
-logits at that position, over the sample (``max_logit_gap_sd``: a scale of
-its own, so the number reads alike across widths and depths).  A
-cell with a host-placed engine also compares the engine's staged weights,
-as the last step copied them, with the weights the benchmark made, bit for
-bit (``staged_weight_diff``, limit 0).
+them, is run through the configuration's plain float32 reference (the module
+its file names under ``reference``; :mod:`portbench.reference.model` for
+hymba-1.5b and mamba2-2.7b) over its prompt and every token the engine
+served it.  A served token is greedy, so under the reference it should be
+the best or within rounding of it: the number compared is the widest gap by
+which a served token's logit lies below the reference's best, in standard
+deviations of the reference's logits at that position, over the sample
+(``max_logit_gap_sd``: a scale of its own, so the number reads alike across
+widths and depths).  A cell with a host-placed engine also compares the
+engine's staged weights, as the last step copied them, with the weights the
+benchmark made, bit for bit (``staged_weight_diff``, limit 0).
 
 The control (``control=True``, never in the benchmark's own runs) is the
 reference in float8: at each position of the same prompts and tokens, the
@@ -20,12 +21,11 @@ gap under the float32 reference of the token that float8 puts first.
 
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-
-from portbench.reference import model as reference
 
 #: Served tokens the sample aims at, over all engines.
 SAMPLE_TOKENS = 256
@@ -56,10 +56,11 @@ def sample(tracks: Sequence, n_engines: int, seed: int, in_window) -> List:
     return chosen
 
 
-def logit_gaps(model: Dict, weights: Dict, tracks: Sequence, *, control: bool = False
-               ) -> Dict[str, float]:
-    """The widest gap of the served tokens under the reference, the served
-    tokens compared, and with ``control`` the widest gap of float8's
+def logit_gaps(reference: ModuleType, model: Dict, weights: Dict, tracks: Sequence, *,
+               control: bool = False) -> Dict[str, float]:
+    """The widest gap of the served tokens under ``reference`` (a module
+    with ``logits(m, weights, tokens, positions, *, precision)``), the
+    served tokens compared, and with ``control`` the widest gap of float8's
     first choices."""
     worst, worst_ctl, n = 0.0, 0.0, 0
     for t in tracks:

@@ -10,6 +10,12 @@ work, and a share of it over a measured time cannot pass 100%.
 
 ``m`` is the ``model`` object of a configuration file
 (``configs/<config>.json``), in the port's ``ModelConfig`` field names.
+Every configuration names its least-work module (the file's ``counts``),
+which exposes ``decode_step(m, active)``, ``prefill(m, s)`` and
+``k4_calls(m, s)``; this module is that of the configurations whose layers
+are all alike (hymba-1.5b, mamba2-2.7b), and holds the peaks, :class:`Work`
+and :func:`share_pct` that every configuration's counts and every reader
+share.
 """
 
 from __future__ import annotations
@@ -126,12 +132,14 @@ def k1_call(keys: Sequence[int], hq: int, hkv: int, dh: int, esize: int = BF16) 
     return Work(4.0 * rows * hq * dh, nbytes)
 
 
-def k4_call(s: int, h: int, p: int, n: int, esize: int = BF16, batch: int = 1) -> Work:
-    """One SSD scan over ``s`` steps: x, dt (f32), B, C in, y and the f32
-    final state out; the recurrence's 4 operations per (step, head, P, N)
-    (the state's update and its read-out), the least any schedule needs."""
+def k4_call(s: int, h: int, p: int, n: int, esize: int = BF16, batch: int = 1,
+            groups: int = 1) -> Work:
+    """One SSD scan over ``s`` steps: x, dt (f32), B and C (``groups`` of
+    each, shared by the heads of a group) in, y and the f32 final state out;
+    the recurrence's 4 operations per (step, head, P, N) (the state's update
+    and its read-out), the least any schedule needs."""
     tokens = batch * s
-    nbytes = (tokens * (2 * h * p * esize + h * F32 + 2 * n * esize)
+    nbytes = (tokens * (2 * h * p * esize + h * F32 + 2 * groups * n * esize)
               + batch * h * p * n * F32 + h * F32)
     return Work(4.0 * tokens * h * p * n, nbytes)
 
@@ -191,11 +199,21 @@ def prefill(m: Dict, s: int) -> Work:
             nbytes += s * kv_row_bytes(m)
     if uses_ssm(m):
         sd = ssm_dims(m)
-        scan = k4_call(s, sd["n_heads"], sd["head_dim"], sd["d_state"])
+        scan = k4_call(s, sd["n_heads"], sd["head_dim"], sd["d_state"], groups=sd["n_groups"])
         flops += m["n_layers"] * (scan.flops + 2.0 * s * sd["d_conv"] * sd["conv_dim"])
         nbytes += m["n_layers"] * (sd["n_heads"] * sd["head_dim"] * sd["d_state"] * F32
                                    + (sd["d_conv"] - 1) * sd["conv_dim"] * BF16)
     return Work(flops, nbytes)
+
+
+def k4_calls(m: Dict, s: int) -> List[Work]:
+    """The least work of each K4 launch of a batch-1 prefill of ``s``
+    tokens: one scan a layer, every layer alike; none without SSM layers."""
+    if not uses_ssm(m):
+        return []
+    sd = ssm_dims(m)
+    return [k4_call(s, sd["n_heads"], sd["head_dim"], sd["d_state"],
+                    groups=sd["n_groups"])] * m["n_layers"]
 
 
 def share_pct(least: float, measured: float) -> float:

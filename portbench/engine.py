@@ -5,11 +5,15 @@ host clock (``time.perf_counter``), each request's submission, its first
 token (stamped when ``admit`` has read it back to the host, just before the
 slot takes the prefill's state), each later token (when ``decode_once`` has
 read the step's tokens back), and the spans of ``admit``, ``decode_once``
-and ``step_params``.  A host-placed engine's ``step_params`` copies every
-weight device-ward and waits for the copy; its wall is kept apart
-(``staged``) so that the engine's and the model step's metrics leave it to
-the host tier's.  A finished request's client submits its next request
-at once: a closed loop.  The engine reports itself finished when the
+and ``step_params``.  A host-placed engine's ``step_params`` issues the
+copy of every weight device-ward on a side stream and returns; the step's
+kernels wait for the copy on the device, so the step's wall holds the
+copy's device time.  That time, read from the offloader's CUDA events once
+the step has read its result back, is kept apart (``staged``, and each
+staging span runs from the copy's issue for that long) so that the
+engine's and the model step's metrics leave it to the host tier's.  A
+finished request's client submits its next request at once: a closed
+loop.  The engine reports itself finished when the
 :class:`Recorder` closes the window, so ``TieredServingCluster.run`` returns
 on the harness's clock.  While a device trace is taken the spans are also
 ``record_function`` ranges (``engine.prefill``, ``engine.decode``,
@@ -47,7 +51,8 @@ class Track:
 
 @dataclasses.dataclass(frozen=True)
 class Span:
-    """One call of ``admit`` (whatever it admitted) or of ``step_params``."""
+    """One call of ``admit`` (whatever it admitted), or one weight copy of
+    ``step_params``: from its issue for its device time."""
 
     engine: int
     t0: float
@@ -62,7 +67,7 @@ class DecodeRec:
     active: Tuple[int, ...]  # cache lengths of the active slots before the step
     lengths: Tuple[int, ...]  # every slot's cache length before the step
     profiled: bool
-    staged: float = 0.0  # wall of the step's ``step_params`` (host engines)
+    staged: float = 0.0  # device time of the step's weight copy (host engines)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +77,7 @@ class PrefillRec:
     t1: float
     plen: int
     profiled: bool
-    staged: float = 0.0  # wall of the prefill's ``step_params`` (host engines)
+    staged: float = 0.0  # device time of the prefill's weight copy (host engines)
 
 
 class Recorder:
@@ -178,9 +183,9 @@ class TimedEngine(ServingEngine):
         self.next_request = next_request
         #: Host mirror of ``state.length``: set by a prefill, +1 a step.
         self.lengths = [0] * cfg.max_slots
-        self._firsts: List[Tuple[float, float]] = []  # (first token, staged wall)
-        self._staged = 0.0  # ``step_params`` wall since the last reset
-        self._phase = "decode"
+        self._firsts: List[Tuple[float, float]] = []  # (first token, staged seconds)
+        #: Weight copies issued and not yet read: (issue time, event pairs).
+        self._copies: List[Tuple[float, list]] = []
 
     def submit_spec(self, spec, t_submit: Optional[float]) -> None:
         req = Request(rid=self.rec.new_rid(), prompt=spec.prompt,
@@ -195,17 +200,32 @@ class TimedEngine(ServingEngine):
     def step_params(self):
         if self.offloader is None:
             return super().step_params()
+        timings = self.offloader._timings  # one (start, end) event pair a copy
+        n0 = len(timings)
         t0 = clock()
         with self.rec.range("host.h2d"):
             out = super().step_params()
-        t1 = clock()
-        self.rec.stagings[self._phase].append(Span(self.index, t0, t1))
-        self._staged += t1 - t0
+        self._copies.append((t0, timings[n0:]))
         return out
 
+    def _staged(self, phase: str) -> float:
+        """Device seconds of the weight copies issued since the last call,
+        each kept as a staging span of ``phase``.  Called once the step has
+        read its result back, which waited for the copies: their events
+        have ended."""
+        total = 0.0
+        for t0, pairs in self._copies:
+            seconds = 0.0
+            for start, end in pairs:
+                end.synchronize()
+                seconds += start.elapsed_time(end) / 1e3
+            self.rec.stagings[phase].append(Span(self.index, t0, t0 + seconds))
+            total += seconds
+        self._copies = []
+        return total
+
     def _insert_state(self, slot, state1, plen):
-        self._firsts.append((clock(), self._staged))
-        self._staged = 0.0
+        self._firsts.append((clock(), self._staged("prefill")))
         self.lengths[slot] = plen
         super()._insert_state(slot, state1, plen)
 
@@ -213,14 +233,11 @@ class TimedEngine(ServingEngine):
         if self.index == 0:
             self.rec.tick()
         self._firsts = []
-        self._staged = 0.0
         profiled = self.rec.profiling
         t0 = clock()
-        self._phase = "prefill"
         with self.rec.range("engine.prefill"):
             out = super().admit(now_ns)
         t1 = clock()
-        self._phase = "decode"
         prev = t0
         for (req, _), (t, staged) in zip(out, self._firsts):
             self.rec.prefill(PrefillRec(self.index, prev, t, len(req.prompt), profiled, staged))
@@ -238,13 +255,13 @@ class TimedEngine(ServingEngine):
         lengths = tuple(self.lengths)
         n_done = len(self.done)
         profiled = self.rec.profiling
-        self._staged = 0.0
         t0 = clock()
         with self.rec.range("engine.decode"):
             n = super().decode_once(now_ns)
         t1 = clock()
         self.lengths = [x + 1 for x in self.lengths]
-        self.rec.decode(DecodeRec(self.index, t0, t1, active, lengths, profiled, self._staged))
+        staged = self._staged("decode")
+        self.rec.decode(DecodeRec(self.index, t0, t1, active, lengths, profiled, staged))
         for req in reqs:
             self.rec.tracks[req.rid].stamps.append(t1)
         if self.rec.submitting():

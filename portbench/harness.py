@@ -2,7 +2,8 @@
 fill it, measure a window, check the outputs, reduce the metrics.
 
 A cell is an entry of ``BENCHMARK.json``'s ``workloads``; its configuration,
-traffic mix, per-layer metric readers and limits are files found by name
+traffic mix, per-layer metric readers and limits are files found by name,
+and the configuration names its reference and least-work modules by path
 (see :mod:`portbench`).  The cluster is built as ``launch/serve.py``'s
 ``build_cluster`` builds it (the same ``EngineConfig`` fields, and under
 MIKU the same ``MikuController``, estimator settings and ``window_ns``), with
@@ -17,6 +18,7 @@ import importlib.util
 import json
 import sys
 from pathlib import Path
+from types import ModuleType
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -41,6 +43,10 @@ class Cell:
     end_to_end: List[Dict]
     per_layer: List[Dict]
     data_dir: Path  # the benchmark's folder: traffic/, limits/, metrics/
+    reference: ModuleType  # the configuration's ``logits(m, weights, tokens, positions, ...)``
+    counts: ModuleType  # its ``decode_step``, ``prefill`` and ``k4_calls``
+    smoke: Dict[str, Any]  # its CPU smoke widths, ModelConfig fields
+    weight_rules: Dict[str, Any]  # its scale rules (portbench.weights)
 
 
 def _applies(metric: Dict, cell: str) -> bool:
@@ -60,10 +66,14 @@ def load_cell(root: Path, name: str) -> Cell:
     data = Path(root) / "portbench"
     mix = traffic.load_mix(data / "traffic" / f"{w['traffic']}.json")
     limits = json.loads((data / "limits" / f"{name}.json").read_text())["limits"]
+    key = w["config"].replace(".", "_").replace("-", "_")
     return Cell(name=name, chips=int(w["chips"]), config_name=w["config"], model=raw["model"],
                 mix=mix, limits=limits,
                 end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
-                per_layer=[m for m in bench["per_layer"] if _applies(m, name)], data_dir=data)
+                per_layer=[m for m in bench["per_layer"] if _applies(m, name)], data_dir=data,
+                reference=load_module(data / raw["reference"], f"portbench.config.{key}.reference"),
+                counts=load_module(data / raw["counts"], f"portbench.config.{key}.counts"),
+                smoke=raw["smoke"], weight_rules=raw.get("weights", {}))
 
 
 def model_config(model: Dict[str, Any]):
@@ -74,13 +84,19 @@ def model_config(model: Dict[str, Any]):
     return ModelConfig(**fields)
 
 
+def load_module(path: Path, name: str) -> ModuleType:
+    """The module of the file ``path``, loaded by path and registered as
+    ``name`` (a dataclass looks its module up while it is made)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(data_dir: Path, name: str) -> Callable:
     """The ``read`` function of ``metrics/<name>.py``."""
-    path = data_dir / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"portbench.metrics.{name}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_module(data_dir / "metrics" / f"{name}.py", f"portbench.metrics.{name}").read
 
 
 @dataclasses.dataclass
@@ -88,6 +104,7 @@ class RunData:
     """What a per-layer metric reader reads."""
 
     model: Dict[str, Any]
+    counts: ModuleType  # the configuration's least-work module
     mix: traffic.Mix
     t_open: float
     t_close: float  # the window's end (its deadline)
@@ -157,7 +174,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device: torc
 
     cfg = model_config(cell.model)
     mix = cell.mix
-    weights = make_weights(param_shapes(cfg), seed, device)
+    weights = make_weights(param_shapes(cfg), seed, device, cell.weight_rules)
     sub = SubWindow() if trace else None
     rec = Recorder(profiler=sub)
     engines: List[TimedEngine] = []
@@ -199,8 +216,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device: torc
         numbers["staged_weight_diff"] = max(check.staged_weight_diff(e._staging, weights)
                                             for e in staged)
     picked = check.sample(list(rec.tracks.values()), len(engines), seed, rec.in_window)
-    data = RunData(model=cell.model, mix=mix, t_open=t_open, t_close=rec.deadline,
-                   t_return=t_return, rec=rec, h2d_bytes=b1 - b0,
+    data = RunData(model=cell.model, counts=cell.counts, mix=mix, t_open=t_open,
+                   t_close=rec.deadline, t_return=t_return, rec=rec, h2d_bytes=b1 - b0,
                    h2d_seconds=s1 - s0, trace=sub.data if sub else None)
     # The program's state goes before the reference runs.
     del cluster, engines, staged, eng, pool
@@ -208,7 +225,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device: torc
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = clock()
-    numbers.update(check.logit_gaps(cell.model, weights, picked, control=control))
+    numbers.update(check.logit_gaps(cell.reference, cell.model, weights, picked,
+                                    control=control))
     ref_s = clock() - t_ref
     # A host-placed engine stages its weights only on a CUDA card.
     limits = {k: v for k, v in cell.limits.items() if k != "staged_weight_diff" or staged_any}

@@ -16,3 +16,18 @@ def window(run, *names):
     if found is None:
         return None
     return [s for s in found if s.name in names]
+
+
+def dispatch_ms(run, placement):
+    """Mean of the ``serving.decode.dispatch`` spans of the decode steps of
+    the engines of ``placement`` that start in the window, in ms; None
+    where there are none or nothing can be read."""
+    found = window(run, "serving.decode", "serving.decode.dispatch")
+    if found is None:
+        return None
+    decode = {s.sid for s in found
+              if s.name == "serving.decode" and s.args.get("placement") == placement}
+    steps = [s for s in found if s.name == "serving.decode.dispatch" and s.parent in decode]
+    if not steps:
+        return None
+    return sum(s.t1 - s.t0 for s in steps) / len(steps) * 1e3

@@ -1,7 +1,9 @@
-"""Smoke-size cells for the CPU tests: each configuration's port smoke
-widths and each mix cut to two slots an engine and short requests."""
+"""Smoke-size cells for the CPU tests: each configuration's smoke widths
+(the ``smoke`` of its file) and each mix cut to two slots an engine and
+short requests."""
 
 import dataclasses
+import json
 import time
 from pathlib import Path
 
@@ -10,19 +12,11 @@ import torch
 from portbench import harness, traffic
 
 ROOT = Path(__file__).resolve().parents[2]
-CELLS = ("hymba-tiered-chat", "mamba2-tiered-chat")
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+CELLS = tuple(w["name"] for w in BENCH["workloads"])
 
-SMOKE = {
-    "hymba-1.5b": dict(name="hymba-smoke", n_layers=4, d_model=128, n_q_heads=5, n_kv_heads=1,
-                       head_dim=32, d_ff=256, vocab=512, block="hybrid", window_pattern="hymba",
-                       sliding_window=16, rope_theta=10000.0, ssm_state=16, ssm_head_dim=32,
-                       ssm_groups=1, ssm_expand=2, ssm_chunk=16, tied_embeddings=True,
-                       dtype="bfloat16"),
-    "mamba2-2.7b": dict(name="mamba2-smoke", n_layers=2, d_model=128, n_q_heads=0,
-                        n_kv_heads=0, head_dim=0, d_ff=0, vocab=512, block="ssm",
-                        rope_theta=None, ssm_state=16, ssm_head_dim=32, ssm_groups=1,
-                        ssm_expand=2, ssm_chunk=16, tied_embeddings=True, dtype="bfloat16"),
-}
+#: Each configuration's smoke widths, by name, from its file.
+SMOKE = {c["name"]: json.loads((ROOT / c["file"]).read_text())["smoke"] for c in BENCH["configs"]}
 
 
 def smoke_cell(name: str, root: Path = ROOT) -> harness.Cell:
@@ -32,7 +26,7 @@ def smoke_cell(name: str, root: Path = ROOT) -> harness.Cell:
         mix, engines=[dataclasses.replace(e, slots=2, clients=2) for e in mix.engines],
         prompt=traffic.LengthDist(mix.prompt.dist, 8, 40),
         output=traffic.LengthDist("uniform", 2, 6), max_len=64, deck=8)
-    return dataclasses.replace(cell, model=SMOKE[cell.config_name], mix=mix)
+    return dataclasses.replace(cell, model=cell.smoke, mix=mix)
 
 
 def rehearse(cell: harness.Cell, seed: int = 2**31 + 11, seconds: float = 1.0, **kw):

@@ -1,15 +1,20 @@
 """BENCHMARK.json against the benchmark's contract, and the harness finding
-a configuration, a traffic mix, a metric and a cell by name."""
+a configuration (with its reference, least-work module, smoke widths and
+weight rules), a traffic mix, a metric and a cell by name."""
 
 import json
+import math
 import re
 import shutil
 from pathlib import Path
 
 import pytest
+import torch
 
 from portbench import harness
 from portbench.tests.smoke import SMOKE, rehearse, smoke_cell
+from portbench.tests.test_portbench_rehearsal import FAULTS
+from portbench.weights import make_weights
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -80,6 +85,11 @@ def test_every_cell_finds_its_files():
     assert len(files) == len(set(files))
     used = {w["config"] for w in BENCH["workloads"]}
     assert used == {c["name"] for c in BENCH["configs"]}
+    for w in BENCH["workloads"]:  # each configuration's own modules, by path
+        cell = harness.load_cell(ROOT, w["name"])
+        assert callable(cell.reference.logits) and cell.smoke["vocab"] > 0
+        for fn in ("decode_step", "prefill", "k4_calls"):
+            assert callable(getattr(cell.counts, fn))
 
 
 def test_a_new_mix_is_taken_as_data(tmp_path):
@@ -104,4 +114,100 @@ def test_a_new_mix_is_taken_as_data(tmp_path):
     assert res["correct"] and res["attempted"] > 0
     with pytest.raises(KeyError, match="no workload"):
         harness.load_cell(tmp_path, "not-a-cell")
-    assert set(SMOKE) == {c["name"] for c in BENCH["configs"]}
+    assert cell.smoke == SMOKE["hymba-1.5b"]
+
+
+NEW = Path(__file__).resolve().parent / "newconfig"
+
+
+def _add_dense(tmp_path):
+    """A copy of the benchmark with the configuration ``dense-smoke`` (the
+    port's dense block, which ``reference/model.py`` refuses) and its cell
+    added as new files and entries only."""
+    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    pb = tmp_path / "portbench"
+    shutil.copy(NEW / "dense-smoke.json", pb / "configs" / "dense-smoke.json")
+    shutil.copy(NEW / "reference_dense.py", pb / "reference" / "dense.py")
+    (pb / "work").mkdir()
+    shutil.copy(NEW / "counts_dense.py", pb / "work" / "dense.py")
+    (pb / "limits" / "dense-smoke-chat.json").write_text(
+        json.dumps({"limits": {"max_logit_gap_sd": 0.8, "staged_weight_diff": 0.0}}))
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"].append({"name": "dense-smoke", "source": "a test",
+                             "file": "portbench/configs/dense-smoke.json", "reduced": [],
+                             "why": "a test"})
+    bench["workloads"].append({"name": "dense-smoke-chat", "config": "dense-smoke",
+                               "traffic": "chat-tiered", "chips": 1, "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    return harness.load_cell(tmp_path, "dense-smoke-chat")
+
+
+def test_a_new_configuration_is_taken_as_data(tmp_path, monkeypatch):
+    cell = _add_dense(tmp_path)
+    assert Path(cell.reference.__file__) == tmp_path / "portbench" / "reference" / "dense.py"
+    assert Path(cell.counts.__file__) == tmp_path / "portbench" / "work" / "dense.py"
+    from portbench.reference import model as yardstick
+
+    with pytest.raises(ValueError, match="dense"):
+        yardstick.logits(cell.model, {"embed": torch.zeros(4, 4)}, [1], [0])
+    # the cell rehearses correct, its requests checked by its own reference
+    recs = []
+    res = rehearse(smoke_cell("dense-smoke-chat", root=tmp_path),
+                   faults=lambda engines: recs.append(engines[0].rec))
+    assert res["correct"], res["info"]["why_not_correct"]
+    assert res["attempted"] > 0 and res["info"]["tokens_compared"] > 0
+    # the model step's readers read through its counts
+    rec = recs[0]
+    seen = []
+    for fn in ("decode_step", "prefill"):
+        real = getattr(cell.counts, fn)
+        monkeypatch.setattr(cell.counts, fn, lambda m, x, real=real, fn=fn:
+                            seen.append(fn) or real(m, x))
+    run = harness.RunData(model=cell.smoke, counts=cell.counts, mix=cell.mix, t_open=rec.t_open,
+                          t_close=rec.deadline, t_return=rec.deadline, rec=rec, h2d_bytes=0,
+                          h2d_seconds=0.0, trace=None)
+    steps = [d for d in rec.decodes if run.in_window(d.t0)]
+    pre = [p for p in rec.prefills if run.in_window(p.t0)]
+    assert steps and pre
+    read = {m: harness.reader(cell.data_dir, m)(run) for m in ("decode_mfu_pct", "prefill_mfu_pct")}
+    assert set(seen) == {"decode_step", "prefill"}
+    least = sum(cell.counts.decode_step(cell.smoke, d.active).least_seconds for d in steps)
+    assert read["decode_mfu_pct"] == 100.0 * least / sum(d.t1 - d.t0 - d.staged for d in steps)
+    least = sum(cell.counts.prefill(cell.smoke, p.plen).least_seconds for p in pre)
+    assert read["prefill_mfu_pct"] == 100.0 * least / sum(p.t1 - p.t0 - p.staged for p in pre)
+    assert cell.counts.k4_calls(cell.smoke, 100) == []
+    # a planted fault, the sampler's choice moved to the next id, is caught
+    bad = rehearse(smoke_cell("dense-smoke-chat", root=tmp_path), faults=FAULTS["altered_token"])
+    assert bad["correct"] is False
+    assert bad["checks"]["max_logit_gap_sd"]["value"] > bad["checks"]["max_logit_gap_sd"]["limit"]
+
+
+def test_a_configurations_weight_rules_scale_its_own_leaves():
+    """A leaf [L, E, in, out] with a declared fan-in axis is drawn at
+    in^-1/2 (axis 1 would give E^-1/2), and a norm of a name the benchmark
+    has not seen at 0.1 by its rank; every other leaf is the same to the bit
+    with or without the rules."""
+    rules = json.loads((NEW / "dense-smoke.json").read_text())["weights"]
+    L, E, n_in, n_out, dh = 2, 16, 256, 64, 32
+    shapes = {"embed": ((512, 128), torch.bfloat16),
+              "layers": {"moe": {"w_experts_in": ((L, E, n_in, n_out), torch.bfloat16)},
+                         "attn": {"q_norm": ((L, dh), torch.bfloat16),
+                                  "wo": ((L, 4, dh, 128), torch.bfloat16)}},
+              "final_norm": ((128,), torch.bfloat16)}
+    seed, cpu = 2**31 + 77, torch.device("cpu")
+    ruled = make_weights(shapes, seed, cpu, rules)
+    plain = make_weights(shapes, seed, cpu)
+    w = ruled["layers"]["moe"]["w_experts_in"].float()
+    assert w.std().item() == pytest.approx(n_in ** -0.5, rel=0.05)
+    assert plain["layers"]["moe"]["w_experts_in"].float().std().item() == \
+        pytest.approx(E ** -0.5, rel=0.05)
+    assert ruled["layers"]["attn"]["q_norm"].float().std().item() == pytest.approx(0.1, rel=0.3)
+    for path in (("embed",), ("final_norm",), ("layers", "attn", "wo"),
+                 ("layers", "attn", "q_norm")):
+        a, b = ruled, plain
+        for k in path:
+            a, b = a[k], b[k]
+        assert torch.equal(a, b), path
+    assert math.isclose(ruled["layers"]["attn"]["wo"].float().std().item(), (4 * dh) ** -0.5,
+                        rel_tol=0.05)

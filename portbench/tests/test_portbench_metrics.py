@@ -69,8 +69,8 @@ def _run(trace=None, h2d=(0, 0.0)):
                    DecodeRec(0, 111.0, 112.0, (12, 22), (12, 22), True)]
     rec.prefills = [PrefillRec(0, 102.0, 102.6, 100, False),
                     PrefillRec(0, 111.0, 111.4, 900, True)]
-    return harness.RunData(model=HYMBA, mix=MIX, t_open=100.0, t_close=110.0, t_return=111.0,
-                           rec=rec, h2d_bytes=h2d[0], h2d_seconds=h2d[1],
+    return harness.RunData(model=HYMBA, counts=counts, mix=MIX, t_open=100.0, t_close=110.0,
+                           t_return=111.0, rec=rec, h2d_bytes=h2d[0], h2d_seconds=h2d[1],
                            trace=trace)
 
 
@@ -116,6 +116,69 @@ def test_host_copies_are_left_to_the_host_tier():
         100 * counts.prefill(HYMBA, 100).least_seconds / 0.4)
     # the cluster's own time is what no engine call covered, copies included
     assert _read("cluster_self_ms_per_tick", run) == _read("cluster_self_ms_per_tick", plain)
+
+
+class _Event:
+    """A CUDA event that has ended, at ``t`` ms."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+
+class _Offloader:
+    """``HostOffloader`` as a host engine on the card uses it: every
+    device-ward copy leaves a (start, end) event pair, here 7.5 ms apart,
+    and returns at once."""
+
+    COPY_MS = 7.5
+
+    def __init__(self):
+        self._timings = []
+        self.bytes_to_device = 0
+
+    def to_device(self, tree, out=None):
+        self._timings.append((_Event(0.0), _Event(self.COPY_MS)))
+        return out
+
+    def block(self):
+        pass
+
+    def copy_seconds(self):
+        return sum(s.elapsed_time(e) for s, e in self._timings) / 1e3
+
+
+def test_a_host_copy_is_charged_its_device_time():
+    """A host engine's ``step_params`` issues its copy and returns; the step
+    waits for the copy on the device.  So each decode step and prefill of
+    the engine is charged the copy's device time from its events, not the
+    host's issue time, and each staging span lasts that long."""
+    from portbench.tests.smoke import rehearse, smoke_cell
+
+    engines = []
+
+    def host_tier(engs):
+        for eng in engs:
+            eng.offloader, eng._staging = _Offloader(), eng.params
+        engines.extend(engs)
+
+    res = rehearse(smoke_cell("mamba2-host-chat"), faults=host_tier)
+    assert res["correct"], res["info"]["why_not_correct"]
+    rec = engines[0].rec
+    copy_s = _Offloader.COPY_MS / 1e3
+    assert rec.decodes and rec.prefills
+    assert all(d.staged == pytest.approx(copy_s) for d in rec.decodes)
+    assert all(p.staged == pytest.approx(copy_s) for p in rec.prefills)
+    assert len(rec.stagings["decode"]) == len(rec.decodes)
+    assert len(rec.stagings["prefill"]) == len(rec.prefills)
+    for s in rec.stagings["decode"] + rec.stagings["prefill"]:
+        assert s.t1 - s.t0 == pytest.approx(copy_s)
+    assert len(engines[0].offloader._timings) == len(rec.decodes) + len(rec.prefills)
 
 
 def test_roofline_shares_stay_under_100():

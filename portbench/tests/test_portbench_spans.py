@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from portbench import harness, traffic
+from portbench import counts, harness, traffic
 from portbench.engine import Recorder, clock
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -17,6 +17,8 @@ MIX = traffic.load_mix(ROOT / "portbench" / "traffic" / "chat-tiered.json")
 HYMBA = json.loads((ROOT / "portbench" / "configs" / "hymba-1.5b.json").read_text())["model"]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 READERS = ("queue_wait_p90_ms", "miku_ms_per_tick", "miku_us_per_window", "decode_dispatch_ms")
+#: Every reader of the program's spans that reads a positive number there.
+SPAN_READERS = READERS + ("host_decode_dispatch_ms",)
 
 
 @pytest.fixture
@@ -30,8 +32,9 @@ def prof(monkeypatch):
 
 
 def _window(t_open, t_close):
-    return harness.RunData(model=HYMBA, mix=MIX, t_open=t_open, t_close=t_close,
-                           t_return=t_close, rec=Recorder(), h2d_bytes=0, h2d_seconds=0.0,
+    return harness.RunData(model=HYMBA, counts=counts, mix=MIX, t_open=t_open,
+                           t_close=t_close, t_return=t_close, rec=Recorder(), h2d_bytes=0,
+                           h2d_seconds=0.0,
                            trace=None)
 
 
@@ -57,15 +60,22 @@ def _read(name, run):
 
 def test_the_four_entries_read_the_programs_spans():
     entries = {m["name"]: m for m in BENCH["per_layer"]}
-    assert list(entries)[-4:] == list(READERS)
+    assert set(READERS) <= set(entries)
     for name in READERS:
-        m = entries[name]
-        assert m["source"] == "program_span" and "workloads" not in m
+        assert entries[name]["source"] == "program_span"
+    for name in READERS[:3]:
+        assert "workloads" not in entries[name]
+    # the dispatch reader reads a device-placed engine's steps, which only
+    # the tiered cells have; a host engine's are read apart, in every cell
+    assert entries["decode_dispatch_ms"]["workloads"] == ["hymba-tiered-chat",
+                                                          "mamba2-tiered-chat"]
+    assert entries["host_decode_dispatch_ms"]["workloads"] == [w["name"]
+                                                               for w in BENCH["workloads"]]
     assert entries["miku_us_per_window"]["unit"] == "us"
     assert entries["queue_wait_p90_ms"]["moves"] == "ttft_p90_ms"
 
 
-@pytest.mark.parametrize("name", READERS)
+@pytest.mark.parametrize("name", SPAN_READERS)
 def test_reader_reads_a_window_with_its_spans(prof, name):
     t_open, t_close = _served()
     value = _read(name, _window(t_open, t_close))
@@ -90,23 +100,23 @@ def test_readers_by_hand(prof):
     assert _read("miku_ms_per_tick", run) == pytest.approx(busy / ticks * 1e3)
     windows = sum(r.args["windows"] for r in queue)
     assert _read("miku_us_per_window", run) == pytest.approx(busy / windows * 1e6)
-    # the device engine's steps only: a host engine's dispatch holds part of
-    # its weight copy
-    device = {r.sid for r in spans
-              if r.name == "serving.decode" and r.args["placement"] == "device"}
-    host = [r for r in spans if r.name == "serving.decode" and r.args["placement"] == "host"]
-    assert device and host
-    steps = [r.t1 - r.t0 for r in spans
-             if r.name == "serving.decode.dispatch" and r.parent in device]
-    assert _read("decode_dispatch_ms", run) == pytest.approx(sum(steps) / len(steps) * 1e3)
-    every = [r for r in spans if r.name == "serving.decode.dispatch"]
-    assert len(every) == len(steps) + len(host)
-    # the dispatch is part of its step
-    decode = [r.t1 - r.t0 for r in spans if r.sid in device]
-    assert sum(steps) < sum(decode)
+    # the device engine's steps, and apart from them the host engine's
+    every = 0
+    for name, placement in (("decode_dispatch_ms", "device"),
+                            ("host_decode_dispatch_ms", "host")):
+        decode = {r.sid: r for r in spans
+                  if r.name == "serving.decode" and r.args["placement"] == placement}
+        steps = [r.t1 - r.t0 for r in spans
+                 if r.name == "serving.decode.dispatch" and r.parent in decode]
+        assert steps and len(steps) == len(decode)
+        assert _read(name, run) == pytest.approx(sum(steps) / len(steps) * 1e3)
+        # the dispatch is part of its step
+        assert sum(steps) < sum(r.t1 - r.t0 for r in decode.values())
+        every += len(steps)
+    assert every == sum(1 for r in spans if r.name == "serving.decode.dispatch")
 
 
-@pytest.mark.parametrize("name", READERS)
+@pytest.mark.parametrize("name", SPAN_READERS)
 def test_reader_reads_nothing_after_drops_inside_the_window(monkeypatch, name):
     from repro_torch.obs import metrics
 
@@ -117,7 +127,7 @@ def test_reader_reads_nothing_after_drops_inside_the_window(monkeypatch, name):
     assert _read(name, _window(t_open, t_close)) is None
 
 
-@pytest.mark.parametrize("name", READERS)
+@pytest.mark.parametrize("name", SPAN_READERS)
 def test_reader_reads_nothing_from_a_program_without_a_span_log(prof, monkeypatch, name):
     """A tree whose ``repro_torch.obs`` has no ``default_profiler`` (the
     benchmark runs its readers on the parent's program too)."""

@@ -2,19 +2,27 @@
 
 Every bf16 leaf is a view of one flat buffer filled with standard normals by
 a ``torch.Generator`` on the device, then scaled in place: products by their
-fan-in to the -1/2 (the port's ``dense_init``), the embedding by 0.02, norms and
-the conv bias by 0.1 (so a norm weight that the program dropped would show).
+fan-in to the -1/2 (the port's ``dense_init``), the embedding and an untied
+head by 0.02, and every other leaf of rank 2 or less (a stacked vector
+``[L, n]`` or ``[n]``: the norms, the conv bias) by 0.1, so that a norm weight
+the program dropped would show; every product is at least 3-D.
 The SSM's float32 leaves come from one uniform draw: ``A_log = log(A)`` with
 A in [1, 16], ``dt_bias`` the inverse softplus of dt log-uniform in [1e-3,
 1e-1] (mamba2's initialisation ranges), ``D`` in [0.5, 1.5].  The tree has
 the layout ``TransformerLM`` takes, and the same tensors go to the program
 and to the reference.
+
+A configuration may bring scale rules for leaves of its own (its file's
+``weights``): ``fan_in_axes``, the axes whose sizes multiply to a leaf's
+fan-in where that is not axis 1 (an expert stack ``[L, E, in, out]``:
+``[2]``), which shapes cannot tell.  A rule names a leaf by its last key;
+leaves no rule names keep the scales above.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -30,7 +38,6 @@ DRAW = 1 << 28
 
 _FAN_IN_AXES = {"wo": (-3, -2)}  # [L, Hq, Dh, D]: fan-in Hq x Dh
 _SSM_SCALARS = ("A_log", "D", "dt_bias")
-_SMALL = ("pre_attn_norm", "pre_mlp_norm", "pre_ssm_norm", "final_norm", "norm", "conv_b")
 
 
 def _leaves(tree: Dict, path: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...], Any]]:
@@ -43,15 +50,17 @@ def _leaves(tree: Dict, path: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...
     return out
 
 
-def _scale(path: Tuple[str, ...], shape: Tuple[int, ...]) -> float:
+def _scale(path: Tuple[str, ...], shape: Tuple[int, ...],
+           rules: Optional[Dict[str, Any]] = None) -> float:
     name = path[-1]
+    rules = rules or {}
     if name == "embed" or name == "lm_head":
         return EMBED_STD
-    if name in _SMALL:
+    if len(shape) <= 2:
         return 0.1
-    if name in _FAN_IN_AXES:
-        a, b = _FAN_IN_AXES[name]
-        return (shape[a] * shape[b]) ** -0.5
+    axes = rules.get("fan_in_axes", {}).get(name) or _FAN_IN_AXES.get(name)
+    if axes:
+        return math.prod(shape[a] for a in axes) ** -0.5
     if name == "conv_w":
         return shape[-2] ** -0.5
     # [L, in, ...] stacked products
@@ -64,9 +73,11 @@ def _put(tree: Dict, path: Tuple[str, ...], value: torch.Tensor) -> None:
     tree[path[-1]] = value
 
 
-def make_weights(shapes: Dict, seed: int, device: torch.device) -> Dict:
+def make_weights(shapes: Dict, seed: int, device: torch.device,
+                 rules: Optional[Dict[str, Any]] = None) -> Dict:
     """The weight tree for ``shapes`` (``repro_torch``'s ``param_shapes``:
-    ``(shape, dtype)`` leaves) from ``seed`` on ``device``."""
+    ``(shape, dtype)`` leaves) from ``seed`` on ``device``, scaled by the
+    configuration's ``rules`` where they name a leaf."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
     leaves = _leaves(shapes)
     low = [(p, s) for p, (s, _) in leaves if p[-1] not in _SSM_SCALARS]
@@ -86,7 +97,7 @@ def make_weights(shapes: Dict, seed: int, device: torch.device) -> Dict:
     tree: Dict = {}
     for (path, shape), off in zip(low, offsets):
         leaf = flat[off:off + math.prod(shape)].view(shape)
-        leaf.mul_(_scale(path, shape))
+        leaf.mul_(_scale(path, shape, rules))
         _put(tree, path, leaf)
     if f32:
         sizes = [math.prod(s) for _, s in f32]
