@@ -1,4 +1,4 @@
-// Mamba2 SSD chunked scan for Hopper (sm_90a), one group (G = 1).
+// Mamba2 SSD chunked scan for Hopper (sm_90a), with G groups of B and C.
 //
 // Replaces: src/repro/kernels/ssd_scan.py, ssd_scan_kernel (body
 // _ssd_kernel), the Pallas TPU kernel.  It computes what that kernel
@@ -6,7 +6,8 @@
 //   cum   = cumsum(dt * a)
 //   y     = (C B^T * [k <= q] exp(cum_q - cum_k)) @ (dt x)  +  exp(cum) * C h^T
 //   h    <- exp(sum dt a) * h + sum_q exp(cum_last - cum_q) (dt x)_q B_q^T
-// with the [P, N] state h carried from chunk to chunk.  It also writes the
+// with the [P, N] state h carried from chunk to chunk, B and C those of the
+// head's group (heads h of group h / (H / G)).  It also writes the
 // final state [B, H, P, N] f32, which the model's decode needs (the TPU
 // kernel keeps it only in VMEM scratch).  y is written in x's dtype.
 //
@@ -29,7 +30,7 @@
 //     operand type (over s_c in place in f32, to a bf16 buffer in bf16), the
 //     last h to the final state.
 //   * Stage C (ssd_chunk_kernel), grid (chunk, head group, batch row): C B^T
-//     once per block for all heads of the group (G = 1), the causal k16
+//     once per block for all its heads, the causal k16
 //     tiles only, kept in registers as f32 accumulators (warp w owns query
 //     rows 16w..16w+15); per head, y = C h_in^T scaled by exp(cum_q), plus
 //     W' @ x with W'[q, k] = C B^T [k <= q] exp(cum_q - cum_k) dt_k built
@@ -40,6 +41,11 @@
 //   * One chunk (S <= Q, every serve prefill of up to 128 tokens): one launch
 //     of ssd_chunk_kernel<T, true>, which also computes the chunk's state
 //     (the final state) per head: no scratch, no Stage A or B.
+// Head groups.  A block of Stages A and C takes hpb heads of one B/C group,
+// never two: its grid row y is head block y % gb of group y / gb, where gb
+// = ceil((H / G) / hpb), so B (and C) is staged once for all its heads.  At
+// G = 1 that is head block y, and the kernels compute what they did before
+// groups were taken.
 // Products: in bf16, mma.sync.m16n8k16 (bf16 in, f32 sums) with operands
 // by ldmatrix / ldmatrix.trans from shared memory staged by 16-byte
 // cp.async.  Roundings beyond the reference's: W' once to bf16 (x enters
@@ -99,9 +105,21 @@ struct Params {
   float* sc;      // [B, H, n_chunks, P, N] f32 (Stage A out, Stage B in)
   float* decay;   // [B, H, n_chunks] f32
   T* hin;         // [B, H, n_chunks, P, N] in T (Stage B out, Stage C in)
-  int64_t x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, c_sb, c_ss;
+  int64_t x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg;
   int S, H, P, N, Q, QP, nc, hpb;
+  int hpg;  // heads per group, H / G
+  int gb;   // head blocks per group, ceil(hpg / hpb)
 };
+
+// The heads [h_lo, h_hi) of grid row y and their group g.
+template <typename T>
+__device__ __forceinline__ int head_block(const Params<T>& p, int y, int& h_hi, int& g) {
+  g = y / p.gb;
+  const int g_lo = g * p.hpg;
+  const int h_lo = g_lo + (y - g * p.gb) * p.hpb;
+  h_hi = min(g_lo + p.hpg, h_lo + p.hpb);
+  return h_lo;
+}
 
 // Shared-memory carve-up (bytes).  Rows of N or P elements are padded by
 // Cfg<T>::kPad so that a row is a multiple of 16 bytes and 8 consecutive
@@ -386,11 +404,12 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_state_kernel(Params<T> p) {
   T* xbuf[2] = {reinterpret_cast<T*>(smem + L.x_off), reinterpret_cast<T*>(smem + L.x2_off)};
   const int c = blockIdx.x, b = blockIdx.z;
   const int t0 = c * p.Q, qv = min(p.Q, p.S - t0);
-  const int h_lo = blockIdx.y * p.hpb, h_hi = min(p.H, h_lo + p.hpb);
+  int h_hi, g;
+  const int h_lo = head_block(p, blockIdx.y, h_hi, g);
   const T* xc = p.x + b * p.x_sb + t0 * p.x_ss;
   const float* dtc = p.dt + b * p.dt_sb + t0 * p.dt_ss;
   float d[4];
-  stage_rows(bs, L.ldn, p.bm + b * p.b_sb + t0 * p.b_ss, p.b_ss, qv, p.QP, p.N);
+  stage_rows(bs, L.ldn, p.bm + b * p.b_sb + t0 * p.b_ss + g * p.b_sg, p.b_ss, qv, p.QP, p.N);
   stage_rows(xbuf[0], L.ldp, xc + h_lo * p.x_sh, p.x_ss, qv, p.QP, p.P);
   cp_async_commit();
   if (threadIdx.x < 32) load_dt(d, dtc + h_lo * p.dt_sh, p.dt_ss, qv);
@@ -478,7 +497,8 @@ __global__ void __launch_bounds__(kThreads, Cfg<T>::kBlocksPerSm) ssd_chunk_kern
   T* hbuf[2] = {reinterpret_cast<T*>(smem + L.h_off), reinterpret_cast<T*>(smem + L.h2_off)};
   const int c = blockIdx.x, b = blockIdx.z;
   const int t0 = c * p.Q, qv = min(p.Q, p.S - t0);
-  const int h_lo = blockIdx.y * p.hpb, h_hi = min(p.H, h_lo + p.hpb);
+  int h_hi, g;
+  const int h_lo = head_block(p, blockIdx.y, h_hi, g);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const bool rows = 16 * warp < p.QP;  // this warp owns query rows 16 warp .. +16
@@ -490,8 +510,8 @@ __global__ void __launch_bounds__(kThreads, Cfg<T>::kBlocksPerSm) ssd_chunk_kern
   const T* hinc = p.hin + (((int64_t)b * p.H) * p.nc + c) * pn;  // + h * nc * pn
   float d[4];
 
-  stage_rows(bs, L.ldn, p.bm + b * p.b_sb + t0 * p.b_ss, p.b_ss, qv, p.QP, p.N);
-  stage_rows(cs, L.ldn, p.cm + b * p.c_sb + t0 * p.c_ss, p.c_ss, qv, p.QP, p.N);
+  stage_rows(bs, L.ldn, p.bm + b * p.b_sb + t0 * p.b_ss + g * p.b_sg, p.b_ss, qv, p.QP, p.N);
+  stage_rows(cs, L.ldn, p.cm + b * p.c_sb + t0 * p.c_ss + g * p.c_sg, p.c_ss, qv, p.QP, p.N);
   stage_rows(xbuf[0], L.ldp, xc + h_lo * p.x_sh, p.x_ss, qv, p.QP, p.P);
   if (inter) stage_rows(hbuf[0], L.ldn, hinc + h_lo * p.nc * pn, p.N, p.P, p.P, p.N);
   cp_async_commit();
@@ -664,7 +684,7 @@ cudaError_t launch(Params<T> p, int batch, void* scratch, int64_t scratch_size,
                    cudaStream_t stream) {
   cudaError_t err = configure<T>();
   if (err != cudaSuccess) return err;
-  const int groups = (p.H + p.hpb - 1) / p.hpb;
+  const int groups = (p.H / p.hpg) * p.gb;  // grid rows: head blocks of every group
   const int c_bytes = smem_bytes<T>(true, p.QP, p.P, p.N);
   if (p.nc == 1) {
     ssd_chunk_kernel<T, true><<<dim3(1, groups, batch), kThreads, c_bytes, stream>>>(p);
@@ -692,15 +712,18 @@ cudaError_t launch(Params<T> p, int batch, void* scratch, int64_t scratch_size,
 template <typename T>
 int launch_typed(const void* x, const void* dt, const void* bm, const void* cm, const void* a,
                  void* y, void* state, void* scratch, int64_t scratch_size, int batch, int S,
-                 int H, int P, int N, int Q, int hpb, int64_t x_sb, int64_t x_ss,
+                 int H, int P, int N, int Q, int hpb, int G, int64_t x_sb, int64_t x_ss,
                  int64_t x_sh, int64_t dt_sb, int64_t dt_ss, int64_t dt_sh, int64_t b_sb,
-                 int64_t b_ss, int64_t c_sb, int64_t c_ss, cudaStream_t stream) {
+                 int64_t b_ss, int64_t b_sg, int64_t c_sb, int64_t c_ss, int64_t c_sg,
+                 cudaStream_t stream) {
+  const int hpg = H / G;
   Params<T> p{static_cast<const T*>(x), static_cast<const float*>(dt),
               static_cast<const T*>(bm), static_cast<const T*>(cm),
               static_cast<const float*>(a), static_cast<T*>(y),
               static_cast<float*>(state), nullptr, nullptr, nullptr,
-              x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, c_sb, c_ss,
-              S, H, P, N, Q, (Q + 15) / 16 * 16, (S + Q - 1) / Q, hpb};
+              x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg,
+              S, H, P, N, Q, (Q + 15) / 16 * 16, (S + Q - 1) / Q, hpb, hpg,
+              (hpg + hpb - 1) / hpb};
   return static_cast<int>(launch<T>(p, batch, scratch, scratch_size, stream));
 }
 
@@ -710,9 +733,11 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y); dt and a are float32.
 // Strides are in elements: x (batch, step, head) with P contiguous, dt
-// (batch, step, head), B and C (batch, step) with N contiguous.  y is a
-// contiguous [B, S, H, P] tensor, state a contiguous [B, H, P, N] f32 one.
-// hpb is the number of heads a block of Stages A and C takes.  scratch
+// (batch, step, head), B and C (batch, step, group) with N contiguous.  y
+// is a contiguous [B, S, H, P] tensor, state a contiguous [B, H, P, N] f32
+// one.  G divides H; heads h of group h / (H / G) read that group's B and
+// C.  hpb is the number of heads (of one group) a block of Stages A and C
+// takes.  scratch
 // holds at least scratch_bytes() when S > Q (else it may be null):
 // kernels/ssd_scan.py::launch_plan sizes it.
 // Launches 1 kernel when S <= Q, else 3, on stream; returns the
@@ -720,21 +745,21 @@ extern "C" {
 int ssd_scan_launch(const void* x, const void* dt, const void* bm, const void* cm,
                     const void* a, void* y, void* state, void* scratch,
                     int64_t scratch_size, int batch, int S, int H, int P, int N, int Q,
-                    int dtype, int hpb, int64_t x_sb, int64_t x_ss, int64_t x_sh,
+                    int dtype, int hpb, int G, int64_t x_sb, int64_t x_ss, int64_t x_sh,
                     int64_t dt_sb, int64_t dt_ss, int64_t dt_sh, int64_t b_sb, int64_t b_ss,
-                    int64_t c_sb, int64_t c_ss, void* stream) {
+                    int64_t b_sg, int64_t c_sb, int64_t c_ss, int64_t c_sg, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Q < 1 || Q > kMaxQ || P < 16 || P > kMaxP || P % 16 || N < 16 || N > kMaxN ||
-      N % 16 || S < 1 || batch < 1 || H < 1 || hpb < 1)
+      N % 16 || S < 1 || batch < 1 || H < 1 || G < 1 || H % G || hpb < 1 || hpb > H / G)
     return cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_typed<float>(x, dt, bm, cm, a, y, state, scratch, scratch_size, batch, S, H,
-                               P, N, Q, hpb, x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb,
-                               b_ss, c_sb, c_ss, st);
+                               P, N, Q, hpb, G, x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb,
+                               b_ss, b_sg, c_sb, c_ss, c_sg, st);
   if (dtype == 1)
     return launch_typed<__nv_bfloat16>(x, dt, bm, cm, a, y, state, scratch, scratch_size,
-                                       batch, S, H, P, N, Q, hpb, x_sb, x_ss, x_sh, dt_sb,
-                                       dt_ss, dt_sh, b_sb, b_ss, c_sb, c_ss, st);
+                                       batch, S, H, P, N, Q, hpb, G, x_sb, x_ss, x_sh, dt_sb,
+                                       dt_ss, dt_sh, b_sb, b_ss, b_sg, c_sb, c_ss, c_sg, st);
   return cudaErrorInvalidValue;
 }
 

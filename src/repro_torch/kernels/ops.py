@@ -24,7 +24,7 @@ result (:func:`decode_attention_placements`, :func:`ssd_scan_placements`):
   kernel's partial softmax statistics is not written yet), as is anything
   else.
 * K4: batch shards stay; SSM heads shard with their dt and ``a``, B and C
-  (one group) replicated beside them; anything else is replicated.
+  replicated beside them; anything else is replicated.
 
 The reference's padding of G to 8 existed for the TPU's sublane tiling and
 is dropped: the kernel takes any G.  The reference's halving of the scan's
@@ -71,6 +71,12 @@ def _ssd_scan_cuda_impl(x, dt, b, c, a, chunk):
 
 
 def _ssd_scan_cpu_impl(x, dt, b, c, a, chunk):
+    if b.dim() == 4:  # G groups: each group's heads scanned with its B and C
+        hg = x.shape[2] // b.shape[2]
+        parts = [_ssd_scan_cpu_impl(x[:, :, i * hg:(i + 1) * hg], dt[:, :, i * hg:(i + 1) * hg],
+                                    b[:, :, i], c[:, :, i], a[i * hg:(i + 1) * hg], chunk)
+                 for i in range(b.shape[2])]
+        return torch.cat([y for y, _ in parts], dim=2), torch.cat([s for _, s in parts], dim=1)
     y, state = ssd_scan_chunked_ref(x.transpose(1, 2), dt.transpose(1, 2),
                                     torch.stack([b, c], dim=2), a, chunk=chunk)
     return y.transpose(1, 2).contiguous(), state
@@ -188,8 +194,8 @@ def decode_attention(
 def ssd_scan(
     x: torch.Tensor,  # [B, S, H, P] (model layout)
     dt: torch.Tensor,  # [B, S, H] f32 (post-softplus)
-    bmat: torch.Tensor,  # [B, S, N] (G = 1)
-    cmat: torch.Tensor,  # [B, S, N]
+    bmat: torch.Tensor,  # [B, S, N] (G = 1) or [B, S, G, N]
+    cmat: torch.Tensor,  # [B, S, N] or [B, S, G, N]
     a: torch.Tensor,  # [H] f32 negative
     *,
     chunk: int = 128,

@@ -5,7 +5,8 @@ shared library with a plain C interface (:mod:`repro_torch.kernels._nvcc`),
 and loaded with ``ctypes``.  Nothing is built when this module is imported.
 
 The launcher takes the model layout: x [B, S, H, P], dt [B, S, H] f32, and
-B and C [B, S, N] (one group), each by strides with its last dimension
+B and C [B, S, N] (one group) or [B, S, G, N] (G groups, each read by the
+H / G heads of its group), each by strides with its last dimension
 contiguous and its rows 16-byte aligned, so the views the model cuts from
 its [B, S, conv_dim] projection are read in place.  P and N are multiples
 of 16 (at most 64 and 128).  A chunk of any length from 1 to 128 is taken;
@@ -53,8 +54,8 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(_nvcc.build(SOURCE)[0]))
         fn = lib.ssd_scan_launch
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] + [ctypes.c_int] * 8
-                       + [ctypes.c_int64] * 10 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] + [ctypes.c_int] * 9
+                       + [ctypes.c_int64] * 12 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.ssd_scan_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.ssd_scan_blocks_per_sm.restype = ctypes.c_int
@@ -65,9 +66,12 @@ def _load() -> ctypes.CDLL:
 
 
 def launch_plan(b: int, s: int, h: int, p: int, n: int, chunk: int, dtype: torch.dtype,
-                sm_count: int, blocks_per_sm: int) -> Dict[str, int]:
+                sm_count: int, blocks_per_sm: int, groups: int = 1) -> Dict[str, int]:
     """What one call on these shapes launches, on a card of ``sm_count`` SMs
-    that hold ``blocks_per_sm`` Stage C blocks each.
+    that hold ``blocks_per_sm`` Stage C blocks each.  A block takes heads
+    of one of the ``groups`` groups of B and C only, so ``heads_per_block``
+    is at most ``h / groups`` and ``head_groups`` counts the head blocks of
+    every group (at ``groups`` = 1, the plan is what it was before groups).
 
     ``heads_per_block`` (hpb) is chosen by a cost model of Stage C: its
     blocks run in ``ceil(blocks / wave)`` waves of ``blocks_per_sm x
@@ -87,16 +91,17 @@ def launch_plan(b: int, s: int, h: int, p: int, n: int, chunk: int, dtype: torch
     nc = -(-s // chunk)
     wave = blocks_per_sm * sm_count
     units = nc * h * b
+    hpg = h // groups
     best = None
-    for cand in range(1, h + 1):
-        blocks = nc * b * -(-h // cand)
+    for cand in range(1, hpg + 1):
+        blocks = nc * b * groups * -(-hpg // cand)
         if blocks < min(sm_count, units):
             break  # fewer blocks still for every larger cand
         cost = -(-blocks // wave) * (cand + 1)
         if best is None or cost <= best[0]:
             best = (cost, cand)
     hpb = best[1]
-    groups = -(-h // hpb)
+    groups = groups * -(-hpg // hpb)
     blocks = nc * groups * b
     if nc == 1:
         return dict(n_chunks=1, heads_per_block=hpb, head_groups=groups,
@@ -129,15 +134,15 @@ def device_consts(dtype: torch.dtype, device: torch.device) -> Tuple[int, int]:
 
 
 def plan_for(b: int, s: int, h: int, p: int, n: int, chunk: int, dtype: torch.dtype,
-             device: torch.device) -> Dict[str, int]:
+             device: torch.device, groups: int = 1) -> Dict[str, int]:
     """:func:`launch_plan` for ``device``, cached per shape and number of
     chunks (``chunk`` at most ``s``)."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    key = (b, -(-s // chunk), h, p, n, chunk, dtype, idx)
+    key = (b, -(-s // chunk), h, p, n, chunk, dtype, idx, groups)
     plan = _plans.get(key)
     if plan is None:
         plan = _plans[key] = launch_plan(b, s, h, p, n, chunk, dtype,
-                                         *device_consts(dtype, device))
+                                         *device_consts(dtype, device), groups=groups)
     return plan
 
 
@@ -153,7 +158,7 @@ def _check(x, dt, bmat, cmat, a, chunk) -> None:
     """Raise a structured error for inputs the kernels do not take.  Each
     rule is tested once; its context is built only when it fails."""
     b, s, h, p = x.shape
-    n = bmat.shape[-1]
+    g, n = bmat.shape[-2], bmat.shape[-1]
     dev = x.device
     if not (x.is_cuda and dt.device == dev and bmat.device == dev and cmat.device == dev
             and a.device == dev):
@@ -167,10 +172,11 @@ def _check(x, dt, bmat, cmat, a, chunk) -> None:
     if not (dt.dtype == torch.float32 and a.dtype == torch.float32):
         raise InvariantViolation("ssd-scan-dtype", "dt and a must be float32",
                                  context=dict(dtypes=(dt.dtype, a.dtype)))
-    if not (dt.shape == (b, s, h) and bmat.shape == (b, s, n) and cmat.shape == (b, s, n)
-            and a.shape == (h,)):
+    if not (dt.shape == (b, s, h) and bmat.shape == (b, s, g, n) and cmat.shape == (b, s, g, n)
+            and a.shape == (h,) and h % g == 0):
         raise InvariantViolation(
-            "ssd-scan-shape", "expected x [B,S,H,P], dt [B,S,H], B/C [B,S,N], a [H]",
+            "ssd-scan-shape", "expected x [B,S,H,P], dt [B,S,H], B/C [B,S,N] or [B,S,G,N] "
+            "with G dividing H, a [H]",
             context=dict(x=tuple(x.shape), dt=tuple(dt.shape), b=tuple(bmat.shape),
                          c=tuple(cmat.shape), a=tuple(a.shape)))
     if not (0 < p <= MAX_HEAD_DIM and p % 16 == 0 and 0 < n <= MAX_STATE and n % 16 == 0
@@ -192,8 +198,8 @@ def _check(x, dt, bmat, cmat, a, chunk) -> None:
 def ssd_scan_cuda(
     x: torch.Tensor,  # [B, S, H, P], P contiguous
     dt: torch.Tensor,  # [B, S, H] f32
-    bmat: torch.Tensor,  # [B, S, N], N contiguous
-    cmat: torch.Tensor,  # [B, S, N], N contiguous
+    bmat: torch.Tensor,  # [B, S, N] or [B, S, G, N], N contiguous
+    cmat: torch.Tensor,  # [B, S, N] or [B, S, G, N], N contiguous
     a: torch.Tensor,  # [H] f32
     *,
     chunk: int,
@@ -207,12 +213,14 @@ def ssd_scan_cuda(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, bmat, cmat, a)):
         raise RuntimeError("ssd_scan_cuda's outputs carry no gradient: a scan whose inputs "
                            "require grad goes through repro_torch.models.ssm.ssd")
+    if bmat.dim() == 3:  # one group
+        bmat, cmat = bmat[:, :, None], cmat[:, :, None]
     b, s, h, p = x.shape
-    n = bmat.shape[-1]
+    g, n = bmat.shape[2], bmat.shape[3]
     dev = x.device
     _check(x, dt, bmat, cmat, a, chunk)
     a = a.contiguous()
-    plan = plan_for(b, s, h, p, n, chunk, x.dtype, dev)
+    plan = plan_for(b, s, h, p, n, chunk, x.dtype, dev, g)
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     nbytes = plan["scratch_bytes"]
@@ -222,8 +230,8 @@ def ssd_scan_cuda(
     err = lib.ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), a.data_ptr(),
         y.data_ptr(), state.data_ptr(), scratch.data_ptr() if nbytes else None, nbytes,
-        b, s, h, p, n, chunk, _DTYPES[x.dtype], plan["heads_per_block"],
-        xs[0], xs[1], xs[2], dts[0], dts[1], dts[2], bs[0], bs[1], cs[0], cs[1],
+        b, s, h, p, n, chunk, _DTYPES[x.dtype], plan["heads_per_block"], g,
+        xs[0], xs[1], xs[2], dts[0], dts[1], dts[2], bs[0], bs[1], bs[2], cs[0], cs[1], cs[2],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:

@@ -11,7 +11,10 @@
 ``--arch`` takes the port's registry: llama31-8b, mamba2-2.7b, gemma2-27b,
 h2o-danube-1.8b, stablelm-12b, qwen2.5-3b, hymba-1.5b, internvl2-2b (text
 prompts, as the reference's engine serves it), the MoE families dbrx-132b
-and llama4-maverick-400b-a17b, and whisper-large-v3, which the engine
+and llama4-maverick-400b-a17b, the port's own nemotron3-nano-30b-a3b
+(Mamba-2, dropless MoE and attention layers in one stack; at ``--full``
+its 63 GB of weights and their host copy outgrow one card), and
+whisper-large-v3, which the engine
 refuses with ``ValueError``: its requests would need frames, as in the
 reference.
 
@@ -85,7 +88,8 @@ def main(argv=None) -> Dict[str, Dict[str, float]]:
     ap.add_argument("--arch", default="llama31-8b",
                     help="a port registry id: llama31-8b, mamba2-2.7b, gemma2-27b, "
                          "h2o-danube-1.8b, stablelm-12b, qwen2.5-3b, hymba-1.5b, "
-                         "internvl2-2b, dbrx-132b, llama4-maverick-400b-a17b")
+                         "internvl2-2b, dbrx-132b, llama4-maverick-400b-a17b, "
+                         "nemotron3-nano-30b-a3b")
     ap.add_argument("--full", action="store_true",
                     help="the published widths instead of the smoke config")
     ap.add_argument("--requests", type=int, default=24)

@@ -22,6 +22,23 @@ The expert products are batched matrix products over ``[E, C, D] x
 [E, D, F]``, as the reference computes them outside any Pallas kernel.
 Expert weights are indexed, never copied: a layer's ``[E, D, F]`` stack is
 a view of the stacked ``[L, E, D, F]`` leaf.
+
+Beside it, the dropless layer of Nemotron-H (:func:`dropless_apply`), a
+path of its own that the capacity path above (kept for parity with the
+reference) does not share: a sigmoid router with a per-expert bias used
+for the choice only, the chosen experts' unbiased scores normalised to sum
+one and scaled, ungated relu² experts and a shared expert, and no request
+dropped.  The layer is told which experts it holds (a run of the router's
+outputs, all of them or one device's share under expert parallelism): it
+routes over every expert, computes its own experts' part of the result for
+the requests routed to them, each held expert over its own requests only,
+and the shared expert; what other devices' experts would add is not its to
+compute.  Its shapes are fixed by the token count and nothing in it waits
+on the host, so a CUDA graph holds it.  In bf16 on a CUDA card the held
+experts' products are the library's grouped products
+(``torch._grouped_mm`` over each expert's run of the sorted requests);
+elsewhere a plain version with the same result computes each held expert
+over every request and keeps each request's own expert's row.
 """
 
 from __future__ import annotations
@@ -240,3 +257,141 @@ def _moe_apply(params: Params, x: torch.Tensor, *, top_k: int, capacity_factor: 
         sh = params["shared"]
         out = out + (_act(xf @ sh["w_gate"], activation) * (xf @ sh["w_up"])) @ sh["w_down"]
     return out.view(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# The dropless layer (Nemotron-H)
+# ---------------------------------------------------------------------------
+
+
+def dropless_shapes(d_model: int, d_ff: int, held: int, router_experts: int,
+                    stacked: int, shared_expert_ff: int = 0) -> Dict:
+    """The dropless layer's leaves: the router over all ``router_experts``
+    and its choice bias, the ``held`` experts' up and down projections (leaf
+    names of their own, so that a rule by name cannot reach the shared
+    expert's), and the shared expert's."""
+    lead = (stacked,)
+    shapes: Dict = {
+        "router": lead + (d_model, router_experts),
+        "router_bias": lead + (router_experts,),
+        "w_experts_in": lead + (held, d_model, d_ff),
+        "w_experts_out": lead + (held, d_ff, d_model),
+    }
+    if shared_expert_ff > 0:
+        shapes["shared"] = {"w_up": lead + (d_model, shared_expert_ff),
+                            "w_down": lead + (shared_expert_ff, d_model)}
+    return shapes
+
+
+
+#: Logical axes of the dropless layer's own leaves (beside the router's,
+#: in :data:`MOE_AXES`; its shared expert's are an MLP's).
+DROPLESS_AXES = {
+    "router_bias": ("experts_r",),
+    "w_experts_in": ("experts", "embed", "ffn"),
+    "w_experts_out": ("experts", "ffn", "embed"),
+}
+
+
+def dropless_init(d_model: int, d_ff: int, held: int, router_experts: int,
+                  dtype: torch.dtype, generator: torch.Generator, device: torch.device, *,
+                  stacked: int, shared_expert_ff: int = 0) -> Params:
+    """Truncated-normal products scaled by their input width and a zero
+    choice bias, in the order of :func:`dropless_shapes`."""
+    def init(name, shape):
+        if isinstance(shape, dict):
+            return {k: init(k, v) for k, v in shape.items()}
+        if name == "router_bias":
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return dense_init(shape[-2], shape, dtype, generator, device)
+
+    return init(None, dropless_shapes(d_model, d_ff, held, router_experts, stacked,
+                                      shared_expert_ff))
+
+
+def route_sigmoid(params: Params, x: torch.Tensor, top_k: int, scaling: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [T, D] -> (weights [T, k] f32, experts [T, k]): the router product
+    in f32, a sigmoid; the top k of score + bias, the lower expert first on
+    ties; each chosen expert's unbiased score over their sum, times
+    ``scaling``."""
+    scores = torch.sigmoid(x.float() @ params["router"].float())
+    choice = scores + params["router_bias"].float()
+    idx = torch.sort(choice, dim=-1, descending=True, stable=True)[1][:, :top_k]
+    w = scores.gather(1, idx)
+    return w / (w.sum(dim=-1, keepdim=True) + 1e-20) * scaling, idx
+
+
+def relu2(x: torch.Tensor) -> torch.Tensor:
+    """relu(x)² in x's dtype (a bf16 square is taken in f32 and rounded once)."""
+    return torch.relu(x).square()
+
+
+def _grouped_experts_library(x: torch.Tensor, rows: torch.Tensor, gates: torch.Tensor,
+                             dest: torch.Tensor, offsets: torch.Tensor, w_in: torch.Tensor,
+                             w_out: torch.Tensor) -> torch.Tensor:
+    """[R, D] f32: each sorted request ``r`` (token ``rows[r]``, flat choice
+    ``dest[r]``) of held expert ``e`` (``offsets[e] <= r < offsets[e + 1]``)
+    gives ``gates[r] * relu(x @ w_in[e])^2 @ w_out[e]`` at row ``dest[r]``,
+    each expert's products only over its own requests: two grouped products
+    of the library.  Rows of requests no held expert takes hold whatever the
+    library left there; the caller masks them."""
+    ends = offsets[1:].to(torch.int32)
+    h = relu2(torch._grouped_mm(x[rows], w_in, offs=ends))
+    y = torch._grouped_mm(h, w_out, offs=ends)
+    out = torch.empty((rows.shape[0], x.shape[1]), dtype=torch.float32, device=x.device)
+    out[dest] = y * gates[:, None]  # f32 by promotion
+    return out
+
+
+def _grouped_experts_plain(x: torch.Tensor, rows: torch.Tensor, gates: torch.Tensor,
+                           dest: torch.Tensor, offsets: torch.Tensor, w_in: torch.Tensor,
+                           w_out: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`_grouped_experts_library`: each held
+    expert over every sorted request, each request keeping its own expert's
+    row (0 where no held expert takes it), with no host sync."""
+    xs = x[rows]
+    pos = torch.arange(rows.shape[0], device=x.device)
+    expert = torch.searchsorted(offsets, pos, right=True) - 1  # held: past the last run
+    y = torch.zeros((rows.shape[0], x.shape[1]), dtype=torch.float32, device=x.device)
+    for e in range(w_in.shape[0]):
+        ye = (relu2(xs @ w_in[e]) @ w_out[e]).float()
+        y = torch.where((expert == e)[:, None], ye, y)
+    out = torch.zeros_like(y)
+    out[dest] = y * gates[:, None]
+    return out
+
+
+def dropless_apply(params: Params, x: torch.Tensor, *, top_k: int, scaling: float,
+                   first: int = 0, counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [B, S, D] -> [B, S, D]: the shared expert's output plus the part of
+    the routed experts' that the held experts ``first .. first + E - 1``
+    give (E = the stack's experts), each routed request's output weighted by
+    its gate and the k choices of a token summed in f32.  ``counts`` (an
+    int64 [2] device tensor), if given, gains the requests routed to held
+    experts and the held experts touched, on the device, with no host
+    sync."""
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    gates, idx = route_sigmoid(params, xf, top_k, scaling)
+    w_in, w_out = params["w_experts_in"], params["w_experts_out"]
+    held = w_in.shape[0]
+    local = idx.reshape(-1) - first
+    mine = (local >= 0) & (local < held)
+    key = torch.where(mine, local, held)  # the requests of other experts sort last
+    order = torch.argsort(key, stable=True)
+    offsets = torch.searchsorted(key[order], torch.arange(held + 1, device=x.device))
+    if counts is not None:
+        counts[0] += offsets[-1]
+        counts[1] += (offsets[1:] > offsets[:-1]).sum()
+    args = (xf, order // top_k, gates.reshape(-1)[order], order, offsets, w_in, w_out)
+    if xf.is_cuda and xf.dtype == torch.bfloat16:
+        per_choice = _grouped_experts_library(*args)
+    else:
+        per_choice = _grouped_experts_plain(*args)
+    routed = torch.where(mine[:, None], per_choice, 0.0).view(t, top_k, d).sum(dim=1)
+    if "shared" in params:
+        sh = params["shared"]
+        routed = routed + (relu2(xf @ sh["w_up"]) @ sh["w_down"]).float()
+    return routed.to(x.dtype).view(b, s, d)

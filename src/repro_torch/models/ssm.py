@@ -35,8 +35,12 @@ F32_LEAVES = ("A_log", "D", "dt_bias")
 
 
 def ssm_dims(d_model: int, *, expand: int = 2, head_dim: int = 64,
-             d_state: int = 128, n_groups: int = 1, d_conv: int = 4) -> Dict[str, int]:
-    d_inner = expand * d_model
+             d_state: int = 128, n_groups: int = 1, d_conv: int = 4,
+             n_heads: int = 0) -> Dict[str, int]:
+    """The SSM block's sizes.  d_inner is ``n_heads x head_dim`` where the
+    head count is given (Nemotron-H: 64 heads of 64 beside a d_model of
+    2,688), else ``expand x d_model``."""
+    d_inner = n_heads * head_dim if n_heads else expand * d_model
     n_heads = d_inner // head_dim
     conv_dim = d_inner + 2 * n_groups * d_state
     return dict(
@@ -229,12 +233,12 @@ def ssd_chunked(
 
 def _scan(xs: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor, dt: torch.Tensor,
           a: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The scan kernel on CUDA tensors, :func:`ssd_chunked` on CPU tensors."""
+    """The scan kernel on CUDA tensors (B and C of one group as [B, S, N],
+    of several as [B, S, G, N]), :func:`ssd_chunked` on CPU tensors."""
     if xs.device.type == "cuda":
-        if bmat.shape[2] != 1:
-            raise NotImplementedError(
-                f"the SSD scan kernel takes one group, got G={bmat.shape[2]}")
-        return ops.ssd_scan(xs, dt, bmat[:, :, 0], cmat[:, :, 0], a, chunk=chunk)
+        if bmat.shape[2] == 1:
+            bmat, cmat = bmat[:, :, 0], cmat[:, :, 0]
+        return ops.ssd_scan(xs, dt, bmat, cmat, a, chunk=chunk)
     return ssd_chunked(xs, bmat, cmat, dt, a, chunk=chunk)
 
 
@@ -268,8 +272,7 @@ def ssd(xs: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor, dt: torch.Tens
         a: torch.Tensor, *, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The model's scan: the scan kernel on CUDA tensors, :func:`ssd_chunked`
     on CPU tensors, through :class:`SSDScan` when an input requires grad.
-    The kernel takes one group (G = 1); no ported configuration has more,
-    so G > 1 on CUDA raises."""
+    Each head reads the B and C of its group."""
     if isinstance(xs, DTensor):
         return _ssd_local(xs, bmat, cmat, dt, a, chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xs, bmat, cmat, dt, a)):
@@ -286,6 +289,8 @@ def _ssd_local(xs: DTensor, bmat, cmat, dt, a, chunk: int):
     mesh = xs.device_mesh
     xp, dtp, bcp, ap, sp = ops.ssd_scan_placements(xs)
     heads = [isinstance(p, Shard) and p.dim == 2 for p in xp]
+    if any(heads) and bmat.shape[2] > 1:
+        raise NotImplementedError("a scan whose heads are sharded takes one group of B and C")
     rows = [isinstance(p, Shard) and p.dim == 0 for p in xp]
     bc_grad = [Partial() if h else p for h, p in zip(heads, bcp)]
     a_grad = [Partial() if r else p for r, p in zip(rows, ap)]
@@ -297,8 +302,21 @@ def _ssd_local(xs: DTensor, bmat, cmat, dt, a, chunk: int):
             from_local(state, mesh, sp, (b, h, p, bmat.shape[-1])))
 
 
-def ssm_branch(params: Params, x: torch.Tensor, dims: Dict[str, int], *, chunk: int
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, groups: int,
+                eps: float) -> torch.Tensor:
+    """The gated RMSNorm before ``out_proj``, ``rmsnorm(y * silu(z))`` over
+    each of ``groups`` equal runs of channels (Mamba-2's ``RMSNormGated``
+    with ``group_size = d_inner / n_groups``); one group is the whole row."""
+    g = y * F.silu(z)
+    if groups == 1:
+        return rmsnorm(g, scale, eps)
+    shape = g.shape
+    return rmsnorm(g.unflatten(-1, (groups, -1)), scale.unflatten(-1, (groups, -1)),
+                   eps).reshape(shape)
+
+
+def ssm_branch(params: Params, x: torch.Tensor, dims: Dict[str, int], *, chunk: int,
+               eps: float = 1e-6) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence SSM block: (out [B, S, D], {"h": final scan state
     [B, H, P, N] f32, "conv": the last K-1 rows of the pre-conv projection
     [B, K-1, conv_dim]}) — the reference's ``_ssm_forward_branch``."""
@@ -314,7 +332,7 @@ def ssm_branch(params: Params, x: torch.Tensor, dims: Dict[str, int], *, chunk: 
     y = y.reshape(b, s, dims["d_inner"])
     y = y + (params["D"].repeat_interleave(dims["head_dim"])
              * xs.reshape(b, s, -1).float()).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), params["norm"])
+    y = _gated_norm(y, z, params["norm"], dims["n_groups"], eps)
     out = y @ params["out_proj"]
     return out, {"h": hfinal, "conv": xbc[:, -(dims["d_conv"] - 1):, :]}
 
@@ -345,6 +363,8 @@ def ssm_step(
     x: torch.Tensor,  # [B, 1, D]
     state: Dict[str, torch.Tensor],
     dims: Dict[str, int],
+    *,
+    eps: float = 1e-6,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token: (out [B, 1, D], new state)."""
     b = x.shape[0]
@@ -366,6 +386,6 @@ def ssm_step(
     y = torch.einsum("bhpn,bhn->bhp", new_h, c1)  # [B, H, P]
     y = y + params["D"][None, :, None] * x1
     y = y.reshape(b, 1, dims["d_inner"]).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), params["norm"])
+    y = _gated_norm(y, z, params["norm"], dims["n_groups"], eps)
     out = y @ params["out_proj"]
     return out, {"h": new_h, "conv": new_conv}

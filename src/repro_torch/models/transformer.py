@@ -5,7 +5,9 @@ pairs), mamba2, hymba's hybrid block (parallel attention and SSM heads on
 one normed input, mean-fused), whisper's encoder-decoder (a non-causal
 encoder over stubbed frame embeddings, cross-attention in every decoder
 layer) and internvl2's early fusion (stubbed patch embeddings replace the
-first prompt positions).
+first prompt positions), and Nemotron-H's stack of layers of three kinds
+(``block="mixed"``: one mixer a layer, Mamba-2, a dropless MoE or attention,
+as ``layer_pattern`` says).
 
 Parameters keep the reference's stacked ``[L, ...]`` leaves and names
 (a paired stack's ``{"dense": [L/2, ...], "moe": [L/2, ...]}``), so
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -73,6 +76,8 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.a
 WINDOW_PATTERNS = ("full", "swa", "gemma2", "hymba")
 #: Logical axes of the residual stream [B, S, D], where meshed blocks meet.
 ACT = ("batch", "seq", "embed_act")
+#: A mixed stack's layer kinds: pattern letter -> the key of its stack.
+LAYER_KINDS = {"M": "mamba", "E": "experts", "*": "attention"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +87,25 @@ class ModelConfig:
     ``ValueError``, as does an inconsistent MoE config: ``block="moe"``
     without ``0 < top_k <= n_experts``, experts on another block,
     ``moe_every`` other than 1 or 2, or dense/MoE pairs over an odd number
-    of layers."""
+    of layers.
+
+    The settings of the port's own mixed stack (``block="mixed"``,
+    Nemotron-H), which the reference's config does not have, are init-only:
+    the constructor takes them and keeps them as attributes of the same
+    names, but they are not dataclass fields, so the configs of the other
+    families compare field by field with the reference's as before.  Their
+    defaults leave every other family as it was.  ``layer_pattern``: one
+    letter a layer, ``M`` Mamba-2, ``E`` the dropless MoE, ``*`` attention;
+    ``ssm_heads``: the SSM head count that sets d_inner (0: ``ssm_expand x
+    d_model``); ``norm_eps``: every RMSNorm's epsilon, the SSM's gated norm's
+    too (None: each norm's default); ``router``: ``"softmax"`` (the capacity
+    path) or ``"sigmoid"`` (the dropless path's biased sigmoid);
+    ``routed_scaling``: the routed experts' gates' factor; ``n_experts``
+    counts the experts whose weights this device holds, the first
+    ``n_experts`` of the router's ``router_experts`` (0: as many as are
+    held; :attr:`router_width`).  ``activation="relu2"``
+    makes the experts ungated relu² MLPs.  A pattern whose letters do not
+    match the other fields raises ``ValueError``."""
 
     name: str
     n_layers: int
@@ -124,17 +147,38 @@ class ModelConfig:
     frontend: Optional[str] = None  # None | "vision" | "audio"
     frontend_seq: int = 0  # vision: patch embeddings fused into the first positions
     dtype: torch.dtype = torch.bfloat16
+    layer_pattern: dataclasses.InitVar[Optional[str]] = None
+    ssm_heads: dataclasses.InitVar[int] = 0
+    norm_eps: dataclasses.InitVar[Optional[float]] = None
+    router: dataclasses.InitVar[str] = "softmax"
+    routed_scaling: dataclasses.InitVar[float] = 1.0
+    router_experts: dataclasses.InitVar[int] = 0
 
-    def __post_init__(self) -> None:
-        for field, allowed in (("block", ("dense", "moe", "ssm", "hybrid")),
+    def __post_init__(self, layer_pattern, ssm_heads, norm_eps, router, routed_scaling,
+                      router_experts) -> None:
+        for name, value in (("layer_pattern", layer_pattern), ("ssm_heads", ssm_heads),
+                            ("norm_eps", norm_eps), ("router", router),
+                            ("routed_scaling", routed_scaling),
+                            ("router_experts", router_experts)):
+            object.__setattr__(self, name, value)
+        for field, allowed in (("block", ("dense", "moe", "ssm", "hybrid", "mixed")),
                                ("window_pattern", WINDOW_PATTERNS), ("norm", ("rms", "layernorm")),
-                               ("activation", ("silu", "gelu")),
+                               ("activation", ("silu", "gelu", "relu2")),
+                               ("router", ("softmax", "sigmoid")),
                                ("frontend", (None, "vision", "audio"))):
             if getattr(self, field) not in allowed:
                 raise ValueError(f"{self.name}: {field}={getattr(self, field)!r} is not one of "
                                  f"{allowed}")
+        mixed = self.block == "mixed" or layer_pattern is not None
+        if mixed:
+            self._check_pattern()
         if self.uses_attention and self.n_q_heads % self.n_kv_heads:
             raise ValueError("n_q_heads must be a multiple of n_kv_heads")
+        if mixed:
+            return
+        if router != "softmax" or self.activation == "relu2":
+            raise ValueError(f"{self.name}: router={router!r} and activation="
+                             f"{self.activation!r} are the mixed stack's (block='mixed')")
         if self.block == "moe" and not 0 < self.top_k <= self.n_experts:
             raise ValueError(f"{self.name}: an MoE block needs 0 < top_k <= n_experts, got "
                              f"top_k={self.top_k}, n_experts={self.n_experts}")
@@ -147,19 +191,70 @@ class ModelConfig:
             raise ValueError(f"{self.name}: dense/MoE pairs need an even n_layers, got "
                              f"{self.n_layers}")
 
+    def _check_pattern(self) -> None:
+        """A mixed stack's pattern against the other fields."""
+        pat = self.layer_pattern
+        bad = []
+        if self.block != "mixed" or not pat:
+            bad.append(f"block={self.block!r} with layer_pattern={pat!r}")
+        else:
+            if set(pat) - set(LAYER_KINDS) or len(pat) != self.n_layers:
+                bad.append(f"a pattern of {len(pat)} layers over {sorted(set(pat))}, "
+                           f"n_layers={self.n_layers}")
+            if ("M" in pat) != (self.ssm_state > 0):
+                bad.append(f"ssm_state={self.ssm_state}")
+            if ("*" in pat) != (self.n_q_heads > 0 and self.n_kv_heads > 0
+                                and self.head_dim > 0):
+                bad.append(f"attention heads {self.n_q_heads}/{self.n_kv_heads} of "
+                           f"{self.head_dim}")
+            experts = "E" in pat
+            if experts != (self.n_experts > 0) or (experts and not (
+                    0 < self.top_k <= self.router_width
+                    and self.n_experts <= self.router_width
+                    and self.router == "sigmoid" and self.activation == "relu2"
+                    and self.d_ff > 0)):
+                bad.append(f"experts {self.n_experts} held of {self.router_width}, top_k="
+                           f"{self.top_k}, router={self.router!r}, activation="
+                           f"{self.activation!r}, d_ff={self.d_ff}")
+            if self.ssm_state and self.ssm_dims["n_heads"] % self.ssm_groups:
+                bad.append(f"{self.ssm_dims['n_heads']} SSM heads in {self.ssm_groups} groups")
+        if bad:
+            raise ValueError(f"{self.name}: the layer pattern does not match the config: "
+                             + "; ".join(bad))
+
     @property
     def uses_attention(self) -> bool:
+        if self.block == "mixed":
+            return "*" in self.layer_pattern
         return self.block in ("dense", "moe", "hybrid")
 
     @property
     def uses_ssm(self) -> bool:
+        if self.block == "mixed":
+            return "M" in self.layer_pattern
         return self.block in ("ssm", "hybrid")
+
+    @property
+    def router_width(self) -> int:
+        """The experts the router chooses among."""
+        return self.router_experts or self.n_experts
+
+    @property
+    def n_attn_layers(self) -> int:
+        """Layers that keep a KV cache."""
+        if self.block == "mixed":
+            return self.layer_pattern.count("*")
+        return self.n_layers if self.uses_attention else 0
+
+    def kind_layers(self, letter: str) -> int:
+        """Layers of one kind of a mixed stack's pattern."""
+        return self.layer_pattern.count(letter) if self.block == "mixed" else 0
 
     @property
     def ssm_dims(self) -> Dict[str, int]:
         return ssm_lib.ssm_dims(self.d_model, expand=self.ssm_expand,
                                 head_dim=self.ssm_head_dim, d_state=self.ssm_state,
-                                n_groups=self.ssm_groups)
+                                n_groups=self.ssm_groups, n_heads=self.ssm_heads)
 
     @property
     def paired(self) -> bool:
@@ -172,7 +267,14 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (the reference's, for 6·N·D
-        bookkeeping)."""
+        bookkeeping).  A mixed stack counts every leaf, norms and biases
+        included, with the experts this device holds."""
+        if self.block == "mixed":
+            def count(tree):
+                return sum(count(v) if isinstance(v, dict) else math.prod(v)
+                           for v in tree.values())
+
+            return count(_shapes(self))
         d, f, L = self.d_model, self.d_ff, self.n_layers
         n = self.vocab * d  # embed
         if not self.tied_embeddings:
@@ -208,7 +310,14 @@ class ModelConfig:
         return n
 
     def active_param_count(self) -> int:
-        """Active params per token (MoE: top_k of n_experts)."""
+        """Active params per token (MoE: top_k of n_experts; a mixed stack:
+        each MoE layer's held experts at the share of a token's top_k
+        choices that fall on them, rounded down)."""
+        if self.block == "mixed":
+            per_expert = 2 * self.d_model * self.d_ff
+            n_moe = self.kind_layers("E")
+            routed = n_moe * per_expert * self.top_k * self.n_experts // self.router_width
+            return self.param_count() - n_moe * self.n_experts * per_expert + routed
         if self.block != "moe":
             return self.param_count()
         d, f = self.d_model, self.d_ff
@@ -242,12 +351,18 @@ class DecodeState:
     SSM state (None without SSM layers): h [L, B, H, P, N] f32 and conv
     [L, B, K-1, conv_dim] in the model's dtype, and the encoder memory's
     projections ``cross_kv`` k/v [L, B, T_enc, Hkv, Dh] (None without an
-    encoder)."""
+    encoder).  A mixed stack keeps KV for its attention layers and SSM
+    states for its Mamba layers only (L their count, in pattern order), and
+    ``moe``: an int64 [2] device counter that each ``prefill`` and
+    ``decode_step`` sets to the requests its MoE layers routed to held
+    experts and the held experts they touched, summed over the layers (None
+    without the dropless MoE)."""
 
     kv: Optional[Dict[str, torch.Tensor]]
     length: torch.Tensor
     ssm: Optional[Dict[str, torch.Tensor]] = None
     cross_kv: Optional[Dict[str, torch.Tensor]] = None
+    moe: Optional[torch.Tensor] = None
 
 
 def param_shapes(cfg: ModelConfig) -> Dict:
@@ -277,7 +392,7 @@ ATTN_AXES = {
 }
 MLP_AXES = {"w_gate": ("embed", "ffn"), "w_up": ("embed", "ffn"), "w_down": ("ffn", "embed")}
 _SUBTREE_AXES = {"attn": ATTN_AXES, "cross": ATTN_AXES, "mlp": MLP_AXES, "shared": MLP_AXES,
-                 "moe": moe_lib.MOE_AXES, "ssm": ssm_lib.SSM_AXES}
+                 "moe": {**moe_lib.MOE_AXES, **moe_lib.DROPLESS_AXES}, "ssm": ssm_lib.SSM_AXES}
 
 
 def param_axes(cfg: ModelConfig) -> Dict:
@@ -360,10 +475,36 @@ def _decoder_stack(cfg: ModelConfig, make: Callable[..., Dict]) -> Dict:
                 d_ff=cfg.d_ff)
 
 
+def _kinds(cfg: ModelConfig) -> List[Tuple[str, str, int]]:
+    """A mixed stack's kinds in the order they first appear: (pattern
+    letter, the key of its stack, its layers)."""
+    letters = dict.fromkeys(cfg.layer_pattern)
+    return [(c, LAYER_KINDS[c], cfg.kind_layers(c)) for c in letters]
+
+
+def _mixed_shapes(cfg: ModelConfig) -> Dict:
+    """A mixed stack's ``layers``: a stack of each kind, each layer one
+    mixer and its pre-norm."""
+    d = cfg.d_model
+    layers: Dict = {}
+    for letter, key, L in _kinds(cfg):
+        if letter == "M":
+            layers[key] = {"ssm": ssm_lib.ssm_shapes(d, cfg.ssm_dims, L), "pre_ssm_norm": (L, d)}
+        elif letter == "E":
+            layers[key] = {"moe": moe_lib.dropless_shapes(d, cfg.d_ff, cfg.n_experts,
+                                                          cfg.router_width, L,
+                                                          cfg.shared_expert_ff),
+                           "pre_mlp_norm": (L, d)}
+        else:
+            layers[key] = {"attn": _attn_shapes(cfg, L), "pre_attn_norm": (L, d)}
+    return layers
+
+
 def _shapes(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
     shapes = {"embed": (cfg.vocab, d),
-              "layers": _decoder_stack(cfg, lambda L, **kw: _sublayer_shapes(cfg, L, **kw))}
+              "layers": _mixed_shapes(cfg) if cfg.block == "mixed" else _decoder_stack(
+                  cfg, lambda L, **kw: _sublayer_shapes(cfg, L, **kw))}
     if cfg.n_encoder_layers:
         shapes["enc_layers"] = _sublayer_shapes(cfg, cfg.n_encoder_layers, use_attn=True,
                                                 use_ssm=False, cross=False, ffn="mlp",
@@ -395,6 +536,19 @@ def _decoder_layers(cfg: ModelConfig, layers: Params) -> List[Params]:
         dense, moe = _unstack(layers["dense"], cfg.n_scan), _unstack(layers["moe"], cfg.n_scan)
         return [sub for pair in zip(dense, moe) for sub in pair]
     return _unstack(layers, cfg.n_layers)
+
+
+def _mixed_layers(cfg: ModelConfig, layers: Params) -> List[Tuple[str, int, Params]]:
+    """A mixed stack's layers in pattern order: (letter, index in its
+    kind's stack, view), each stacked leaf unbound once."""
+    views = {key: _unstack(layers[key], n) for _, key, n in _kinds(cfg)}
+    seen: Dict[str, int] = {}
+    out = []
+    for letter in cfg.layer_pattern:
+        j = seen.get(letter, 0)
+        seen[letter] = j + 1
+        out.append((letter, j, views[LAYER_KINDS[letter]][j]))
+    return out
 
 
 def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -435,7 +589,8 @@ class TransformerLM:
         return DecodeState(kv=kv_ax if cfg.uses_attention else None,
                            ssm=ssm_ax if cfg.uses_ssm else None,
                            cross_kv=kv_ax if cfg.n_encoder_layers else None,
-                           length=("batch",))
+                           length=("batch",),
+                           moe=("moe_counts",) if cfg.kind_layers("E") else None)
 
     # ------------------------------------------------------------------ init
     def _sublayer_init(self, L: int, generator: torch.Generator, dev: torch.device, *,
@@ -479,6 +634,27 @@ class TransformerLM:
                 layers["post_mlp_norm"] = zeros(L, d)
         return layers
 
+    def _mixed_init(self, generator: torch.Generator, dev: torch.device) -> Params:
+        """A mixed stack's layers, drawn in the order of :func:`_mixed_shapes`."""
+        cfg = self.cfg
+        dt, d = cfg.dtype, cfg.d_model
+        layers: Params = {}
+        for letter, key, L in _kinds(cfg):
+            norm = torch.zeros((L, d), dtype=dt, device=dev)
+            if letter == "M":
+                layers[key] = {"ssm": ssm_lib.ssm_init(d, cfg.ssm_dims, dt, generator, dev,
+                                                       stacked=L), "pre_ssm_norm": norm}
+            elif letter == "E":
+                layers[key] = {"moe": moe_lib.dropless_init(
+                    d, cfg.d_ff, cfg.n_experts, cfg.router_width, dt, generator, dev,
+                    stacked=L, shared_expert_ff=cfg.shared_expert_ff), "pre_mlp_norm": norm}
+            else:
+                layers[key] = {"attn": attn.attention_init(
+                    d, cfg.n_q_heads, cfg.n_kv_heads, cfg.head_dim, dt, generator, dev,
+                    stacked=L, qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm),
+                    "pre_attn_norm": norm}
+        return layers
+
     def init(self, generator: torch.Generator, device=None) -> Params:
         """Random weights from ``generator`` (which must live on ``device``):
         truncated-normal dense and embedding leaves, zero norms and biases,
@@ -488,8 +664,11 @@ class TransformerLM:
         dev = resolve_device(device)
         d = cfg.d_model
         params: Params = {"embed": embed_init((cfg.vocab, d), cfg.dtype, generator, dev)}
-        params["layers"] = _decoder_stack(
-            cfg, lambda L, **kw: self._sublayer_init(L, generator, dev, **kw))
+        if cfg.block == "mixed":
+            params["layers"] = self._mixed_init(generator, dev)
+        else:
+            params["layers"] = _decoder_stack(
+                cfg, lambda L, **kw: self._sublayer_init(L, generator, dev, **kw))
         if cfg.n_encoder_layers:
             params["enc_layers"] = self._sublayer_init(cfg.n_encoder_layers, generator, dev,
                                                        use_attn=True, use_ssm=False,
@@ -519,10 +698,17 @@ class TransformerLM:
         return constrain(x, ACT)
 
     def _norm(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-        """The residual stream's norm: RMSNorm or LayerNorm (``cfg.norm``)."""
+        """The residual stream's norm: RMSNorm or LayerNorm (``cfg.norm``),
+        with ``cfg.norm_eps`` where it is set."""
+        eps = self.cfg.norm_eps
         if self.cfg.norm == "rms":
-            return rmsnorm(x, scale)
-        return layernorm(x, scale)
+            return rmsnorm(x, scale) if eps is None else rmsnorm(x, scale, eps)
+        return layernorm(x, scale) if eps is None else layernorm(x, scale, eps=eps)
+
+    @property
+    def _ssm_eps(self) -> float:
+        """The SSM's gated norm's epsilon."""
+        return 1e-6 if self.cfg.norm_eps is None else self.cfg.norm_eps
 
     def _ffn(self, layer: Params, x: torch.Tensor
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -645,6 +831,90 @@ class TransformerLM:
         x = self._cross(layer, x + self._attn_out(layer, a), memory, i)
         return self._ffn(layer, x)
 
+    def _mixed_block(self, layer: Params, x: torch.Tensor, positions: torch.Tensor,
+                     letter: str, j: int, kv: Optional[Dict[str, torch.Tensor]],
+                     ssm: Optional[Dict[str, torch.Tensor]],
+                     counts: Optional[torch.Tensor]) -> torch.Tensor:
+        """One layer of a mixed stack over the whole sequence, ``x +
+        mixer(norm(x))``; ``j`` is its index in its kind's stack, where it
+        writes its K/V prefix or its final scan and conv states."""
+        cfg = self.cfg
+        x = constrain(x, ACT)
+        layer = tree_map(gather_fsdp, layer)
+        if letter == "M":
+            h = self._norm(x, layer["pre_ssm_norm"])
+            out, st = ssm_lib.ssm_branch(layer["ssm"], h, cfg.ssm_dims, chunk=cfg.ssm_chunk,
+                                         eps=self._ssm_eps)
+            if ssm is not None:
+                ssm["h"][j] = st["h"]
+                ssm["conv"][j] = st["conv"]
+            return x + constrain(out, ACT)
+        if letter == "E":
+            h = self._norm(x, layer["pre_mlp_norm"])
+            return x + constrain(moe_lib.dropless_apply(
+                layer["moe"], h, top_k=cfg.top_k, scaling=cfg.routed_scaling, counts=counts), ACT)
+        h = self._norm(x, layer["pre_attn_norm"])
+        if kv is not None:
+            _, k, v = attn.project_qkv(layer["attn"], h, positions, rope_theta=cfg.rope_theta)
+            attn.write_cache_prefix(kv["k"][j], k)
+            attn.write_cache_prefix(kv["v"][j], v)
+        a = attn.attend_full(layer["attn"], h, positions, rope_theta=cfg.rope_theta,
+                             window=FULL_WINDOW, softcap_value=cfg.attn_softcap,
+                             query_scale=cfg.query_scale)
+        return x + self._attn_out(layer, a)
+
+    def _run_mixed(self, params: Params, tokens: torch.Tensor,
+                   kv: Optional[Dict[str, torch.Tensor]] = None,
+                   ssm: Optional[Dict[str, torch.Tensor]] = None,
+                   counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A mixed stack over the whole sequence: hidden states after the
+        final norm.  Writes each attention layer's K/V prefix into ``kv``,
+        each Mamba layer's final states into ``ssm``, and the MoE layers'
+        counts into ``counts``."""
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+        x = self._embed(params, tokens)
+        for letter, j, layer in _mixed_layers(self.cfg, params["layers"]):
+            x = self._maybe_remat(
+                functools.partial(self._mixed_block, positions=positions, letter=letter, j=j,
+                                  kv=kv, ssm=ssm, counts=counts), layer, x)
+        return self._norm(x, params["final_norm"])
+
+    def _decode_mixed(self, params: Params, state: DecodeState, token: torch.Tensor
+                      ) -> torch.Tensor:
+        """One decode step of a mixed stack: logits [B, V]; the caches, the
+        SSM states and the MoE counts are written in place."""
+        cfg = self.cfg
+        x = self._embed(params, token[:, None])  # [B,1,D]
+        if state.moe is not None:
+            state.moe.zero_()
+        for letter, j, layer in _mixed_layers(cfg, params["layers"]):
+            x = constrain(x, ACT)
+            layer = tree_map(gather_fsdp, layer)
+            if letter == "M":
+                h = self._norm(x, layer["pre_ssm_norm"])
+                y, new = ssm_lib.ssm_step(
+                    layer["ssm"], h, {"h": state.ssm["h"][j], "conv": state.ssm["conv"][j]},
+                    cfg.ssm_dims, eps=self._ssm_eps)
+                state.ssm["h"][j] = new["h"]
+                state.ssm["conv"][j] = new["conv"]
+                x = x + constrain(y, ACT)
+            elif letter == "E":
+                h = self._norm(x, layer["pre_mlp_norm"])
+                x = x + constrain(moe_lib.dropless_apply(
+                    layer["moe"], h, top_k=cfg.top_k, scaling=cfg.routed_scaling,
+                    counts=state.moe), ACT)
+            else:
+                h = self._norm(x, layer["pre_attn_norm"])
+                cache = {"k": state.kv["k"][j], "v": state.kv["v"][j]}
+                a = attn.attend_cached(layer["attn"], h, cache, state.length,
+                                       rope_theta=cfg.rope_theta, window=FULL_WINDOW,
+                                       softcap_value=cfg.attn_softcap,
+                                       query_scale=cfg.query_scale)
+                x = x + self._attn_out(layer, a)
+        x = self._norm(x, params["final_norm"])
+        return self._logits(params, x)[:, 0, :]
+
     def _run(self, params: Params, layers: List[Params], tokens: torch.Tensor,
              frontend_embeds: Optional[torch.Tensor] = None,
              kv: Optional[Dict[str, torch.Tensor]] = None,
@@ -678,6 +948,9 @@ class TransformerLM:
         ``forward`` returns them: aux is the MoE layers' load-balance losses
         summed in f32 (0 without MoE).  ``frontend_embeds``: patch
         embeddings (vision) or the encoder's frames (audio, required)."""
+        if self.cfg.block == "mixed":
+            x = self._run_mixed(params, tokens)
+            return (x, torch.zeros((), dtype=torch.float32, device=x.device)) if return_aux else x
         layers = _decoder_layers(self.cfg, params["layers"])
         x, aux = self._run(params, layers, tokens, frontend_embeds,
                            memory=self._cross_memory(params, frontend_embeds, layers))
@@ -689,25 +962,28 @@ class TransformerLM:
         dev = resolve_device(device)
         kv = ssm = cross_kv = None
 
-        def zeros_kv(seq):
-            shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
+        def zeros_kv(seq, layers=cfg.n_layers):
+            shape = (layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
             return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
                     "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
         if cfg.uses_attention:
-            kv = zeros_kv(max_len)
+            kv = zeros_kv(max_len, cfg.n_attn_layers)
         if cfg.uses_ssm:
             dims = cfg.ssm_dims
+            n = cfg.kind_layers("M") if cfg.block == "mixed" else cfg.n_layers
             ssm = {
-                "h": torch.zeros((cfg.n_layers, batch, dims["n_heads"], dims["head_dim"],
+                "h": torch.zeros((n, batch, dims["n_heads"], dims["head_dim"],
                                   dims["d_state"]), dtype=torch.float32, device=dev),
-                "conv": torch.zeros((cfg.n_layers, batch, dims["d_conv"] - 1,
+                "conv": torch.zeros((n, batch, dims["d_conv"] - 1,
                                      dims["conv_dim"]), dtype=cfg.dtype, device=dev),
             }
         if cfg.n_encoder_layers:
             cross_kv = zeros_kv(cfg.encoder_seq)
+        moe = (torch.zeros(2, dtype=torch.int64, device=dev) if cfg.kind_layers("E")
+               else None)
         return DecodeState(kv=kv, ssm=ssm, cross_kv=cross_kv,
-                           length=torch.zeros(batch, dtype=torch.int32, device=dev))
+                           length=torch.zeros(batch, dtype=torch.int32, device=dev), moe=moe)
 
     def decode_step(
         self,
@@ -718,6 +994,9 @@ class TransformerLM:
         """One decode step for every slot, inactive ones included:
         (logits [B, V], state with length + 1)."""
         cfg = self.cfg
+        if cfg.block == "mixed":
+            logits = self._decode_mixed(params, state, token)
+            return logits, dataclasses.replace(state, length=state.length + 1)
         x = self._embed(params, token[:, None])  # [B,1,D]
         length = state.length
 
@@ -764,6 +1043,13 @@ class TransformerLM:
         prompt (and, for an encoder-decoder, the frames it attends to);
         returns (last logits [B,V], state)."""
         b, s = tokens.shape
+        if self.cfg.block == "mixed":
+            if state.moe is not None:
+                state.moe.zero_()
+            x = self._run_mixed(params, tokens, state.kv, state.ssm, state.moe)
+            logits = self._logits(params, x[:, -1:, :])[:, 0, :]
+            length = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+            return logits, dataclasses.replace(state, length=length)
         layers = _decoder_layers(self.cfg, params["layers"])
         memory = self._cross_memory(params, frontend_embeds, layers)
         cross_kv = state.cross_kv

@@ -38,7 +38,14 @@ a side stream and the step's stream only waits on it on the device:
 when its call returns on the host: none waits for the device.  The counters
 ``serving.tokens`` and ``serving.requests`` of the default registry count
 as tokens are produced and requests finish; ``serving.decode.graph_captures``
-and ``serving.decode.graph_replays`` count the decode step's graphs.
+and ``serving.decode.graph_replays`` count the decode step's graphs.  A
+model with the dropless MoE (a mixed stack's ``E`` layers) also reads its
+step's MoE counts back with the step's tokens: ``serving.decode`` and
+``serving.prefill`` carry ``moe_requests`` (requests routed to the experts
+this device holds), ``moe_experts`` (held experts touched) and
+``moe_choices`` (tokens x top_k x MoE layers), each summed over the MoE
+layers, and the counters ``serving.moe.requests``,
+``serving.moe.experts_touched`` and ``serving.moe.choices`` add them up.
 
 An engine on a CUDA device records its decode step, with the greedy
 sampler, as one CUDA graph right after its first step, which runs eagerly
@@ -137,9 +144,9 @@ class ServingEngine:
             self.generator = torch.Generator(device=self.device).manual_seed(0)
         self.param_bytes = param_bytes(params)
         cfgm = cfg.model
-        # K and V, 2 bytes each, per layer (the reference's constant); a
-        # model without attention keeps no KV cache.
-        self.kv_bytes_per_token = (2 * cfgm.n_kv_heads * cfgm.head_dim * cfgm.n_layers * 2
+        # K and V, 2 bytes each, per attention layer (the reference's
+        # constant); a model without attention keeps no KV cache.
+        self.kv_bytes_per_token = (2 * cfgm.n_kv_heads * cfgm.head_dim * cfgm.n_attn_layers * 2
                                    if cfgm.uses_attention else 0)
         self._place_state(params)
         self.state = self.model.init_decode_state(cfg.max_slots, cfg.max_len, self.device)
@@ -163,6 +170,11 @@ class ServingEngine:
         self._m_requests = reg.counter("serving.requests")
         self._m_captures = reg.counter("serving.decode.graph_captures")
         self._m_replays = reg.counter("serving.decode.graph_replays")
+        #: MoE choices a token makes over the layers (0: no dropless MoE)
+        self._moe_choices = cfgm.top_k * cfgm.kind_layers("E")
+        if self._moe_choices:
+            self._m_moe = [reg.counter(f"serving.moe.{n}")
+                           for n in ("requests", "experts_touched", "choices")]
 
     def _place_state(self, params: Any) -> None:
         self.offloader: Optional[HostOffloader] = None
@@ -226,6 +238,8 @@ class ServingEngine:
                         sampled = self._sample(logits)
                     with prof.phase("serving.prefill.readback"):
                         first = int(sampled[0])
+                        if self._moe_choices:
+                            self._moe_args(pre.args, state1.moe, plen)
                     req.output.append(first)
                     req.t_first_token = now_ns
                     with prof.phase("serving.prefill.insert"):
@@ -237,6 +251,15 @@ class ServingEngine:
                 admitted.append((req, plen * self.kv_bytes_per_token))
             span.args["admitted"] = len(admitted)
         return admitted
+
+    def _moe_args(self, args: Dict[str, Any], counts: torch.Tensor, tokens: int) -> None:
+        """A step's MoE counts, read back, as its span's args and into the
+        counters."""
+        requests, experts = counts.tolist()
+        choices = tokens * self._moe_choices
+        args.update(moe_requests=requests, moe_experts=experts, moe_choices=choices)
+        for counter, n in zip(self._m_moe, (requests, experts, choices)):
+            counter.inc(n)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         if self.cfg.sampler == "greedy":
@@ -328,7 +351,7 @@ class ServingEngine:
         prof = default_profiler()
         graph = self._graph is not None
         with prof.phase("serving.decode", engine=self.cfg.name, placement=self.cfg.placement,
-                        active=active, graph=graph):
+                        active=active, graph=graph) as span:
             params = self.step_params()
             with prof.phase("serving.decode.dispatch"):
                 if graph:
@@ -343,6 +366,8 @@ class ServingEngine:
             with prof.phase("serving.decode.readback"):
                 nxt = self._tokens.tolist()
                 lengths = self.state.length.tolist()
+                if self._moe_choices:
+                    self._moe_args(span.args, self.state.moe, self.cfg.max_slots)
             with prof.phase("serving.decode.retire"):
                 produced = finished = 0
                 for slot, req in enumerate(self.slot_req):
