@@ -61,8 +61,12 @@ Phases, each printed as one JSON line:
      prompt through K4 (wall, K4's profiled device time and share) and
      through the plain scan (wall, logits difference printed);
  11. serve_mamba2: build_cluster("mamba2-2.7b", full=True, mode="miku") with
-     the launch counts of K4 and K1 read around the run, and a torch.profiler
-     run of 3 batch-4 decode steps;
+     the launch counts of K4, K1 and the SSM step kernel read around the
+     run (the last must be 64 layers x decode steps), and a torch.profiler
+     run of 3 batch-4 decode steps; before phase 10, ssm_step: the fused
+     SSM decode-step kernel against its plain version at mamba2's,
+     Nemotron's and hymba's served shapes (128 slots, bf16 activations),
+     the state bit for bit, with call, kernel-alone, plain and bound times;
  12. serve_smoke: ``python -m repro_torch.launch.serve`` with its defaults
      (the llama31 smoke config, head_dim 32, MIKU), run in this process,
      with K1's launches read around it (2 layers x the engines' decode
@@ -453,6 +457,7 @@ def main() -> None:
         from repro_torch.kernels import fluid_solver as fs
         from repro_torch.kernels import ops
         from repro_torch.kernels import ssd_scan as k4
+        from repro_torch.kernels import ssm_step as k5
         from repro_torch.kernels.ref import decode_attention_ref
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
@@ -474,7 +479,7 @@ def main() -> None:
 
     # -- 1. environment and build --------------------------------------------
     t0 = time.perf_counter()
-    libs = _nvcc.build(k1.SOURCE, fs.SOURCE, k4.SOURCE)  # one nvcc per source, together
+    libs = _nvcc.build(k1.SOURCE, fs.SOURCE, k4.SOURCE, k5.SOURCE)  # one nvcc per source
     build_s = time.perf_counter() - t0
     plain_lane = start_plain_lane()
     ptxas = {lib.name: [line.split("ptxas info    : ")[-1] for line in
@@ -765,7 +770,8 @@ def main() -> None:
                                .with_suffix(".ptxas.txt"))
     mva_phase(dev)
     k4_row = k4_sweep(dev)
-    k4_launches = ssm_phases(dev)
+    ssm_step_rows = ssm_step_timing(dev)
+    k4_launches, ssm_step_launches = ssm_phases(dev)
     k4_train_launches, qwen = train_phases(dev)
     k1_dist_launches, k4_dist_launches, _ = dist_phases(dev, qwen)
     emit("profiler", traces=len(PROFILE_PADS_LOST), pad_kernels=PROFILE_PAD_KERNELS,
@@ -891,6 +897,16 @@ def main() -> None:
         # The same train steps with the parameters DTensors on a 1 x 1 mesh.
         "train_ssm_mesh_launches": k4_dist_launches,
         **k4_row,
+    }, {
+        "name": "ssm_step",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_step.cu",
+        "replaces": None,  # the reference's decode step is plain jnp
+        # serve_mamba2's cluster (64 layers x its decode steps) and hymba's.
+        "launches": ssm_step_launches,
+        "serve_hymba_cluster_launches": hymba["cluster_ssm_step_launches"],
+        **{name: {k: v for k, v in row.items() if k != "case"}
+           for name, row in ssm_step_rows.items()},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3620,6 +3636,73 @@ def k4_sweep(dev):
     return out
 
 
+#: The SSM step kernel's timed shapes: (slots, heads, head_dim, state,
+#: groups) of each served configuration at 128 slots.
+SSM_STEP_SHAPES = {"mamba2": (128, 80, 64, 128, 1), "nemotron": (128, 64, 64, 128, 8),
+                   "hymba": (128, 50, 64, 16, 1)}
+
+
+def ssm_step_timing(dev):
+    """Phase ssm_step: the fused SSM decode-step kernel at the served
+    shapes (bf16 activations, f32 state, the inputs read from the model's
+    strided views of a channel-major conv output) against its plain version: the new state bit for bit,
+    y within 1e-2 of its scale (one bf16 rounding of an f32 sum in another
+    order), then the call (CUDA events), the kernel alone (profiled), the
+    plain version and the bound: the state read and written once, x, dt, B,
+    C and y once.  The calls cycle over enough layers' states to pass 200 MB,
+    four times the L2, as a decode step's layers do.  Returns the rows by
+    shape."""
+    import torch
+
+    from repro_torch.kernels import ssm_step as k5
+
+    rows = {}
+    for name, (b, h, p, n, g) in SSM_STEP_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(21)
+        di, gn = h * p, g * n
+        # Channel-major, as the decode step's einsum lays its conv output out.
+        conv = torch.randn(di + 2 * gn, b, generator=gen, device=dev).to(torch.bfloat16).t()
+        proj = torch.randn(b, 2 * di + 2 * gn + h, generator=gen, device=dev).to(torch.bfloat16)
+        args = (conv[:, :di].unflatten(-1, (h, p)), proj[:, -h:],
+                conv[:, di:di + gn].unflatten(-1, (g, n)), conv[:, di + gn:].unflatten(-1, (g, n)),
+                torch.randn(h, generator=gen, device=dev) - 2.0,
+                torch.log(torch.linspace(1.0, 16.0, h, device=dev)),
+                torch.randn(h, generator=gen, device=dev))
+        state_bytes = b * h * p * n * 4
+        layers = -(-200_000_000 // state_bytes)
+        states = torch.randn(layers, b, h, p, n, generator=gen, device=dev)
+        hk, hp = states[0].clone(), states[0].clone()
+        yk = k5.ssm_step_cuda(hk, *args)
+        yp = k5.ssm_step_ref(hp, *args)
+        torch.cuda.synchronize()
+        row = dict(case=name, slots=b, heads=h, head_dim=p, state=n, groups=g,
+                   state_bytes=state_bytes, layers_cycled=layers,
+                   state_bit_equal=bool(torch.equal(hk, hp)),
+                   y_scale_err=float((yk.float() - yp.float()).abs().max()
+                                     / yp.float().abs().max()))
+        del hk, hp, yk, yp
+        turn = iter(range(10**9))
+
+        def call():
+            return k5.ssm_step_cuda(states[next(turn) % layers], *args)
+
+        row["ms"] = time_ms(call, 10 * layers)
+        row["kernel_device_ms"] = kernel_device_ms(call, "ssm_step_kernel", 10 * layers)
+        row["plain_ms"] = time_ms(lambda: k5.ssm_step_ref(states[next(turn) % layers], *args),
+                                  2 * layers)
+        io = sum(t.numel() * t.element_size() for t in args) + b * h * p * 2  # y in bf16
+        row["bound_ms"], row["bound_by"] = bound(2 * state_bytes + io, 5 * b * h * p * n,
+                                                 h100().peak_flops_f32)
+        row["kernel_share_of_bound"] = row["bound_ms"] / row["kernel_device_ms"]
+        rows[name] = row
+        emit("ssm_step", **row)
+        check(row["state_bit_equal"] and row["y_scale_err"] <= 1e-2,
+              f"ssm_step {name}: the kernel differs from its plain version: {row}")
+        del states, conv, proj, args
+        torch.cuda.empty_cache()
+    return rows
+
+
 def ssm_check(model, params, gen, dev, prompt_len=300, steps=3):
     """One prefill of a ``prompt_len``-token prompt and ``steps`` decode
     steps, through K4 and, from a fresh state, through the plain
@@ -3734,15 +3817,17 @@ def prefill_long(model, params, gen, dev, prompt_len=2048):
 
 
 def ssm_phases(dev):
-    """Phases 10 and 11, the main path of K4: mamba2-2.7b at full width,
-    the f32 gate against the plain scan, then the tiered cluster with the
-    launch counts set to 0 just before its run and read just after.
-    Returns K4's launches in that run."""
+    """Phases 10 and 11, the main path of K4 and of the SSM step kernel:
+    mamba2-2.7b at full width, the f32 gate against the plain scan, then
+    the tiered cluster with the launch counts set to 0 just before its run
+    and read just after.  Returns K4's and the SSM step's launches in that
+    run."""
     import torch
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.kernels import ssm_step as k5
     from repro_torch.launch.serve import build_cluster
     from repro_torch.models.transformer import TransformerLM
 
@@ -3800,12 +3885,14 @@ def ssm_phases(dev):
     # The main path: launches counted from here.
     k1.LAUNCHES.reset()
     k4.LAUNCHES.reset()
+    k5.LAUNCHES.reset()
     t0 = time.perf_counter()
     res = cluster.run(max_ticks=10**9)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches, k1_launches = k4.LAUNCHES.count, k1.LAUNCHES.count
+    launches, k1_launches, k5_launches = k4.LAUNCHES.count, k1.LAUNCHES.count, k5.LAUNCHES.count
     prefills = sum(len(e.done) for e in cluster.engines)
+    steps = sum(e.decode_steps for e in cluster.engines)
     h2d_bytes = host.offloader.bytes_to_device
     h2d_s = host.offloader.copy_seconds()
     tel = cluster.control.telemetry()
@@ -3819,7 +3906,8 @@ def ssm_phases(dev):
          miku_restricted_windows=tel["restricted_windows"],
          h2d_bytes=h2d_bytes, h2d_device_s=h2d_s, h2d_gb_per_s=h2d_bytes / h2d_s / 1e9,
          k4_launches=launches, layers_x_prefills=cfg.n_layers * prefills,
-         k1_launches=k1_launches,
+         k1_launches=k1_launches, ssm_step_launches=k5_launches,
+         layers_x_decode_steps=cfg.n_layers * steps,
          peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(res["hbm"]["requests"] == 4 and res["host"]["requests"] == 1,
           f"mamba2 serve did not finish its requests: {res}")
@@ -3830,7 +3918,9 @@ def ssm_phases(dev):
     check(launches == cfg.n_layers * 5 == cfg.n_layers * prefills,
           f"K4 launches {launches} != layers x prefills {cfg.n_layers * prefills}")
     check(k1_launches == 0, f"the mamba2 path launched K1 {k1_launches} times")
-    return launches
+    check(k5_launches == cfg.n_layers * steps and k5_launches > 0,
+          f"SSM step launches {k5_launches} != layers x decode steps {cfg.n_layers * steps}")
+    return launches, k5_launches
 
 
 # -- the attention families: gemma2, h2o-danube, stablelm, qwen2.5; the
@@ -4436,6 +4526,7 @@ def serve_hymba(dev):
     from repro_torch.configs import get_arch
     from repro_torch.kernels import decode_attention as k1
     from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.kernels import ssm_step as k5
     from repro_torch.launch.serve import build_cluster
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.serving import engine as eng_lib
@@ -4456,11 +4547,12 @@ def serve_hymba(dev):
     # The tiered cluster: launches counted from here.
     k1.LAUNCHES.reset()
     k4.LAUNCHES.reset()
+    k5.LAUNCHES.reset()
     t0 = time.perf_counter()
     res = cluster.run(max_ticks=10**9)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    k1_cluster, k4_cluster = k1.LAUNCHES.count, k4.LAUNCHES.count
+    k1_cluster, k4_cluster, k5_cluster = k1.LAUNCHES.count, k4.LAUNCHES.count, k5.LAUNCHES.count
     steps = hbm.decode_steps + host.decode_steps
     prefills = sum(len(e.done) for e in cluster.engines)
     tel = cluster.control.telemetry()
@@ -4475,7 +4567,7 @@ def serve_hymba(dev):
          miku_restricted_windows=tel["restricted_windows"],
          h2d_bytes=host.offloader.bytes_to_device, k1_launches=k1_cluster,
          layers_x_decode_steps=cfg.n_layers * steps, k4_launches=k4_cluster,
-         layers_x_prefills=cfg.n_layers * prefills,
+         layers_x_prefills=cfg.n_layers * prefills, ssm_step_launches=k5_cluster,
          peak_device_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(res["hbm"]["requests"] == 4 and res["host"]["requests"] == 1,
           f"serve_hymba: the cluster did not finish its requests: {res}")
@@ -4489,6 +4581,9 @@ def serve_hymba(dev):
     check(k4_cluster == cfg.n_layers * prefills and k4_cluster > 0,
           f"serve_hymba: K4 launches {k4_cluster} != layers x prefills "
           f"{cfg.n_layers * prefills}")
+    check(k5_cluster == cfg.n_layers * steps and k5_cluster > 0,
+          f"serve_hymba: SSM step launches {k5_cluster} != layers x decode steps "
+          f"{cfg.n_layers * steps}")
     params = hbm.params
     del cluster, hbm, host, e  # the host engine's pinned copy and staging set
     gc.collect()
@@ -4543,7 +4638,8 @@ def serve_hymba(dev):
           f"serve_hymba: K4 launches {k4_launches} != layers x prefills "
           f"{cfg.n_layers * len(eng.done)}")
     return dict(k1_launches=launches, k4_launches=k4_launches, decode_steps=steps,
-                cluster_k1_launches=k1_cluster, cluster_k4_launches=k4_cluster)
+                cluster_k1_launches=k1_cluster, cluster_k4_launches=k4_cluster,
+                cluster_ssm_step_launches=k5_cluster)
 
 
 def serve_moe(dev):

@@ -1,5 +1,6 @@
 """Model-layout wrappers of the port's model kernels (port of
-``repro/kernels/ops.py``): flash-decode GQA and the SSD chunked scan.
+``repro/kernels/ops.py``): flash-decode GQA, the SSD chunked scan and the
+SSM decode step.
 
 Each kernel is a torch operator (``torch.ops.repro_torch.decode_attention``
 and ``torch.ops.repro_torch.ssd_scan``), registered through
@@ -25,6 +26,17 @@ result (:func:`decode_attention_placements`, :func:`ssd_scan_placements`):
   else.
 * K4: batch shards stay; SSM heads shard with their dt and ``a``, B and C
   replicated beside them; anything else is replicated.
+* The SSM decode step (:func:`ssm_step_placements`): the placements are
+  the state's own, so its local shard is updated in place; batch shards
+  stay, heads shard with dt_raw, dt_bias, A_log and D (B and C replicated
+  at one group, sharded by group at several), a shard of the head dim
+  takes x's and y's alike.
+
+The SSM decode step (:func:`ssm_step`, which the reference has no kernel
+for) registers no operator: a plain CUDA tensor goes to its launcher, and
+a CPU, fake or meta tensor runs its plain version,
+:func:`repro_torch.kernels.ssm_step.ssm_step_ref`, whose ops dispatch as
+any other.
 
 The reference's padding of G to 8 existed for the TPU's sublane tiling and
 is dropped: the kernel takes any G.  The reference's halving of the scan's
@@ -44,6 +56,7 @@ from repro_torch.distributed.autosharding import from_local, to_local_as
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.ref import decode_attention_ref, ssd_scan_chunked_ref
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.ssm_step import ssm_step_cuda, ssm_step_ref
 
 _LIB = torch.library.Library("repro_torch", "DEF")
 _LIB.define("decode_attention(Tensor q, Tensor k, Tensor v, Tensor lengths, int window, "
@@ -148,6 +161,36 @@ def ssd_scan_placements(x: DTensor) -> Tuple[List[Placement], ...]:
     return xp, dtp, bcp, ap, sp
 
 
+def ssm_step_placements(h: DTensor, groups: int) -> Tuple[List[Placement], ...]:
+    """(state, x and y, dt_raw, B and C, dt_bias/A_log/D) placements, per
+    mesh dimension, on which the SSM decode step runs on local shards.  h
+    is [B, H, P, N], x [B, H, P], dt_raw [B, H], B and C [B, G, N], the
+    per-head leaves [H].  The state keeps its own placements, so its shard
+    is updated in place; a state sharded along N, or by head at several
+    groups that the shards do not split whole, is refused."""
+    mesh = h.device_mesh
+    heads = h.shape[1]
+    hp, xp, dtp, bcp, pp = [], [], [], [], []
+    for i, p in enumerate(h.placements):
+        n = mesh.size(i)
+        if isinstance(p, Replicate):
+            plan = (Replicate(),) * 5
+        elif _sharded_on(p, 0):
+            plan = (Shard(0), Shard(0), Shard(0), Shard(0), Replicate())
+        elif _sharded_on(p, 1) and (groups == 1 or (heads % n == 0 and groups % n == 0)):
+            bc = Replicate() if groups == 1 else Shard(1)
+            plan = (Shard(1), Shard(1), Shard(1), bc, Shard(0))
+        elif _sharded_on(p, 2):
+            plan = (Shard(2), Shard(2), Replicate(), Replicate(), Replicate())
+        else:
+            raise NotImplementedError(
+                f"the SSM decode step takes no state placed {p} on a mesh dimension of {n} "
+                f"({heads} heads, {groups} groups)")
+        for out, pl in zip((hp, xp, dtp, bcp, pp), plan):
+            out.append(pl)
+    return hp, xp, dtp, bcp, pp
+
+
 # ---------------------------------------------------------------------------
 # Model-layout entry points
 # ---------------------------------------------------------------------------
@@ -212,3 +255,34 @@ def ssd_scan(
     if _is_cuda_tensor(x):
         return _ssd_scan_cuda_impl(*args)
     return torch.ops.repro_torch.ssd_scan(*args)
+
+
+def ssm_step(
+    h: torch.Tensor,  # [B, H, P, N] f32, updated in place
+    x: torch.Tensor,  # [B, H, P]
+    dt_raw: torch.Tensor,  # [B, H] (before dt_bias and the softplus)
+    bmat: torch.Tensor,  # [B, G, N]
+    cmat: torch.Tensor,  # [B, G, N]
+    dt_bias: torch.Tensor,  # [H] f32
+    a_log: torch.Tensor,  # [H] f32
+    d: torch.Tensor,  # [H] f32
+) -> torch.Tensor:
+    """One decode step of the SSM recurrence: ``h`` updated in place;
+    returns y [B, H, P] in x's dtype.  The fused kernel on plain CUDA
+    tensors, the plain version on CPU, fake and meta tensors; DTensors step
+    on each device's shards (:func:`ssm_step_placements`)."""
+    args = (h, x, dt_raw, bmat, cmat, dt_bias, a_log, d)
+    dtensors = [t for t in args if isinstance(t, DTensor)]
+    if dtensors:
+        mesh = dtensors[0].device_mesh
+        if not isinstance(h, DTensor):
+            h = from_local(h, mesh, [Replicate()] * mesh.ndim, h.shape)
+        hp, xp, dtp, bcp, pp = ssm_step_placements(h, bmat.shape[1])
+        y = ssm_step(to_local_as(h, mesh, hp), to_local_as(x, mesh, xp),
+                     to_local_as(dt_raw, mesh, dtp), to_local_as(bmat, mesh, bcp),
+                     to_local_as(cmat, mesh, bcp), *(to_local_as(t, mesh, pp)
+                                                     for t in (dt_bias, a_log, d)))
+        return from_local(y, mesh, xp, x.shape)
+    if _is_cuda_tensor(h):
+        return ssm_step_cuda(*args)
+    return ssm_step_ref(*args)

@@ -10,8 +10,10 @@ model calls: on a CUDA tensor it launches the hand-written scan kernel
 whose forward is that same dispatch and whose backward differentiates
 :func:`ssd_chunked` (the function the reference differentiates) on the
 saved inputs; the kernel's own outputs carry no gradient.  Decode is the
-single-step recurrence (:func:`ssm_step`), plain torch as in the
-reference.
+single-step recurrence (:func:`ssm_step`), which updates the f32 state in
+place: on a CUDA tensor in one fused kernel
+(:func:`repro_torch.kernels.ops.ssm_step`), on a CPU tensor by the plain
+version, the reference's arithmetic.
 
 Parameters keep the reference's leaf names; ``A_log``, ``D`` and
 ``dt_bias`` are float32 whatever the model's dtype.
@@ -147,15 +149,20 @@ def _split_proj(params: Params, x: torch.Tensor, dims: Dict[str, int]):
     return z, xbc, dt
 
 
-def _prep_inputs(params: Params, xbc_conv: torch.Tensor, dt: torch.Tensor,
-                 dims: Dict[str, int]):
+def _conv_views(xbc_conv: torch.Tensor, dims: Dict[str, int]):
     """Views of the conv output as x [B,S,H,P], B and C [B,S,G,N] (no copy:
-    the scan kernel reads them by strides), and the f32 dt and a."""
+    the kernels read them by strides)."""
     di, g, n = dims["d_inner"], dims["n_groups"], dims["d_state"]
-    h, p = dims["n_heads"], dims["head_dim"]
-    xs = xbc_conv[..., :di].unflatten(-1, (h, p))
+    xs = xbc_conv[..., :di].unflatten(-1, (dims["n_heads"], dims["head_dim"]))
     bmat = xbc_conv[..., di: di + g * n].unflatten(-1, (g, n))
     cmat = xbc_conv[..., di + g * n:].unflatten(-1, (g, n))
+    return xs, bmat, cmat
+
+
+def _prep_inputs(params: Params, xbc_conv: torch.Tensor, dt: torch.Tensor,
+                 dims: Dict[str, int]):
+    """:func:`_conv_views`, and the f32 dt and a."""
+    xs, bmat, cmat = _conv_views(xbc_conv, dims)
     dt = F.softplus(dt.float() + params["dt_bias"])  # [B, S, H]
     a = -torch.exp(params["A_log"])  # [H]
     return xs, bmat, cmat, dt, a
@@ -366,26 +373,20 @@ def ssm_step(
     *,
     eps: float = 1e-6,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One token: (out [B, 1, D], new state)."""
+    """One token: (out [B, 1, D], new state).  The recurrent state
+    ``state["h"]`` is updated in place (:func:`repro_torch.kernels.ops.ssm_step`:
+    the fused kernel on the card) and is the new state's ``"h"``; the conv
+    window is returned new, for the caller to store."""
     b = x.shape[0]
-    rep = dims["n_heads"] // dims["n_groups"]
     z, xbc, dt_raw = _split_proj(params, x, dims)  # [B, 1, *]
     # Conv over the rolling window [conv_state | new].
     window = torch.cat([state["conv"], xbc], dim=1)  # [B, K, conv]
     conv_out = torch.einsum("bkc,kc->bc", window, params["conv_w"]) + params["conv_b"]
     conv_out = F.silu(conv_out)[:, None, :]  # [B, 1, conv]
-    new_conv = window[:, 1:, :]
-    xs, bmat, cmat, dt, a = _prep_inputs(params, conv_out, dt_raw, dims)
-    dt1 = dt[:, 0]  # [B, H]
-    da = torch.exp(dt1 * a)  # [B, H]
-    b1 = bmat[:, 0].repeat_interleave(rep, dim=1).float()  # [B, H, N]
-    c1 = cmat[:, 0].repeat_interleave(rep, dim=1).float()  # [B, H, N]
-    x1 = xs[:, 0].float()  # [B, H, P]
-    new_h = state["h"] * da[:, :, None, None] + torch.einsum(
-        "bhp,bhn->bhpn", dt1[:, :, None] * x1, b1)
-    y = torch.einsum("bhpn,bhn->bhp", new_h, c1)  # [B, H, P]
-    y = y + params["D"][None, :, None] * x1
+    xs, bmat, cmat = _conv_views(conv_out, dims)
+    y = ops.ssm_step(state["h"], xs[:, 0], dt_raw[:, 0], bmat[:, 0], cmat[:, 0],
+                     params["dt_bias"], params["A_log"], params["D"])  # [B, H, P]
     y = y.reshape(b, 1, dims["d_inner"]).to(x.dtype)
     y = _gated_norm(y, z, params["norm"], dims["n_groups"], eps)
     out = y @ params["out_proj"]
-    return out, {"h": new_h, "conv": new_conv}
+    return out, {"h": state["h"], "conv": window[:, 1:, :]}

@@ -895,8 +895,7 @@ class TransformerLM:
                 h = self._norm(x, layer["pre_ssm_norm"])
                 y, new = ssm_lib.ssm_step(
                     layer["ssm"], h, {"h": state.ssm["h"][j], "conv": state.ssm["conv"][j]},
-                    cfg.ssm_dims, eps=self._ssm_eps)
-                state.ssm["h"][j] = new["h"]
+                    cfg.ssm_dims, eps=self._ssm_eps)  # the state's h in place
                 state.ssm["conv"][j] = new["conv"]
                 x = x + constrain(y, ACT)
             elif letter == "E":
@@ -1003,8 +1002,7 @@ class TransformerLM:
         def ssm_step(layer, h, i):
             y, new = ssm_lib.ssm_step(
                 layer["ssm"], h, {"h": state.ssm["h"][i], "conv": state.ssm["conv"][i]},
-                cfg.ssm_dims)
-            state.ssm["h"][i] = new["h"]
+                cfg.ssm_dims)  # the state's h in place
             state.ssm["conv"][i] = new["conv"]
             return constrain(y, ACT)
 

@@ -12,7 +12,9 @@ test's temporary directory, each launch with a timeout of its own.
 * The llama31 smoke config decodes 4 greedy steps on (2, 2) under
   ``DECODE_RULES`` (K1's CPU implementation, its cache gathered along the
   sequence): logits within 1e-5 of their scale of the unmeshed run, tokens
-  equal.
+  equal.  So does the mamba2 smoke config, whose SSM decode step updates
+  each device's shard of the state in place (``kernels/ops.py:ssm_step``):
+  its final state within 1e-5 of its scale of the unmeshed run's too.
 * The dbrx smoke config's MoE layer on (2, 2) dispatches per batch shard,
   as the reference's does under a mesh.
 """
@@ -137,8 +139,17 @@ def _as_jax_tree(state):
 
 
 def test_meshed_decode_matches_unmeshed(runs):
-    got = runs["decode"]
-    cfg = worker.f32_smoke("llama31-8b")
+    _decode_matches_unmeshed(runs, "llama31-8b")
+
+
+def test_meshed_ssm_decode_updates_its_shards_in_place(runs):
+    _decode_matches_unmeshed(runs, "mamba2-2.7b")
+
+
+def _decode_matches_unmeshed(runs, arch):
+    got = {k.split("/", 1)[1]: runs["decode"][k] for k in runs["decode"].files
+           if k.startswith(arch + "/")}
+    cfg = worker.f32_smoke(arch)
     model = TransformerLM(cfg)
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     state = model.init_decode_state(worker.BATCH, worker.PROMPT + worker.DECODE_STEPS, "cpu")
@@ -155,6 +166,10 @@ def test_meshed_decode_matches_unmeshed(runs):
     np.testing.assert_array_equal(got["tokens"], np.stack(toks))
     scale = np.abs(want).max()
     np.testing.assert_allclose(got["logits"], want, rtol=0, atol=1e-5 * scale)
+    if state.ssm is not None:
+        want_h = state.ssm["h"].numpy()
+        np.testing.assert_allclose(got["ssm_h"], want_h, rtol=0,
+                                   atol=1e-5 * np.abs(want_h).max())
 
 
 def test_meshed_moe_dispatches_per_batch_shard(runs):

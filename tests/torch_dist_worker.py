@@ -11,9 +11,10 @@ CASE; rank 0 writes what the test compares to OUT (an ``.npz``):
   writes a checkpoint into OUT's directory (``ckpt``), which a Trainer on a
   (4, 1) mesh then restores (elastic resume), gathered again.
 * ``restore``: a Trainer on a (1, 1) mesh restores that checkpoint.
-* ``decode``: the llama31 smoke config in f32 prefills 4 prompts and
-  decodes 4 greedy steps under ``DECODE_RULES`` on a (2, 2) mesh; logits
-  of every step and the tokens.
+* ``decode``: the llama31 and mamba2 smoke configs in f32 prefill 4
+  prompts and decode 4 greedy steps under ``DECODE_RULES`` on a (2, 2)
+  mesh, every parameter and state leaf a DTensor; logits of every step,
+  the tokens and mamba2's final SSM state.
 * ``moe``: the dbrx smoke config's MoE layer on a (2, 2) mesh under
   ``TRAIN_RULES``: its output and aux loss.
 """
@@ -45,6 +46,7 @@ TRAIN_ARCHS = ("qwen2.5-3b", "mamba2-2.7b")
 STEPS = 3
 BATCH, SEQ = 4, 32
 PROMPT, DECODE_STEPS = 8, 4
+DECODE_ARCHS = ("llama31-8b", "mamba2-2.7b")
 
 
 def f32_smoke(arch: str):
@@ -91,7 +93,14 @@ def decode_tokens(vocab: int) -> torch.Tensor:
 
 
 def run_decode(_out_dir: str):
-    cfg = f32_smoke("llama31-8b")
+    res = {}
+    for arch in DECODE_ARCHS:
+        res.update({f"{arch}/{k}": v for k, v in meshed_decode(arch).items()})
+    return res
+
+
+def meshed_decode(arch: str):
+    cfg = f32_smoke(arch)
     model = TransformerLM(cfg)
     mesh = make_mesh((2, 2), ("data", "model"), "cpu")
     params = distribute_tree(model.init(torch.Generator().manual_seed(0), "cpu"), mesh,
@@ -110,7 +119,10 @@ def run_decode(_out_dir: str):
             toks.append(nxt.numpy())
             logits, state = model.decode_step(params, state, nxt)
         logits_all.append(logits.full_tensor().numpy())
-    return {"logits": np.stack(logits_all), "tokens": np.stack(toks)}
+    res = {"logits": np.stack(logits_all), "tokens": np.stack(toks)}
+    if state.ssm is not None:
+        res["ssm_h"] = state.ssm["h"].full_tensor().numpy()
+    return res
 
 
 def moe_inputs(seed: int = 0):
